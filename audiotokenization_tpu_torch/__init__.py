@@ -1,0 +1,13 @@
+"""audiotokenization_tpu_torch — the BigCodec tokenizer in PyTorch on CUDA.
+
+The PyTorch/CUDA counterpart of ``audiotokenization_tpu``: the same module
+layout, parameter names and (B, C, T) layouts, with hand-written Hopper
+(sm_90a) CUDA kernels where the JAX package has Pallas kernels
+(``csrc/``). This package imports neither jax nor the JAX package.
+
+Covered so far: the flagship BigCodec serving path — ``models.codec.tokenize``
+(wav -> encoder -> factorized-VQ argmin -> int codes) and
+``codes_to_emb`` -> ``decode`` back to a waveform.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,134 @@
+"""Codec facade: encoder + quantizer + decoder.
+
+Counterpart of ``audiotokenization_tpu/models/codec.py`` for the BigCodec
+encoder/decoder and the factorized-VQ quantizer. The serving path is
+``tokenize`` (wav -> codes (Nq, B, Tf)) and ``codes_to_emb`` ->
+``apply_fc_post_a`` -> ``decode`` (codes -> wav).
+
+Precision: cuDNN runs fp32 convolutions in TF32 unless told not to, which
+flips tokens as the TPU's bf16 default did. ``full_fp32()`` turns TF32 off
+for matmuls and cuDNN and restores the flags after; conformant ``tokenize``
+runs inside it, and so should ``decode`` wherever waveforms are held to the
+conformance tolerances. The VQ distance is always fp32.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch import nn
+
+from ..config import Config
+from . import bigcodec
+from .quantizers import factorized_vq as fvq
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. CUDA without a card raises: the
+    port never drops to the CPU on its own; pass ``device="cpu"`` for the
+    plain PyTorch versions."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to "
+                           "run the plain PyTorch versions of the kernels")
+    return device
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matmuls and cuDNN convolutions/RNNs without TF32, for the body."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+class Codec(nn.Module):
+    """BigCodec encoder, factorized residual VQ and BigCodec decoder, with
+    parameter names as in the JAX tree (``encoder``, ``quantizer``,
+    ``decoder``)."""
+
+    def __init__(self, cfg: Config, *, generator: torch.Generator):
+        super().__init__()
+        e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
+        quantizer = "fsq" if d.fsq else d.quantizer
+        if (e.type, d.type, quantizer) != ("bigcodec", "bigcodec", "fvq"):
+            raise NotImplementedError(
+                f"only the BigCodec codec with the factorized VQ is ported, got "
+                f"{e.type}/{quantizer}/{d.type}")
+        if cfg.train.use_semantic:
+            raise NotImplementedError("the semantic branch is not ported yet")
+        self.cfg = cfg
+        self.encoder = bigcodec.BigCodecEncoder(
+            ngf=e.ngf, up_ratios=e.up_ratios, dilations=e.dilations,
+            out_channels=e.out_channels, use_rnn=e.use_rnn,
+            rnn_num_layers=e.rnn_num_layers, rnn_bidirectional=e.rnn_bidirectional,
+            causal=e.causal, antialias=e.antialias, generator=generator)
+        self.decoder = bigcodec.BigCodecDecoder(
+            in_channels=d.in_channels,
+            upsample_initial_channel=d.upsample_initial_channel,
+            up_ratios=d.up_ratios, dilations=d.dilations, use_rnn=d.use_rnn,
+            rnn_num_layers=d.rnn_num_layers, rnn_bidirectional=d.rnn_bidirectional,
+            causal=d.causal, antialias=d.antialias, generator=generator)
+        self.quantizer = fvq.ResidualVQ(
+            num_quantizers=d.vq_num_quantizers, dim=d.in_channels,
+            codebook_size=d.codebook_size, codebook_dim=d.codebook_dim,
+            generator=generator)
+
+
+def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Codec:
+    """A randomly initialised codec (weights drawn on the CPU from
+    ``generator``), moved to ``device`` in eval mode."""
+    device = resolve_device(device)
+    return Codec(cfg, generator=generator).to(device).eval()
+
+
+def encode(codec: Codec, wav):
+    """wav (B, T) -> latents (B, C, Tf)."""
+    return bigcodec.bigcodec_encode(codec.encoder, wav[:, None, :])
+
+
+def quantize(codec: Codec, latents, *, training: bool = False):
+    """latents (B, C, Tf) -> (quantized (B, C, Tf), codes (Nq, B, Tf), loss (Nq,))."""
+    d = codec.cfg.model.codec_decoder
+    return fvq.residual_vq_apply(codec.quantizer, latents,
+                                 num_quantizers=d.vq_num_quantizers,
+                                 commitment=d.vq_commit_weight, training=training)
+
+
+def decode(codec: Codec, quantized):
+    """quantized latents (B, C, Tf) -> waveform (B, 1, Tf · hop)."""
+    return bigcodec.bigcodec_decode(codec.decoder, quantized)
+
+
+def codes_to_emb(codec: Codec, codes, *, proj: bool = True):
+    """codes (B, Tf, Nq) -> decoder-input embeddings (B, C, Tf)."""
+    return fvq.residual_vq_codes_to_emb(codec.quantizer, codes, proj=proj).transpose(1, 2)
+
+
+def apply_fc_post_a(codec: Codec, emb):
+    """Semantic checkpoints decode fc_post_a(z_q); the port builds no semantic
+    branch yet (``Codec`` refuses ``use_semantic``), so embeddings pass
+    through unchanged, as they do for non-semantic trees in JAX."""
+    return emb
+
+
+def tokenize(codec: Codec, wav, *, mode: str = "conformant"):
+    """wav (B, T) -> token indices (Nq, B, Tf) int32, on the codec's device.
+
+    mode='conformant': full fp32 everywhere (no TF32), the mode held to the
+    JAX package's tokens. The faster modes ('high', 'balanced', 'fast') are
+    not ported yet.
+    """
+    if mode in ("high", "balanced", "fast"):
+        raise NotImplementedError(f"tokenize mode {mode!r} is not ported yet")
+    if mode != "conformant":
+        raise ValueError(f"unknown tokenize mode {mode!r}")
+    device = codec.quantizer.layers[0].codebook.device
+    wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
+    with full_fp32(), torch.no_grad():
+        _, codes, _ = quantize(codec, encode(codec, wav))
+    return codes

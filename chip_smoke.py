@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Build the CUDA kernels of ``audiotokenization_tpu_torch`` and drive its
+serving path on one GPU.
+
+    python3 chip_smoke.py        # from the repo root, on a machine with a card
+
+Phases, each fatal on failure:
+ 1. the card's name and power limit (nvidia-smi);
+ 2. build every kernel (one nvcc per source, started together);
+ 3. K1 (vq_argmin) against its plain version at the flagship shape and the
+    cases of tests/test_pallas_vq.py;
+ 4. K2 (fused_residual_unit) against its plain version at the 15 (C, T, d)
+    shapes of the flagship's units, batch 32, TF32 off;
+ 5. the main path on the flagship Config(): tokenize 32 requests x 1 s, then
+    codes_to_emb -> decode, checked against the same weights on the CPU;
+ 6. launch counts of that run: K1 once and K2 15 times per tokenize, K2 15
+    times per decode;
+ 7. times (CUDA events): tokenize/decode audio-s/s, a torch.profiler split of
+    one call of each by kernel with the card's idle share, and per kernel its
+    time, its plain version's, a library yardstick's and its bound.
+The last line is {"ok": true, "device": {...}}. Without a card, or without
+the package beside it, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# Published H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the
+# tensor cores (the conformant path forbids TF32) and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+B, SR = 32, 16000          # 32 requests x 1 s at 16 kHz, as bench.py
+GAP = 1e-5                 # near-tie threshold for token comparisons
+K2_RTOL = K2_ATOL = 1e-4   # fp32 sums over up to 7*768 terms in another order
+LAT_RTOL, LAT_ATOL = 1e-3, 2e-4   # the repo's latent tolerance
+WAV_RTOL, WAV_ATOL = 1e-3, 2e-5   # the repo's waveform tolerance
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def plain_dist(enc, codebook):
+    """The plain version's distance matrix (M, N)."""
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import l2_normalize
+
+    e, c = l2_normalize(enc.float()), l2_normalize(codebook.float())
+    return (torch.sum(e * e, dim=1, keepdim=True) - 2.0 * (e @ c.T)
+            + torch.sum(c * c, dim=1)[None, :])
+
+
+def top2_gap(dist):
+    v = dist.topk(2, dim=1, largest=False).values
+    return v[:, 1] - v[:, 0]
+
+
+def check_k1():
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin, vq_argmin_plain
+
+    def rand(seed, m, n, d):
+        rng = np.random.RandomState(seed)
+        return rng.randn(m, d).astype(np.float32), rng.randn(n, d).astype(np.float32)
+
+    rng = np.random.RandomState(2)
+    half = rng.randn(64, 8).astype(np.float32)
+    dup = (rng.randn(50, 8).astype(np.float32), np.concatenate([half, half]))
+    cases = {"flagship 2560x8 vs 8192x8": rand(10, 2560, 8192, 8),
+             "700x8 vs 8192x8": rand(0, 700, 8192, 8),
+             "37x8 vs 128x8": rand(1, 37, 128, 8),
+             "duplicated codes 50x8 vs 2x64x8": dup,
+             "ragged 1000x5 vs 1000x5": rand(3, 1000, 1000, 5)}
+    worst = 0.0
+    for name, (e, c) in cases.items():
+        enc, cb = torch.from_numpy(e).cuda(), torch.from_numpy(c).cuda()
+        got = vq_argmin(enc, cb).long()
+        want = vq_argmin_plain(enc, cb).long()
+        torch.cuda.synchronize()
+        dist = plain_dist(enc, cb)
+        gap = top2_gap(dist)
+        near = gap < GAP
+        bad = (got != want) & ~near
+        rows = torch.arange(len(enc), device=enc.device)
+        err = (dist[rows, got] - dist[rows, want]).abs().max().item()
+        worst = max(worst, err)
+        print(f"K1 {name}: {int((got != want).sum())} of {len(enc)} rows differ, "
+              f"{int(near.sum())} rows under the {GAP:g} top-2 gap, "
+              f"max |dist(kernel) - dist(plain)| = {err:.3g}")
+        if bad.any():
+            fail(f"K1 {name}: {int(bad.sum())} rows differ with a top-2 gap >= {GAP:g}")
+        if name.startswith("duplicated") and not bool((got < 64).all()):
+            fail("K1 duplicated codes: a tie did not resolve to the lowest index")
+    return worst
+
+
+def unit_inputs(C, T, d, seed=0):
+    """A ResidualUnit's tensors as the main path feeds K2, on the card:
+    torch-default conv init and non-trivial snake parameters."""
+    import torch
+    from audiotokenization_tpu_torch.ops.conv import kaiming_uniform_fan_in, uniform_fan_in_bias
+
+    g = torch.Generator().manual_seed(seed + 1000 * d + C)
+    x = torch.randn((B, C, T), generator=g)
+    w7 = kaiming_uniform_fan_in((C, C, 7), generator=g)
+    w1 = kaiming_uniform_fan_in((C, C, 1), generator=g)
+    b7 = uniform_fan_in_bias((C,), 7 * C, generator=g)
+    b1 = uniform_fan_in_bias((C,), C, generator=g)
+    snakes = [0.1 * torch.randn((C,), generator=g) for _ in range(4)]
+    return [t.cuda() for t in (x, w7, b7, w1, b1, *snakes)]
+
+
+def unit_shapes(cfg):
+    """(C, T, d) of the encoder's ResidualUnits for 1 s; the decoder runs the
+    same 15 shapes in the mirror order."""
+    e = cfg.model.codec_encoder
+    shapes, c, t = [], e.ngf, SR
+    for stride in e.up_ratios:
+        shapes += [(c, t, d) for d in e.dilations]
+        c, t = 2 * c, t // stride
+    return shapes
+
+
+def check_k2(shapes):
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import (
+        fused_residual_unit, residual_unit_plain)
+
+    worst = 0.0
+    for C, T, d in shapes:
+        args = unit_inputs(C, T, d)
+        got = fused_residual_unit(*args, dilation=d)
+        want = residual_unit_plain(*args, dilation=d)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = diff.max().item()
+        worst = max(worst, err)
+        ok = bool((diff <= K2_ATOL + K2_RTOL * want.abs()).all())
+        print(f"K2 C={C} T={T} d={d}: max |kernel - plain| = {err:.3g}")
+        if not ok or not torch.isfinite(got).all():
+            fail(f"K2 C={C} T={T} d={d} outside rtol {K2_RTOL:g} / atol {K2_ATOL:g}")
+    return worst
+
+
+def main_path(cfg):
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.conv import fold_weight_norm, linear
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+    codec = C.init_codec(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    fold_weight_norm(codec)
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    wav = torch.from_numpy(wav_np).cuda()
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+
+    def synthesize(codec, codes):
+        with C.full_fp32(), torch.no_grad():
+            emb = C.apply_fc_post_a(codec, C.codes_to_emb(codec, codes.permute(1, 2, 0)))
+            return C.decode(codec, emb)
+
+    vq_argmin.launches = fused_residual_unit.launches = 0
+    codes = C.tokenize(codec, wav, mode="conformant")
+    torch.cuda.synchronize()
+    tok_launches = (vq_argmin.launches, fused_residual_unit.launches)
+    vq_argmin.launches = fused_residual_unit.launches = 0
+    out = synthesize(codec, codes)
+    torch.cuda.synchronize()
+    dec_launches = (vq_argmin.launches, fused_residual_unit.launches)
+    print(f"main path launches: tokenize K1 {tok_launches[0]} K2 {tok_launches[1]}; "
+          f"decode K1 {dec_launches[0]} K2 {dec_launches[1]}")
+    if tok_launches != (nq, n_units) or dec_launches != (0, n_units):
+        fail(f"expected K1 {nq} and K2 {n_units} launches per tokenize and K2 "
+             f"{n_units} per decode")
+    tf = SR // int(np.prod(cfg.model.codec_encoder.up_ratios))
+    if tuple(codes.shape) != (nq, B, tf) or tuple(out.shape) != (B, 1, SR):
+        fail(f"shapes: codes {tuple(codes.shape)}, wav {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        fail("decoded waveform has non-finite values")
+
+    # the same weights on the CPU, where the wrappers take the plain versions
+    n_ref = 2
+    cpu = copy.deepcopy(codec).cpu()
+    with C.full_fp32(), torch.no_grad():
+        lat_gpu = C.encode(codec, wav[:n_ref]).cpu()
+        lat_cpu = C.encode(cpu, torch.from_numpy(wav_np[:n_ref]))
+        _, codes_cpu, _ = C.quantize(cpu, lat_cpu)
+        layer = cpu.quantizer.layers[0]
+        z_e = linear(lat_cpu.transpose(1, 2), layer.in_proj)
+        gap = top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook))
+    wav_cpu = synthesize(cpu, codes[:, :n_ref].cpu())
+    tok_gpu = codes[:, :n_ref].cpu()
+    flips = (tok_gpu != codes_cpu).reshape(-1)
+    near = gap < GAP
+    lat_err = (lat_gpu - lat_cpu).abs().max().item()
+    wav_err = (out[:n_ref].cpu() - wav_cpu).abs().max().item()
+    print(f"main path vs CPU ({n_ref} requests): {int(flips.sum())} of {flips.numel()} "
+          f"tokens differ, {int(near.sum())} frames under the {GAP:g} top-2 gap; "
+          f"max |dlatent| = {lat_err:.3g}, max |dwav| = {wav_err:.3g}")
+    if (flips & ~near).any():
+        fail("tokens differ from the CPU at frames with a top-2 gap >= 1e-5")
+    if not torch.allclose(lat_gpu, lat_cpu, rtol=LAT_RTOL, atol=LAT_ATOL):
+        fail("latents outside rtol 1e-3 / atol 2e-4 of the CPU")
+    if not torch.allclose(out[:n_ref].cpu(), wav_cpu, rtol=WAV_RTOL, atol=WAV_ATOL):
+        fail("waveforms outside rtol 1e-3 / atol 2e-5 of the CPU")
+    del cpu
+
+    tok_ms = cuda_ms(lambda: C.tokenize(codec, wav), iters=5)
+    dec_ms = cuda_ms(lambda: synthesize(codec, codes), iters=5)
+    print(json.dumps({"tokenize_profile": device_profile(lambda: C.tokenize(codec, wav))}))
+    print(json.dumps({"decode_profile": device_profile(lambda: synthesize(codec, codes))}))
+    return {"tokenize_ms": tok_ms, "tokenize_audio_s_per_s": B / (tok_ms / 1e3),
+            "decode_ms": dec_ms, "decode_audio_s_per_s": B / (dec_ms / 1e3),
+            "launches": {"vq_argmin": tok_launches[0] + dec_launches[0],
+                         "residual_unit": tok_launches[1] + dec_launches[1]},
+            "max_abs_err_latent": lat_err, "max_abs_err_wav": wav_err,
+            "token_flips": int(flips.sum()), "near_ties": int(near.sum())}
+
+
+def device_profile(fn, top: int = 8):
+    """Device time of one call by kernel (torch.profiler), and the share of
+    the call's wall time (host clock, ending in a synchronize, profiler
+    overhead included) in which the card ran nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:  # kernels and copies, as the card ran them
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, float("-inf")  # the union of the spans: streams may overlap
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    kernels = sorted(((name[:90], ms, n) for name, (ms, n) in by_name.items()),
+                     key=lambda k: -k[1])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "kernel_ms_sum": sum(k[1] for k in kernels),
+            "idle_share": 1 - busy_us / 1e3 / wall_ms if spans else None,
+            "top_kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
+
+
+def bound_ms(ops: float, nbytes: float):
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_k1(cfg):
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import (l2_normalize, vq_argmin,
+                                                               vq_argmin_plain)
+
+    d = cfg.model.codec_decoder
+    m, n, dim = B * SR // int(np.prod(cfg.model.codec_encoder.up_ratios)), d.codebook_size, d.codebook_dim
+    rng = np.random.RandomState(10)
+    enc = torch.from_numpy(rng.randn(m, dim).astype(np.float32)).cuda()
+    cb = torch.from_numpy(rng.randn(n, dim).astype(np.float32)).cuda()
+    enc_n, cb_n = l2_normalize(enc), l2_normalize(cb)
+    ms = cuda_ms(lambda: vq_argmin(enc, cb), iters=50)
+    plain = cuda_ms(lambda: vq_argmin_plain(enc, cb), iters=50)
+    # yardstick: the cross-term matmul and the reduction, as two library calls
+    library = cuda_ms(lambda: torch.argmax(torch.mm(enc_n, cb_n.T), dim=1), iters=50)
+    ops = m * n * (2 * dim + 3)  # dot, two adds, one compare per (row, code)
+    return ms, plain, library, *bound_ms(ops, 4 * (m * dim + n * dim + m))
+
+
+def time_k2(shapes):
+    import torch
+    import torch.nn.functional as F
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import (
+        fused_residual_unit, residual_unit_plain)
+
+    rows = []
+    for C, T, d in shapes:
+        args = unit_inputs(C, T, d)
+        x, w7, b7, w1, b1 = args[:5]
+        ms = cuda_ms(lambda: fused_residual_unit(*args, dilation=d), iters=10)
+        plain = cuda_ms(lambda: residual_unit_plain(*args, dilation=d), iters=10)
+        library = cuda_ms(lambda: (F.conv1d(x, w7, b7, padding=3 * d, dilation=d),
+                                   F.conv1d(x, w1, b1)), iters=10)
+        ops = 16 * C * C * T * B
+        bnd, by = bound_ms(ops, 4 * (2 * B * C * T + 8 * C * C + 6 * C))
+        rows.append({"C": C, "T": T, "d": d, "ms": ms, "plain_ms": plain,
+                     "library_ms": library, "bound_ms": bnd, "bound_by": by})
+        print(json.dumps({"k2_shape": rows[-1]}))
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from audiotokenization_tpu_torch.config import Config
+    from audiotokenization_tpu_torch.ops.cuda import build
+
+    card = card_line()
+    print(card)  # name and power limit, as nvidia-smi gives them
+    kind = torch.cuda.get_device_name(0)
+
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    print(f"built {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config()
+    shapes = unit_shapes(cfg)
+    k1_err = check_k1()
+    k2_err = check_k2(shapes)
+    e2e = main_path(cfg)
+    print(json.dumps({"end_to_end": e2e, "card": card}))
+
+    k1_ms, k1_plain, k1_lib, k1_bound, k1_by = time_k1(cfg)
+    rows = time_k2(shapes)
+    # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
+    # 15 at the same shapes (decode), so twice the per-shape sums.
+    per_path = e2e["launches"]["residual_unit"] // len(shapes)
+    tot = {k: per_path * sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    kernels = [
+        {"name": "vq_argmin", "route": "cuda",
+         "source": "audiotokenization_tpu_torch/csrc/vq_argmin.cu",
+         "replaces": "audiotokenization_tpu/ops/pallas/vq_kernel.py:33",
+         "launches": e2e["launches"]["vq_argmin"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": k1_by, "library_ms": k1_lib},
+        {"name": "fused_residual_unit", "route": "cuda",
+         "source": "audiotokenization_tpu_torch/csrc/residual_unit.cu",
+         "replaces": "audiotokenization_tpu/ops/pallas/residual_unit_kernel.py:46",
+         "launches": e2e["launches"]["residual_unit"], "max_abs_err": k2_err,
+         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+         "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in rows)
+                      else "bytes"),
+         "library_ms": tot["library_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels, "card": card,
+                      "note": "K1 per call; K2 summed over the main path's "
+                              f"{e2e['launches']['residual_unit']} unit launches"}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
