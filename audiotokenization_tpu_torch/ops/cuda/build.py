@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers, so
 nvcc takes seconds) and is compiled on first use for Hopper into
-``build/kernels/<name>-<hash of the source>.so`` beside the package:
+``build/kernels/<name>-<hash>.so`` beside the package, the hash taken over
+the source and every ``csrc/*.cuh`` header it may include:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v
@@ -23,7 +24,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-KERNELS = ("vq_argmin", "residual_unit")
+KERNELS = ("vq_argmin", "residual_unit", "probe_unit")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,9 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, str]:

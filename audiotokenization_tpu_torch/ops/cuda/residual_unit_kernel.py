@@ -5,7 +5,8 @@
 Counterpart of ``audiotokenization_tpu/ops/pallas/residual_unit_kernel.py::
 fused_residual_unit`` (non-causal, no anti-aliasing, inference). On CUDA
 tensors ``fused_residual_unit`` launches the Hopper kernel of
-``csrc/residual_unit.cu``, for every channel count; on CPU tensors it
+``csrc/residual_unit.cu`` (two split-TF32 tensor-core passes, see
+``csrc/split_tf32_unit.cuh``), for every channel count; on CPU tensors it
 computes ``residual_unit_plain``, the unit as the JAX package's XLA path
 computes it (``models/bigcodec.py::residual_unit``).
 """
@@ -52,6 +53,7 @@ def _check(x, tensors, dilation):
         if name != "x" and tuple(t.shape) != shapes[name]:
             raise ValueError(f"fused_residual_unit: {name} must be {shapes[name]}, "
                              f"got {tuple(t.shape)}")
+    # the two staging slots and the snake parameters fit in shared memory
     if not (1 <= dilation <= 64 and 1 <= B <= 65535 and 1 <= C <= 4096
             and 1 <= T < 2 ** 31):
         raise ValueError(f"fused_residual_unit: the kernel takes dilation <= 64, "

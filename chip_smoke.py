@@ -9,15 +9,23 @@ Phases, each fatal on failure:
  2. build every kernel (one nvcc per source, started together);
  3. K1 (vq_argmin) against its plain version at the flagship shape and the
     cases of tests/test_pallas_vq.py;
- 4. K2 (fused_residual_unit) against its plain version at the 15 (C, T, d)
-    shapes of the flagship's units, batch 32, TF32 off;
+ 4. K2 (fused_residual_unit) at the 15 (C, T, d) shapes of the flagship's
+    units, batch 32: within rtol/atol 1e-4 of its fp32 plain version (cuDNN,
+    TF32 off), and against the plain version in float64 no more than 4x as
+    far off as the fp32 plain version is; the count of tensor-core (HMMA)
+    instructions in its library, which must not be 0;
+ 4b. both at a few small ragged shapes (4-byte copies, masked edges);
+ 4c. P1 (probe_unit, the probe of scripts/probe_v5.py) driven at the probe's
+    three shapes (C 48/96/192, T 16000/8000/4000, d 3, B 32) with its launch
+    count, then held to the same two checks;
  5. the main path on the flagship Config(): tokenize 32 requests x 1 s, then
     codes_to_emb -> decode, checked against the same weights on the CPU;
  6. launch counts of that run: K1 once and K2 15 times per tokenize, K2 15
     times per decode;
  7. times (CUDA events): tokenize/decode audio-s/s, a torch.profiler split of
     one call of each by kernel with the card's idle share, and per kernel its
-    time, its plain version's, a library yardstick's and its bound.
+    time, its plain version's, a library yardstick's and its bound (K2 and
+    P1 both for their split-TF32 route and for fp32 on the SIMT pipes).
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -31,13 +39,18 @@ import time
 from pathlib import Path
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the
-# tensor cores (the conformant path forbids TF32) and HBM3 bandwidth.
+# tensor cores, dense TF32 in them, and HBM3 bandwidth. K2 and P1 run each
+# fp32 product as three TF32 products (split-TF32).
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+SPLIT_TF32_PASSES = 3
 PEAK_HBM_BYTES = 3.35e12
 
 B, SR = 32, 16000          # 32 requests x 1 s at 16 kHz, as bench.py
 GAP = 1e-5                 # near-tie threshold for token comparisons
 K2_RTOL = K2_ATOL = 1e-4   # fp32 sums over up to 7*768 terms in another order
+F64_RATIO = 4.0            # kernel's error vs float64 <= 4x the fp32 plain version's
+PROBE_SHAPES = [(48, 16000, 3), (96, 8000, 3), (192, 4000, 3)]  # scripts/probe_v5.py
 LAT_RTOL, LAT_ATOL = 1e-3, 2e-4   # the repo's latent tolerance
 WAV_RTOL, WAV_ATOL = 1e-3, 2e-5   # the repo's waveform tolerance
 
@@ -149,8 +162,28 @@ def unit_shapes(cfg):
     return shapes
 
 
-def check_k2(shapes):
+def hold(name, got, plain, plain64):
+    """Fail unless ``got`` is finite, within rtol/atol 1e-4 of the fp32 plain
+    version, and no more than F64_RATIO times as far from the float64 plain
+    version as the fp32 plain version is. Returns max |got - plain|."""
     import torch
+
+    torch.cuda.synchronize()
+    diff = (got - plain).abs()
+    err = diff.max().item()
+    err64 = (got.double() - plain64).abs().max().item()
+    plain_err64 = (plain.double() - plain64).abs().max().item()
+    print(f"{name}: max |kernel - plain32| = {err:.3g}, max |kernel - plain64| = "
+          f"{err64:.3g}, max |plain32 - plain64| = {plain_err64:.3g}")
+    if not torch.isfinite(got).all() or not bool((diff <= K2_ATOL + K2_RTOL * plain.abs()).all()):
+        fail(f"{name} outside rtol {K2_RTOL:g} / atol {K2_ATOL:g} of its plain version")
+    if err64 > F64_RATIO * plain_err64:
+        fail(f"{name}: error against float64 {err64:.3g} is more than {F64_RATIO:g}x the "
+             f"fp32 plain version's {plain_err64:.3g}")
+    return err
+
+
+def check_k2(shapes):
     from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import (
         fused_residual_unit, residual_unit_plain)
 
@@ -159,15 +192,81 @@ def check_k2(shapes):
         args = unit_inputs(C, T, d)
         got = fused_residual_unit(*args, dilation=d)
         want = residual_unit_plain(*args, dilation=d)
-        torch.cuda.synchronize()
-        diff = (got - want).abs()
-        err = diff.max().item()
-        worst = max(worst, err)
-        ok = bool((diff <= K2_ATOL + K2_RTOL * want.abs()).all())
-        print(f"K2 C={C} T={T} d={d}: max |kernel - plain| = {err:.3g}")
-        if not ok or not torch.isfinite(got).all():
-            fail(f"K2 C={C} T={T} d={d} outside rtol {K2_RTOL:g} / atol {K2_ATOL:g}")
+        want64 = residual_unit_plain(*(a.double() for a in args), dilation=d)
+        worst = max(worst, hold(f"K2 C={C} T={T} d={d}", got, want, want64))
+        del want64
     return worst
+
+
+def check_ragged():
+    """K2 and P1 at small shapes whose C or T are not multiples of 4, 8 or
+    the tiles: the 4-byte copies and the masked edges, which the codec's
+    widths never reach. Held to the same two checks; B = 2."""
+    from audiotokenization_tpu_torch.ops.cuda.probe_unit_kernel import (probe_unit,
+                                                                       probe_unit_plain)
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import (
+        fused_residual_unit, residual_unit_plain)
+
+    for C, T, d in [(20, 333, 3), (100, 250, 9), (192, 402, 1), (96, 404, 3)]:
+        args = unit_inputs(C, T, d)
+        args[0] = args[0][:2].contiguous()
+        hold(f"K2 ragged C={C} T={T} d={d}", fused_residual_unit(*args, dilation=d),
+             residual_unit_plain(*args, dilation=d),
+             residual_unit_plain(*(a.double() for a in args), dilation=d))
+    for C, T, d in [(20, 333, 3), (18, 101, 2)]:
+        args = probe_inputs(C, T, d)
+        args[0] = args[0][:2].contiguous()
+        hold(f"P1 ragged C={C} T={T} d={d}", probe_unit(*args, dilation=d),
+             probe_unit_plain(*args, dilation=d),
+             probe_unit_plain(*(a.double() for a in args), dilation=d))
+
+
+def hmma_count(name: str) -> int:
+    """Tensor-core (HMMA) instructions in the SASS of a built library."""
+    from audiotokenization_tpu_torch.ops.cuda import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
+def probe_inputs(C, T, d, seed=0):
+    """The probe's inputs as scripts/probe_v5.py makes them, on the card:
+    x (B, T, C) * 0.1, W7 and W1 * 0.05 in its layouts w7t (7C, C), w1t (C, C)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed + C)
+    x = rng.randn(B, T, C).astype(np.float32) * 0.1
+    w7 = rng.randn(C, C, 7).astype(np.float32) * 0.05
+    w1 = rng.randn(C, C, 1).astype(np.float32) * 0.05
+    w7t = np.ascontiguousarray(np.transpose(w7, (2, 1, 0)).reshape(7 * C, C))
+    w1t = np.ascontiguousarray(w1[:, :, 0].T)
+    return [torch.from_numpy(a).cuda() for a in (x, w7t, w1t)]
+
+
+def probe_path():
+    """P1's own path: one probe_unit call per probe shape, counted, then each
+    output held against the plain version in fp32 and float64."""
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.probe_unit_kernel import (probe_unit,
+                                                                       probe_unit_plain)
+
+    probe_unit.launches = 0
+    outs = [probe_unit(*probe_inputs(C, T, d), dilation=d) for C, T, d in PROBE_SHAPES]
+    torch.cuda.synchronize()
+    launches = probe_unit.launches
+    print(f"probe path launches: P1 {launches}")
+    if launches != len(PROBE_SHAPES):
+        fail(f"expected {len(PROBE_SHAPES)} P1 launches on the probe path, got {launches}")
+    worst = 0.0
+    for (C, T, d), got in zip(PROBE_SHAPES, outs):
+        args = probe_inputs(C, T, d)
+        want = probe_unit_plain(*args, dilation=d)
+        want64 = probe_unit_plain(*(a.double() for a in args), dilation=d)
+        worst = max(worst, hold(f"P1 C={C} T={T} d={d}", got, want, want64))
+    return launches, worst
 
 
 def main_path(cfg):
@@ -282,9 +381,16 @@ def device_profile(fn, top: int = 8):
             "top_kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
 
 
-def bound_ms(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(ops: float, nbytes: float, flops_per_s: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = ops / flops_per_s, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def unit_bounds(ops: float, nbytes: float) -> dict:
+    """A unit's bound on the split-TF32 route (three TF32 products per fp32
+    product) and, for comparison, in fp32 on the SIMT pipes."""
+    bnd, by = bound_ms(ops, nbytes, PEAK_TF32_FLOPS / SPLIT_TF32_PASSES)
+    return {"bound_ms": bnd, "bound_by": by, "bound_simt_ms": bound_ms(ops, nbytes)[0]}
 
 
 def time_k1(cfg):
@@ -321,11 +427,34 @@ def time_k2(shapes):
         plain = cuda_ms(lambda: residual_unit_plain(*args, dilation=d), iters=10)
         library = cuda_ms(lambda: (F.conv1d(x, w7, b7, padding=3 * d, dilation=d),
                                    F.conv1d(x, w1, b1)), iters=10)
-        ops = 16 * C * C * T * B
-        bnd, by = bound_ms(ops, 4 * (2 * B * C * T + 8 * C * C + 6 * C))
         rows.append({"C": C, "T": T, "d": d, "ms": ms, "plain_ms": plain,
-                     "library_ms": library, "bound_ms": bnd, "bound_by": by})
+                     "library_ms": library,
+                     **unit_bounds(16 * C * C * T * B, 4 * (2 * B * C * T + 8 * C * C + 6 * C))})
         print(json.dumps({"k2_shape": rows[-1]}))
+    return rows
+
+
+def time_p1():
+    import torch
+    import torch.nn.functional as F
+    from audiotokenization_tpu_torch.ops.cuda.probe_unit_kernel import (probe_unit,
+                                                                       probe_unit_plain)
+
+    rows = []
+    for C, T, d in PROBE_SHAPES:
+        x, w7t, w1t = probe_inputs(C, T, d)
+        # yardstick: the probe's XLA comparison, two convolutions on the same data
+        xc = x.transpose(1, 2).contiguous()
+        w7 = w7t.reshape(7, C, C).permute(2, 1, 0).contiguous()
+        w1 = w1t.t().contiguous()[:, :, None]
+        ms = cuda_ms(lambda: probe_unit(x, w7t, w1t, dilation=d), iters=10)
+        plain = cuda_ms(lambda: probe_unit_plain(x, w7t, w1t, dilation=d), iters=10)
+        library = cuda_ms(lambda: (F.conv1d(xc, w7, padding=3 * d, dilation=d),
+                                   F.conv1d(xc, w1)), iters=10)
+        rows.append({"C": C, "T": T, "d": d, "ms": ms, "plain_ms": plain,
+                     "library_ms": library,
+                     **unit_bounds(16 * C * C * T * B, 4 * (2 * B * C * T + 8 * C * C))})
+        print(json.dumps({"p1_shape": rows[-1]}))
     return rows
 
 
@@ -348,8 +477,12 @@ def main() -> int:
     print(f"built {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
+    hmma = hmma_count("residual_unit")
+    print(f"residual_unit: {hmma} HMMA instructions")
+    if hmma == 0:
+        fail("the residual_unit library has no tensor-core (HMMA) instructions")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -357,16 +490,25 @@ def main() -> int:
     shapes = unit_shapes(cfg)
     k1_err = check_k1()
     k2_err = check_k2(shapes)
+    check_ragged()
+    p1_launches, p1_err = probe_path()
     e2e = main_path(cfg)
     print(json.dumps({"end_to_end": e2e, "card": card}))
 
     k1_ms, k1_plain, k1_lib, k1_bound, k1_by = time_k1(cfg)
     rows = time_k2(shapes)
+    p1_rows = time_p1()
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
-    # 15 at the same shapes (decode), so twice the per-shape sums.
+    # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
+    # launch per probe shape.
     per_path = e2e["launches"]["residual_unit"] // len(shapes)
-    tot = {k: per_path * sum(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_simt_ms")
+    tot = {k: per_path * sum(r[k] for r in rows) for k in keys}
+    p1 = {k: sum(r[k] for r in p1_rows) for k in keys}
+
+    def bound_by(rs):
+        return "operations" if all(r["bound_by"] == "operations" for r in rs) else "bytes"
+
     kernels = [
         {"name": "vq_argmin", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/vq_argmin.cu",
@@ -379,13 +521,20 @@ def main() -> int:
          "replaces": "audiotokenization_tpu/ops/pallas/residual_unit_kernel.py:46",
          "launches": e2e["launches"]["residual_unit"], "max_abs_err": k2_err,
          "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-         "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in rows)
-                      else "bytes"),
+         "bound_by": bound_by(rows), "bound_simt_ms": tot["bound_simt_ms"],
          "library_ms": tot["library_ms"]},
+        {"name": "probe_unit", "route": "cuda",
+         "source": "audiotokenization_tpu_torch/csrc/probe_unit.cu",
+         "replaces": "scripts/probe_v5.py:33",
+         "launches": p1_launches, "max_abs_err": p1_err,
+         "ms": p1["ms"], "plain_ms": p1["plain_ms"], "bound_ms": p1["bound_ms"],
+         "bound_by": bound_by(p1_rows), "bound_simt_ms": p1["bound_simt_ms"],
+         "library_ms": p1["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels, "card": card,
                       "note": "K1 per call; K2 summed over the main path's "
-                              f"{e2e['launches']['residual_unit']} unit launches"}))
+                              f"{e2e['launches']['residual_unit']} unit launches; P1 "
+                              f"summed over its path's {p1_launches} launches (probe shapes)"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -56,6 +56,20 @@ def test_plain_residual_unit_matches_jax(C, T, dilation, pallas):
         np.testing.assert_allclose(got, np.asarray(fused), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("version", [1, 3, 5])
+def test_plain_residual_unit_matches_other_pallas_versions(version):
+    """K2 replaces all five schedules; v4 is held above, v1, v3 and v5 here."""
+    C, T, dilation = 16, 300, 3
+    params = _jax_params(C)
+    x = np.array(jax.random.normal(jax.random.key(2), (2, C, T), jnp.float32))
+    with torch.no_grad():
+        got = TB.residual_unit(torch.from_numpy(x), _port_unit(params, C),
+                               dilation=dilation).numpy()
+    fused = jax_fused(jnp.asarray(x), params, dilation=dilation, interpret=True,
+                      version=version)
+    np.testing.assert_allclose(got, np.asarray(fused), rtol=TOL, atol=TOL)
+
+
 def test_fused_residual_unit_refuses_a_device_it_has_no_kernel_for():
     """Only CPU tensors take the plain version; anything else launches or raises."""
     C = 8
