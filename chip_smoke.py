@@ -7,8 +7,8 @@ serving path on one GPU.
 Phases, each fatal on failure:
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel (one nvcc per source, started together);
- 3. K1 (vq_argmin) against its plain version at the flagship shape and the
-    cases of tests/test_pallas_vq.py;
+ 3. K1 (vq_argmin) against its plain version at the flagship shape, the
+    cases of tests/test_pallas_vq.py and the edges of its cluster layout;
  4. K2 (fused_residual_unit) at the 15 (C, T, d) shapes of the flagship's
     units, batch 32: within rtol/atol 1e-4 of its fp32 plain version (cuDNN,
     TF32 off), and against the plain version in float64 no more than 4x as
@@ -25,7 +25,9 @@ Phases, each fatal on failure:
  7. times (CUDA events): tokenize/decode audio-s/s, a torch.profiler split of
     one call of each by kernel with the card's idle share, and per kernel its
     time, its plain version's, a library yardstick's and its bound (K2 and
-    P1 both for their split-TF32 route and for fp32 on the SIMT pipes).
+    P1 both for their split-TF32 route and for fp32 on the SIMT pipes); for
+    K1 also its device time alone (torch.profiler), and a check that one K1
+    call runs exactly one device kernel.
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -96,9 +98,16 @@ def top2_gap(dist):
 
 
 def check_k1():
+    """K1 against its plain version: the flagship shape, the cases of
+    tests/test_pallas_vq.py, and the edges of the cluster layout (one row,
+    fewer codes than a cluster, a ragged last share and tile, D = 32 and
+    the padded widths 16 and 24, 32 tiles a share, a book at a 4-byte offset
+    for the 4-byte copies, rows equal to codes, duplicates in different
+    shares)."""
     import numpy as np
     import torch
-    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin, vq_argmin_plain
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import (k1_geometry, k1_shares,
+                                                               vq_argmin, vq_argmin_plain)
 
     def rand(seed, m, n, d):
         rng = np.random.RandomState(seed)
@@ -107,14 +116,39 @@ def check_k1():
     rng = np.random.RandomState(2)
     half = rng.randn(64, 8).astype(np.float32)
     dup = (rng.randn(50, 8).astype(np.float32), np.concatenate([half, half]))
+    rng = np.random.RandomState(4)
+    book = rng.randn(8192, 8).astype(np.float32)
+    picked = rng.choice(len(book), 512, replace=False)
+    # code i and code i + 4096 are equal and lie in shares i // 1024 and i // 1024 + 4
+    across = (rng.randn(700, 8).astype(np.float32), np.concatenate([book[:4096], book[:4096]]))
+    shares = k1_shares(k1_geometry(700, 8192, 8), 8192)
+    share_of = [k for k, (lo, hi) in enumerate(shares) for _ in range(lo, hi)]
+    if share_of[0] == share_of[4096]:
+        fail("K1: the duplicates-across-shares case does not cross shares")
     cases = {"flagship 2560x8 vs 8192x8": rand(10, 2560, 8192, 8),
              "700x8 vs 8192x8": rand(0, 700, 8192, 8),
              "37x8 vs 128x8": rand(1, 37, 128, 8),
              "duplicated codes 50x8 vs 2x64x8": dup,
-             "ragged 1000x5 vs 1000x5": rand(3, 1000, 1000, 5)}
+             "ragged 1000x5 vs 1000x5": rand(3, 1000, 1000, 5),
+             "one row 1x8 vs 8192x8": rand(5, 1, 8192, 8),
+             "fewer codes than a cluster 300x8 vs 5x8": rand(6, 300, 5, 8),
+             "ragged shares 2560x8 vs 8193x8": rand(7, 2560, 8193, 8),
+             "D=32 700x32 vs 8192x32": rand(8, 700, 8192, 32),
+             "D=12 (padded to 16) 300x12 vs 1000x12": rand(12, 300, 1000, 12),
+             "D=20 (padded to 24) 300x20 vs 1000x20": rand(13, 300, 1000, 20),
+             "65536 codes 2560x8 vs 65536x8": rand(9, 2560, 65536, 8),
+             "book at a 4-byte offset 700x8 vs 8192x8": rand(11, 700, 8192, 8),
+             "rows equal to codes 512x8 vs 8192x8": (book[picked], book),
+             "duplicates across shares 700x8 vs 2x4096x8": across}
     worst = 0.0
     for name, (e, c) in cases.items():
-        enc, cb = torch.from_numpy(e).cuda(), torch.from_numpy(c).cuda()
+        enc = torch.from_numpy(e).cuda()
+        if "offset" in name:  # a contiguous view 4 bytes past a 16-byte boundary
+            cb = torch.empty(c.size + 1, device="cuda")[1:].view(c.shape).copy_(torch.from_numpy(c))
+            if cb.data_ptr() % 16 == 0:
+                fail("K1: the offset book is 16-byte aligned")
+        else:
+            cb = torch.from_numpy(c).cuda()
         got = vq_argmin(enc, cb).long()
         want = vq_argmin_plain(enc, cb).long()
         torch.cuda.synchronize()
@@ -127,11 +161,16 @@ def check_k1():
         worst = max(worst, err)
         print(f"K1 {name}: {int((got != want).sum())} of {len(enc)} rows differ, "
               f"{int(near.sum())} rows under the {GAP:g} top-2 gap, "
-              f"max |dist(kernel) - dist(plain)| = {err:.3g}")
+              f"max |dist(kernel) - dist(plain)| = {err:.3g}, min dist {dist.min().item():.3g}")
         if bad.any():
             fail(f"K1 {name}: {int(bad.sum())} rows differ with a top-2 gap >= {GAP:g}")
         if name.startswith("duplicated") and not bool((got < 64).all()):
             fail("K1 duplicated codes: a tie did not resolve to the lowest index")
+        if name.startswith("duplicates across") and not bool((got < 4096).all()):
+            fail("K1 duplicates across shares: a tie did not resolve to the lowest index")
+        if name.startswith("rows equal") and bool(
+                ((got != torch.from_numpy(picked).cuda()) & ~near).any()):
+            fail("K1 rows equal to codes: a row did not find its own code")
     return worst
 
 
@@ -347,10 +386,10 @@ def main_path(cfg):
             "token_flips": int(flips.sum()), "near_ties": int(near.sum())}
 
 
-def device_profile(fn, top: int = 8):
-    """Device time of one call by kernel (torch.profiler), and the share of
-    the call's wall time (host clock, ending in a synchronize, profiler
-    overhead included) in which the card ran nothing."""
+def device_events(fn):
+    """Every device event (kernel or copy) of one call of ``fn``, as
+    torch.profiler saw it: (name, start us, end us); and the call's wall time
+    (host clock, ending in a synchronize, profiler overhead included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -362,12 +401,20 @@ def device_profile(fn, top: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]  # as the card ran them
+    return events, wall_ms
+
+
+def device_profile(fn, top: int = 8):
+    """Device time of one call by kernel, and the share of the call's wall
+    time in which the card ran nothing."""
+    events, wall_ms = device_events(fn)
     by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:  # kernels and copies, as the card ran them
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-            spans.append((e.time_range.start, e.time_range.end))
+    for name, start, stop in events:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (stop - start) / 1e3, n + 1)
+        spans.append((start, stop))
     busy_us, end = 0.0, float("-inf")  # the union of the spans: streams may overlap
     for start, stop in sorted(spans):
         if stop > end:
@@ -394,6 +441,11 @@ def unit_bounds(ops: float, nbytes: float) -> dict:
 
 
 def time_k1(cfg):
+    """K1 at the main path's shape: ``ms`` per wrapper call (CUDA events over
+    50 back-to-back calls, so the host's pace), ``host_ms`` the host's time per
+    call (host clock, no synchronize inside), ``device_ms`` the
+    kernel's own time per call (torch.profiler's device events over 50
+    calls), and every device kernel one call runs, which must be one."""
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.ops.cuda.vq_kernel import (l2_normalize, vq_argmin,
@@ -406,11 +458,29 @@ def time_k1(cfg):
     cb = torch.from_numpy(rng.randn(n, dim).astype(np.float32)).cuda()
     enc_n, cb_n = l2_normalize(enc), l2_normalize(cb)
     ms = cuda_ms(lambda: vq_argmin(enc, cb), iters=50)
+    calls = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        vq_argmin(enc, cb)
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    many, _ = device_events(lambda: [vq_argmin(enc, cb) for _ in range(calls)])
+    if len(many) != calls:
+        fail(f"the profiler saw {len(many)} device kernels in {calls} K1 calls")
+    device_ms = sum(stop - start for _, start, stop in many) / 1e3 / calls
+    one, _ = device_events(lambda: vq_argmin(enc, cb))
+    print(json.dumps({"k1_call_device_kernels": [name for name, _, _ in one]}))
+    if len(one) != 1:
+        fail(f"a K1 call at {m}x{n}x{dim} ran {len(one)} device kernels, not 1")
     plain = cuda_ms(lambda: vq_argmin_plain(enc, cb), iters=50)
     # yardstick: the cross-term matmul and the reduction, as two library calls
     library = cuda_ms(lambda: torch.argmax(torch.mm(enc_n, cb_n.T), dim=1), iters=50)
     ops = m * n * (2 * dim + 3)  # dot, two adds, one compare per (row, code)
-    return ms, plain, library, *bound_ms(ops, 4 * (m * dim + n * dim + m))
+    bnd, by = bound_ms(ops, 4 * (m * dim + n * dim + m))
+    return {"ms": ms, "host_ms": host_ms, "device_ms": device_ms,
+            "device_kernels_per_call": len(one),
+            "plain_ms": plain, "library_ms": library, "bound_ms": bnd, "bound_by": by}
 
 
 def time_k2(shapes):
@@ -495,7 +565,7 @@ def main() -> int:
     e2e = main_path(cfg)
     print(json.dumps({"end_to_end": e2e, "card": card}))
 
-    k1_ms, k1_plain, k1_lib, k1_bound, k1_by = time_k1(cfg)
+    k1 = time_k1(cfg)
     rows = time_k2(shapes)
     p1_rows = time_p1()
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
@@ -513,9 +583,7 @@ def main() -> int:
         {"name": "vq_argmin", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/vq_argmin.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/vq_kernel.py:33",
-         "launches": e2e["launches"]["vq_argmin"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib},
+         "launches": e2e["launches"]["vq_argmin"], "max_abs_err": k1_err, **k1},
         {"name": "fused_residual_unit", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/residual_unit.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/residual_unit_kernel.py:46",
@@ -532,7 +600,8 @@ def main() -> int:
          "library_ms": p1["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels, "card": card,
-                      "note": "K1 per call; K2 summed over the main path's "
+                      "note": "K1 per call (ms: wrapper calls back to back; host_ms: "
+                              "the host's time per call; device_ms: the kernel alone); K2 summed over the main path's "
                               f"{e2e['launches']['residual_unit']} unit launches; P1 "
                               f"summed over its path's {p1_launches} launches (probe shapes)"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
