@@ -154,8 +154,8 @@ class ScheduleParams:
 
 @dataclass
 class TrainConfig:
-    """Training settings. The port does not train yet; the group is kept so
-    that the repo's YAML configs load."""
+    """Training settings (``train/step.py``); the loop's fields (steps,
+    logging, checkpoints, parallelism) wait for the port's training loop."""
     max_steps: int = 600000
     precision: str = "bf16"  # bf16 | fp32 | fp32_strict
     remat: Any = "auto"
@@ -219,6 +219,24 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+
+
+def resolve_remat(cfg: Config) -> bool:
+    """``train.remat`` ("auto" | bool) as a bool. "auto" recomputes
+    activations in the backward unless the step is bf16 and its micro-batch
+    holds at most 32 x 16000 samples (the JAX package's calibration on a
+    16 GB TPU v5e, kept so that both packages train the same way)."""
+    r = cfg.train.remat
+    if isinstance(r, bool):
+        return r
+    if r != "auto":
+        raise ValueError(f"train.remat must be bool or 'auto', got {r!r}")
+    crop = cfg.dataset.train.min_audio_length
+    if crop is None or crop < 0:
+        crop = cfg.dataset.sample_rate  # full-length clips: assume >= 1 s
+    n_acc = max(int(cfg.train.accumulate_grad_batches), 1)
+    work = cfg.dataset.train.batch_size * crop // n_acc
+    return not (cfg.train.precision == "bf16" and work <= 32 * 16000)
 
 
 def _merge(obj, overlay: dict):

@@ -23,6 +23,7 @@ from ..ops.conv import (conv1d, conv_transpose1d, init_wn_conv1d,
                         init_wn_conv_transpose1d)
 from ..ops.cuda.residual_unit_kernel import fused_residual_unit
 from ..ops.lstm import init_lstm, res_lstm
+from ..ops.params import checkpointed
 from ..ops.snake import SnakeBeta
 
 
@@ -164,23 +165,33 @@ class BigCodecDecoder(nn.Module):
         return bigcodec_decode(self, x)
 
 
-def bigcodec_encode(p: BigCodecEncoder, x):
-    """x: (B, 1, T) waveform -> (B, out_channels, T / hop) latents."""
+def _block(fn, x, block, *, remat: bool, **kwargs):
+    if remat:
+        return checkpointed(fn, block, x, **kwargs)
+    return fn(x, block, **kwargs)
+
+
+def bigcodec_encode(p: BigCodecEncoder, x, *, remat: bool = False):
+    """x: (B, 1, T) waveform -> (B, out_channels, T / hop) latents. remat:
+    each EncoderBlock's activations are recomputed in the backward."""
     x = _wn_conv(x, p.conv_in, padding=3)
     for block, stride in zip(p.blocks, p.up_ratios):
-        x = encoder_block(x, block, stride=stride, dilations=p.dilations)
+        x = _block(encoder_block, x, block, remat=remat, stride=stride,
+                   dilations=p.dilations)
     if p.lstm is not None:
         x = res_lstm(x, p.lstm)
     x = p.snake_out(x)
     return _wn_conv(x, p.conv_out, padding=1)
 
 
-def bigcodec_decode(p: BigCodecDecoder, x):
-    """x: (B, in_channels, Tf) quantized latents -> (B, 1, T) waveform."""
+def bigcodec_decode(p: BigCodecDecoder, x, *, remat: bool = False):
+    """x: (B, in_channels, Tf) quantized latents -> (B, 1, T) waveform.
+    remat: as in ``bigcodec_encode``, per DecoderBlock."""
     x = _wn_conv(x, p.conv_in, padding=3)
     if p.lstm is not None:
         x = res_lstm(x, p.lstm)
     for block, stride in zip(p.blocks, p.up_ratios):
-        x = decoder_block(x, block, stride=stride, dilations=p.dilations)
+        x = _block(decoder_block, x, block, remat=remat, stride=stride,
+                   dilations=p.dilations)
     x = p.snake_out(x)
     return torch.tanh(_wn_conv(x, p.conv_out, padding=3))

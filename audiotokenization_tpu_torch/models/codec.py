@@ -3,22 +3,28 @@
 Counterpart of ``audiotokenization_tpu/models/codec.py`` for the BigCodec
 encoder/decoder and the factorized-VQ quantizer. The serving path is
 ``tokenize`` (wav -> codes (Nq, B, Tf)) and ``codes_to_emb`` ->
-``apply_fc_post_a`` -> ``decode`` (codes -> wav).
+``apply_fc_post_a`` -> ``decode`` (codes -> wav); training runs
+``forward`` (wav -> regenerated wav, commitment losses and codes).
 
 Precision: cuDNN runs fp32 convolutions in TF32 unless told not to, which
 flips tokens as the TPU's bf16 default did. ``full_fp32()`` turns TF32 off
 for matmuls and cuDNN and restores the flags after; conformant ``tokenize``
 runs inside it, and so should ``decode`` wherever waveforms are held to the
-conformance tolerances. The VQ distance is always fp32.
+conformance tolerances. ``forward`` follows ``train.precision``:
+``fp32_strict`` inside ``full_fp32()``, ``fp32`` with TF32 allowed
+(``allow_tf32()``), ``bf16`` (training) on bf16 copies of every generator
+parameter but the quantizer's. The VQ is always fp32.
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Any, Dict, NamedTuple
 
 import torch
 from torch import nn
 
-from ..config import Config
+from ..config import Config, resolve_remat
+from ..ops.params import cast_parameters, parameters_as
 from . import bigcodec
 from .quantizers import factorized_vq as fvq
 
@@ -35,15 +41,33 @@ def resolve_device(device) -> torch.device:
 
 
 @contextlib.contextmanager
-def full_fp32():
-    """fp32 matmuls and cuDNN convolutions/RNNs without TF32, for the body."""
+def _tf32(allow: bool):
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def full_fp32():
+    """fp32 matmuls and cuDNN convolutions/RNNs without TF32, for the body."""
+    return _tf32(False)
+
+
+def allow_tf32():
+    """fp32 matmuls and cuDNN convolutions/RNNs in TF32, for the body: the
+    card's counterpart of the JAX package's "fp32 tensors with fast matmuls"."""
+    return _tf32(True)
+
+
+def precision_scope(cfg: Config):
+    """The matmul precision of ``train.precision`` (fp32_strict: no TF32)."""
+    p = cfg.train.precision
+    if p not in ("bf16", "fp32", "fp32_strict"):
+        raise ValueError(f"unknown train.precision {p!r}")
+    return full_fp32() if p == "fp32_strict" else allow_tf32()
 
 
 class Codec(nn.Module):
@@ -79,29 +103,63 @@ class Codec(nn.Module):
             generator=generator)
 
 
+class CodecOutput(NamedTuple):
+    gt_wav: torch.Tensor    # (B, 1, T)
+    gen_wav: torch.Tensor   # (B, 1, T)
+    vq_loss: torch.Tensor   # (Nq,) fp32
+    vq_code: torch.Tensor   # (Nq, B, Tf) int32
+
+
 def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Codec:
     """A randomly initialised codec (weights drawn on the CPU from
-    ``generator``), moved to ``device`` in eval mode."""
+    ``generator``), moved to ``device`` in eval mode (a trainer calls
+    ``.train()``: cuDNN's LSTM has no backward in eval mode)."""
     device = resolve_device(device)
     return Codec(cfg, generator=generator).to(device).eval()
 
 
-def encode(codec: Codec, wav):
+def encode(codec: Codec, wav, *, remat: bool = False):
     """wav (B, T) -> latents (B, C, Tf)."""
-    return bigcodec.bigcodec_encode(codec.encoder, wav[:, None, :])
+    return bigcodec.bigcodec_encode(codec.encoder, wav[:, None, :], remat=remat)
 
 
 def quantize(codec: Codec, latents, *, training: bool = False):
-    """latents (B, C, Tf) -> (quantized (B, C, Tf), codes (Nq, B, Tf), loss (Nq,))."""
+    """latents (B, C, Tf) -> (quantized (B, C, Tf), codes (Nq, B, Tf), loss (Nq,)).
+    An fp32 island: bf16 latents go up to fp32, and the quantized latents
+    come back in the latents' dtype; the loss stays fp32."""
     d = codec.cfg.model.codec_decoder
-    return fvq.residual_vq_apply(codec.quantizer, latents,
-                                 num_quantizers=d.vq_num_quantizers,
-                                 commitment=d.vq_commit_weight, training=training)
+    zq, codes, loss = fvq.residual_vq_apply(codec.quantizer, latents.float(),
+                                            num_quantizers=d.vq_num_quantizers,
+                                            commitment=d.vq_commit_weight, training=training)
+    return zq.to(latents.dtype), codes, loss
 
 
-def decode(codec: Codec, quantized):
+def decode(codec: Codec, quantized, *, remat: bool = False):
     """quantized latents (B, C, Tf) -> waveform (B, 1, Tf · hop)."""
-    return bigcodec.bigcodec_decode(codec.decoder, quantized)
+    return bigcodec.bigcodec_decode(codec.decoder, quantized, remat=remat)
+
+
+def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
+            step=None) -> CodecOutput:
+    """batch {"wav": (B, T)} -> CodecOutput: encode -> quantize -> decode,
+    under ``train.precision`` (module docstring). In bf16 training the wav
+    and every parameter but the quantizer's run as bf16 copies, and
+    gradients reach the fp32 masters through the casts. ``training`` also
+    turns on the commitment losses and, per ``resolve_remat``, per-block
+    recomputation. ``step`` salts the EMA quantizers in the JAX package; the
+    factorized VQ draws nothing and ignores it."""
+    cfg = codec.cfg
+    wav = batch["wav"]
+    remat = training and resolve_remat(cfg)
+    cast = {}
+    if training and cfg.train.precision == "bf16":
+        cast = cast_parameters(codec, torch.bfloat16, skip="quantizer")
+        wav = wav.to(torch.bfloat16)
+    with precision_scope(cfg), parameters_as(codec, cast):
+        zq, codes, vq_loss = quantize(codec, encode(codec, wav, remat=remat),
+                                      training=training)
+        gen = decode(codec, zq, remat=remat)
+    return CodecOutput(gt_wav=wav[:, None, :], gen_wav=gen, vq_loss=vq_loss, vq_code=codes)
 
 
 def codes_to_emb(codec: Codec, codes, *, proj: bool = True):

@@ -1,4 +1,5 @@
-"""1-D convolutions, weight normalisation, linear layers and their initialisers.
+"""1-D convolutions (and the discriminators' 2-D one), weight normalisation,
+linear layers and their initialisers.
 
 Counterpart of ``audiotokenization_tpu/ops/conv.py``. Layouts are the JAX
 package's, which are PyTorch's: activations (B, C, T), conv weights
@@ -26,6 +27,12 @@ def conv1d(x, w, b=None, *, stride: int = 1, padding: int = 0, dilation: int = 1
     conv, a channel matmul."""
     return F.conv1d(x, w, b, stride=stride, padding=padding, dilation=dilation,
                     groups=groups)
+
+
+def conv2d(x, p, *, stride=(1, 1), padding=(0, 0)):
+    """NCHW cross-correlation with the effective weight (O, I, kh, kw) and
+    bias of ``p``, symmetric zero padding (the discriminators' conv)."""
+    return F.conv2d(x, get_weight(p), _tensors(p).get("b"), stride=stride, padding=padding)
 
 
 def conv_transpose1d(x, w, b=None, *, stride: int = 1, padding: int = 0,
@@ -137,6 +144,15 @@ def init_wn_conv_transpose1d(in_ch: int, out_ch: int, k: int, *,
     """Transpose conv, weight (in, out, K); torch's bias fan-in is out·K."""
     w = kaiming_uniform_fan_in((in_ch, out_ch, k), generator=generator)
     b = uniform_fan_in_bias((out_ch,), out_ch * k, generator=generator)
+    return WeightNormed(w, b)
+
+
+def init_wn_conv2d(in_ch: int, out_ch: int, kernel: tuple[int, int], *,
+                   generator: torch.Generator) -> WeightNormed:
+    """The discriminators' weight-normed conv: kaiming-uniform v (O, I, kh, kw),
+    g = ‖v‖ (O, 1, 1, 1), torch's default bias, fan-in I·kh·kw."""
+    w = kaiming_uniform_fan_in((out_ch, in_ch, *kernel), generator=generator)
+    b = uniform_fan_in_bias((out_ch,), in_ch * kernel[0] * kernel[1], generator=generator)
     return WeightNormed(w, b)
 
 

@@ -3,12 +3,13 @@
     out = x + W1 · snakeβ₂(W7 ⊛_d snakeβ₁(x) + b7) + b1
 
 Counterpart of ``audiotokenization_tpu/ops/pallas/residual_unit_kernel.py::
-fused_residual_unit`` (non-causal, no anti-aliasing, inference). On CUDA
-tensors ``fused_residual_unit`` launches the Hopper kernel of
+fused_residual_unit`` (non-causal, no anti-aliasing). On CUDA tensors
+``fused_residual_unit`` launches the Hopper kernel of
 ``csrc/residual_unit.cu`` (two split-TF32 tensor-core passes, see
-``csrc/split_tf32_unit.cuh``), for every channel count; on CPU tensors it
-computes ``residual_unit_plain``, the unit as the JAX package's XLA path
-computes it (``models/bigcodec.py::residual_unit``).
+``csrc/split_tf32_unit.cuh``), for every channel count, inside
+``ResidualUnitFn``, whose backward recomputes the unit with autograd; on
+CPU tensors it computes ``residual_unit_plain``, the unit as the JAX
+package's XLA path computes it (``models/bigcodec.py::residual_unit``).
 """
 from __future__ import annotations
 
@@ -61,18 +62,9 @@ def _check(x, tensors, dilation):
                          f"shape {tuple(x.shape)}")
 
 
-def fused_residual_unit(x, w7, b7, w1, b1, alpha1, beta1, alpha2, beta2, *,
-                        dilation: int):
-    """x (B, C, T) fp32; w7 (C, C, 7); w1 (C, C, 1); biases and log-scale
-    snake parameters (C,). Returns (B, C, T).
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    (counted once per call in ``fused_residual_unit.launches``) or raise;
-    nothing falls back.
-    """
-    if x.device.type == "cpu":
-        return residual_unit_plain(x, w7, b7, w1, b1, alpha1, beta1, alpha2, beta2,
-                                   dilation=dilation)
+def _launch(x, w7, b7, w1, b1, alpha1, beta1, alpha2, beta2, *, dilation: int):
+    """One launch of the kernel on fp32 CUDA tensors, counted; raises on
+    anything the kernel does not take."""
     tensors = {"w7": w7, "b7": b7, "w1": w1, "b1": b1, "alpha1": alpha1,
                "beta1": beta1, "alpha2": alpha2, "beta2": beta2}
     _check(x, tensors, dilation)
@@ -89,6 +81,51 @@ def fused_residual_unit(x, w7, b7, w1, b1, alpha1, beta1, alpha2, beta2, *,
         raise RuntimeError(f"residual_unit kernel launch failed: CUDA error {err}")
     fused_residual_unit.launches += 1
     return out
+
+
+class ResidualUnitFn(torch.autograd.Function):
+    """K2 under autograd. Forward: ``launch`` (the kernel; a test hands in
+    another callable of the same signature), on fp32 copies of bf16 inputs,
+    the result cast back. It saves only the inputs. Backward: the unit is
+    recomputed with ``residual_unit_plain`` in the caller's dtype under
+    autograd, which returns the gradients for all nine inputs; a remat of
+    one unit, and what the JAX package differentiates (XLA), since its K2
+    has no VJP."""
+
+    @staticmethod
+    def forward(ctx, launch, dilation, *inputs):
+        ctx.dilation = dilation
+        ctx.save_for_backward(*inputs)
+        dtype = inputs[0].dtype
+        if dtype == torch.bfloat16:
+            inputs = [t.float().contiguous() for t in inputs]
+        return launch(*inputs, dilation=dilation).to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            out = residual_unit_plain(*inputs, dilation=ctx.dilation)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (None, None, *(next(grads) if t.requires_grad else None for t in inputs))
+
+
+def fused_residual_unit(x, w7, b7, w1, b1, alpha1, beta1, alpha2, beta2, *,
+                        dilation: int):
+    """x (B, C, T) fp32 or bf16; w7 (C, C, 7); w1 (C, C, 1); biases and
+    log-scale snake parameters (C,), all of x's dtype. Returns (B, C, T).
+
+    CPU tensors take the plain version (autograd as usual). CUDA tensors go
+    through ``ResidualUnitFn``: the kernel's launch (counted once per call
+    in ``fused_residual_unit.launches``) or an error, and a differentiable
+    result; nothing falls back.
+    """
+    args = (x, w7, b7, w1, b1, alpha1, beta1, alpha2, beta2)
+    if x.device.type == "cpu":
+        return residual_unit_plain(*args, dilation=dilation)
+    return ResidualUnitFn.apply(_launch, dilation, *args)
 
 
 fused_residual_unit.launches = 0

@@ -119,15 +119,8 @@ def _check(enc, codebook):
                          f"codebook {tuple(codebook.shape)}")
 
 
-def vq_argmin(enc, codebook):
-    """enc: (M, D) fp32 latents; codebook: (N, D). Returns (M,) int32 indices.
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    (counted in ``vq_argmin.launches``) for any M and N and D <= 32, or
-    raise; nothing falls back.
-    """
-    if enc.device.type == "cpu":
-        return vq_argmin_plain(enc, codebook)
+def _launch(enc, codebook):
+    """One launch of the kernel, counted; raises on anything it does not take."""
     _check(enc, codebook)
     m, d = enc.shape
     n = codebook.shape[0]
@@ -147,6 +140,36 @@ def vq_argmin(enc, codebook):
         raise RuntimeError(f"vq_argmin kernel launch failed: CUDA error {err}")
     vq_argmin.launches += 1
     return out
+
+
+class VQArgminFn(torch.autograd.Function):
+    """K1 under autograd, the counterpart of the JAX kernel's custom VJP
+    (zero cotangents): the launch records no graph, its int32 indices are
+    not differentiable, and the backward gives ``enc`` and ``codebook`` no
+    gradient. The VQ around it trains through its straight-through
+    estimator and commitment losses."""
+
+    @staticmethod
+    def forward(ctx, enc, codebook):
+        out = _launch(enc, codebook)
+        ctx.mark_non_differentiable(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return None, None
+
+
+def vq_argmin(enc, codebook):
+    """enc: (M, D) fp32 latents; codebook: (N, D). Returns (M,) int32 indices.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    (counted in ``vq_argmin.launches``) for any M and N and D <= 32, or
+    raise; nothing falls back. No gradient flows through the search.
+    """
+    if enc.device.type == "cpu":
+        return vq_argmin_plain(enc, codebook)
+    return VQArgminFn.apply(enc, codebook)
 
 
 vq_argmin.launches = 0

@@ -1,0 +1,106 @@
+"""STFT and mel filterbanks with torch.stft semantics (counterpart of
+``audiotokenization_tpu/ops/stft.py``, the parts the GAN losses and the
+spectrogram discriminator use).
+
+- ``stft``: center padding by numpy-style reflection, a window shorter than
+  n_fft zero-padded to it, centred; complex (..., n_fft//2 + 1, frames).
+- ``stft_magnitude``: the discriminator's sqrt(clip(re² + im², 1e-7, 1e3)),
+  (B, frames, F).
+- ``mel_filterbank``: slaney scale and slaney area norm (torchaudio's
+  ``melscale_fbanks(norm='slaney', mel_scale='slaney')``), built in numpy.
+
+The spectral math runs in fp32 whatever the input dtype.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=64)
+def hann_window(win_length: int, *, device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """torch.hann_window's default (periodic), computed in float64 then fp32;
+    cached per device (treat it as read-only)."""
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / max(win_length, 1))
+    return torch.tensor(w, dtype=torch.float32, device=device)
+
+
+def reflect_pad(x, pad: int):
+    """numpy's (and jnp.pad's) 'reflect' padding of the last axis by ``pad``
+    on both sides, also where pad >= T (the reflection repeats), which
+    F.pad refuses: a gather along the triangle wave of period 2(T - 1)."""
+    return x[..., _reflect_index(x.shape[-1], pad, x.device)]
+
+
+@functools.lru_cache(maxsize=64)
+def _reflect_index(T: int, pad: int, device: torch.device) -> torch.Tensor:
+    """Cached per shape and device: a step would otherwise copy it to the
+    card once per call."""
+    i = np.abs(np.arange(-pad, T + pad)) % max(2 * (T - 1), 1)
+    i = np.where(i >= T, 2 * (T - 1) - i, i)
+    return torch.from_numpy(i).to(device)
+
+
+def stft(x, *, n_fft: int, hop_length: int, win_length: int | None = None,
+         window=None, center: bool = True):
+    """x (..., T) -> complex64 (..., n_fft // 2 + 1, frames)."""
+    win_length = win_length or n_fft
+    if window is None:
+        window = hann_window(win_length, device=x.device)
+    if win_length < n_fft:  # zero-padded to n_fft, centred, as torch.stft does
+        left = (n_fft - win_length) // 2
+        window = F.pad(window, (left, n_fft - win_length - left))
+    x = x.float()
+    lead = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
+    if center:
+        x = reflect_pad(x, n_fft // 2)
+    spec = torch.stft(x, n_fft, hop_length=hop_length, win_length=n_fft,
+                      window=window.to(x.device), center=False, return_complex=True)
+    return spec.reshape(*lead, *spec.shape[-2:])
+
+
+def power(spec):
+    """re² + im² of a complex tensor, differentiable everywhere (|z|² has
+    gradient 0 at z = 0)."""
+    ri = torch.view_as_real(spec)
+    return ri[..., 0] ** 2 + ri[..., 1] ** 2
+
+
+def stft_magnitude(x, *, n_fft: int, hop_length: int, win_length: int,
+                   clamp_min: float = 1e-7, clamp_max: float = 1e3):
+    """(B, T) -> (B, frames, F): sqrt(clip(re² + im², 1e-7, 1e3)), center=True."""
+    s = stft(x, n_fft=n_fft, hop_length=hop_length, win_length=win_length)
+    return torch.sqrt(torch.clamp(power(s), clamp_min, clamp_max)).transpose(-1, -2)
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    logstep = np.log(6.4) / 27.0
+    with np.errstate(divide="ignore"):  # f == 0 takes the linear branch
+        return np.where(f >= 1000.0, 15.0 + np.log(np.maximum(f, 1e-30) / 1000.0) / logstep,
+                        3.0 * f / 200.0)
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    logstep = np.log(6.4) / 27.0
+    return np.where(m >= 15.0, 1000.0 * np.exp(logstep * (m - 15.0)), 200.0 * m / 3.0)
+
+
+def mel_filterbank(*, sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """Slaney-scale, slaney-normed mel matrix (n_mels, n_fft // 2 + 1) from 0
+    Hz to Nyquist, fp32."""
+    all_freqs = np.linspace(0, sample_rate / 2.0, n_fft // 2 + 1)
+    f_pts = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(0.0),
+                                          _hz_to_mel_slaney(sample_rate / 2.0), n_mels + 2))
+    f_diff = np.diff(f_pts)
+    slopes = f_pts[None, :] - all_freqs[:, None]  # (n_freqs, n_mels + 2)
+    down = -slopes[:, :-2] / f_diff[None, :-1]
+    up = slopes[:, 2:] / f_diff[None, 1:]
+    fb = np.maximum(0.0, np.minimum(down, up))
+    fb = fb * (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
+    return fb.T.astype(np.float32)

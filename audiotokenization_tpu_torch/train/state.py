@@ -1,0 +1,101 @@
+"""The train state: the generator (``Codec``), the discriminators, one
+optimizer for each and the step (counterpart of
+``audiotokenization_tpu/train/state.py``).
+
+Each optimizer computes what the JAX package's
+``optax.chain(clip_by_global_norm(c), adamw(schedule, b1=.8, b2=.9,
+eps=1e-8, weight_decay=.01))`` computes:
+
+- the gradients are scaled by c / ‖g‖ (the global norm over every leaf of
+  the side) only where ‖g‖ >= c; no +1e-6 as ``clip_grad_norm_`` adds;
+- AdamW decays **every** leaf, biases, snake α/β, weight-norm g and the
+  codebook included;
+- the learning rate of update k (k counted from 0, one count per
+  optimizer) is schedule(k).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..config import Config, OptimParams, ScheduleParams
+from ..models.codec import Codec, resolve_device
+from ..models.discriminators import Discriminator
+from .schedule import warmup_lr_schedule
+
+
+def _schedule(s: ScheduleParams):
+    return warmup_lr_schedule(warmup_step=s.warmup_step, down_step=s.down_step,
+                              max_lr=s.max_lr, min_lr=s.min_lr)
+
+
+class ClippedAdamW:
+    """Global-norm clipping, then ``torch.optim.AdamW`` at the schedule's
+    learning rate, over the parameters of one module."""
+
+    def __init__(self, module: nn.Module, optim: OptimParams, schedule: ScheduleParams,
+                 clip: float):
+        self.params = list(module.parameters())
+        self.clip = float(clip)
+        self.schedule = _schedule(schedule)
+        self.count = 0  # updates applied
+        self.adamw = torch.optim.AdamW(
+            self.params, lr=self.schedule(0), betas=tuple(optim.betas), eps=optim.eps,
+            weight_decay=optim.weight_decay, fused=self.params[0].is_cuda or None)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def grads(self) -> list[torch.Tensor]:
+        """Every parameter's gradient, zeros where none reached it (optax
+        updates such a leaf too: its moments decay and it is decayed)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
+    def step(self):
+        grads = self.grads()
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        torch._foreach_mul_(grads, self.clip / torch.clamp_min(norm, self.clip))
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.count += 1
+
+
+def make_optimizers(cfg: Config, gen: nn.Module, disc: nn.Module):
+    t = cfg.train
+    return (ClippedAdamW(gen, t.gen_optim_params, t.gen_schedule_params, t.gen_grad_clip),
+            ClippedAdamW(disc, t.disc_optim_params, t.disc_schedule_params, t.disc_grad_clip))
+
+
+@dataclass
+class TrainState:
+    gen: Codec
+    disc: Discriminator
+    gen_opt: ClippedAdamW
+    disc_opt: ClippedAdamW
+    step: int = 0
+
+
+def train_state(cfg: Config, gen: Codec, disc: Discriminator) -> TrainState:
+    """A state at step 0 around the given modules (already on their device):
+    training mode, fresh optimizers (zero moments)."""
+    gen.train()  # cuDNN's LSTM has no backward in eval mode; nothing else differs
+    disc.train()
+    gen_opt, disc_opt = make_optimizers(cfg, gen, disc)
+    return TrainState(gen, disc, gen_opt, disc_opt)
+
+
+def init_train_state(cfg: Config, *, generator: torch.Generator, device="cuda") -> TrainState:
+    """Random weights drawn on the CPU from ``generator`` (the codec's, then
+    the discriminators'), moved to ``device``; raises without a card
+    unless ``device="cpu"``."""
+    device = resolve_device(device)
+    gen = Codec(cfg, generator=generator).to(device)
+    disc = Discriminator(cfg, generator=generator).to(device)
+    return train_state(cfg, gen, disc)

@@ -1,0 +1,196 @@
+"""The GAN training step (counterpart of
+``audiotokenization_tpu/train/step.py``), in the reference's order:
+
+  1. one generator forward (encode -> VQ -> decode), its graph kept;
+  2. the discriminator update on the real and the **detached** fake,
+     pushed through both discriminators as one 2B batch: LSGAN over the
+     logits of every MPD and spectrogram sub-discriminator;
+  3. the generator loss against the **updated** discriminator, with no
+     gradient into it: mel x15 + adv + feature matching (real side
+     detached) + Σ vq; backward through the saved generator graph, then
+     the generator update.
+
+``accumulate_grad_batches = N`` splits the batch into N micro-batches:
+phase 1 averages the discriminator's gradients at its pre-update weights
+(the fakes regenerated without a graph), one update; phase 2 averages the
+generator's against the updated discriminator, one update.
+``guard_nonfinite`` skips a side's update when its loss or any of its
+gradients is not finite (one host sync per side). In the JAX step the
+generator loss then sees the discriminator's poisoned update, and so skips
+too; here it sees the discriminator as it was.
+
+K1 runs once per generator forward and K2 once per ResidualUnit (30 in
+the flagship) on CUDA tensors; K2's backward recomputes each unit.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict
+
+import torch
+
+from ..config import Config, resolve_remat
+from ..losses.gan import disc_loss, feature_matching_loss, gen_adv_loss
+from ..losses.mel import MultiResolutionMelLoss
+from ..losses.stft_loss import multi_resolution_stft_loss
+from ..models import codec as C
+from ..models.discriminators import discriminator_apply
+from ..ops.params import cast_parameters, checkpointed, parameters_as
+from .metrics import codebook_histogram
+from .schedule import warmup_lr_schedule
+from .state import ClippedAdamW, TrainState
+
+
+def _check_supported(cfg: Config):
+    d, e = cfg.model.codec_decoder, cfg.model.codec_encoder
+    quantizer = "fsq" if d.fsq else d.quantizer
+    if quantizer != "fvq":
+        raise NotImplementedError(f"training with the {quantizer!r} quantizer is not ported yet "
+                                  "(EMA, LFQ, FSQ and the zoo come later)")
+    if cfg.train.use_semantic:
+        raise NotImplementedError("the semantic branch is not ported yet")
+    if "moe" in (e.ffn_type, d.ffn_type):
+        raise NotImplementedError("MoE feed-forward layers are not ported yet")
+
+
+def _finite(total, grads) -> bool:
+    return bool(torch.stack([torch.isfinite(total).all()]
+                            + [torch.isfinite(g).all() for g in grads]).all())
+
+
+def make_train_step(cfg: Config, *, device="cuda"):
+    """``step(state, batch) -> metrics`` for ``batch = {"wav": (B, T)}`` on
+    ``device`` (the state's): updates ``state`` in place and returns the
+    JAX step's metrics as tensors (``gen_lr`` a float). Raises without a
+    card unless ``device="cpu"``."""
+    C.resolve_device(device)
+    _check_supported(cfg)
+    cfg = copy.deepcopy(cfg)
+    cfg.train.remat = resolve_remat(cfg)  # once, for the whole step
+    tcfg = cfg.train
+    lam = tcfg.lambdas
+    dtype = torch.bfloat16 if tcfg.precision == "bf16" else torch.float32
+    mel_loss = (MultiResolutionMelLoss(sample_rate=cfg.dataset.sample_rate)
+                if tcfg.use_mel_loss else None)
+    s = tcfg.gen_schedule_params
+    gen_sched = warmup_lr_schedule(warmup_step=s.warmup_step, down_step=s.down_step,
+                                   max_lr=s.max_lr, min_lr=s.min_lr)
+    n_accum = max(int(tcfg.accumulate_grad_batches), 1)
+    codebook_size = cfg.model.codec_decoder.codebook_size
+
+    def disc_forward(disc, wav, *, detach: bool):
+        """Both discriminators on ``wav`` (B, 1, T), in the compute dtype;
+        ``detach``: on detached weights, so no gradient reaches them."""
+        with parameters_as(disc, cast_parameters(disc, dtype, detach=detach)):
+            wav = wav.to(dtype)
+            if tcfg.remat:  # the discriminators' activations dominate step memory
+                return checkpointed(discriminator_apply, disc, wav)
+            return discriminator_apply(wav, disc)
+
+    def disc_forward_pair(disc, a, b, *, detach: bool):
+        """a and b as one 2B batch (the convs are per sample); split after."""
+        n = a.shape[0]
+        outs = disc_forward(disc, torch.cat([a.float(), b.float()]), detach=detach)
+        return ([[t[:n] for t in sub] for sub in outs], [[t[n:] for t in sub] for sub in outs])
+
+    def disc_losses(disc, y, y_fake):
+        real_outs, fake_outs = disc_forward_pair(disc, y, y_fake.detach(), detach=False)
+        real_l, fake_l = disc_loss(real_outs, fake_outs)
+        total = lam.lambda_disc * (real_l + fake_l)
+        return total, {"real_loss": real_l, "fake_loss": fake_l, "disc_loss": total}
+
+    def gen_losses(disc, y, out: C.CodecOutput):
+        y_g = out.gen_wav
+        logs: Dict[str, Any] = {}
+        total = 0.0
+        if mel_loss is not None:
+            logs["mel_loss"] = mel_loss(y_g[:, 0, :], y[:, 0, :])
+            total = total + logs["mel_loss"] * lam.lambda_mel_loss
+        if tcfg.use_stft_loss:
+            p = tcfg.stft_loss_params
+            logs["stft_loss"] = multi_resolution_stft_loss(
+                y_g[:, 0, :], y[:, 0, :], fft_sizes=p.fft_sizes, hop_sizes=p.hop_sizes,
+                win_lengths=p.win_lengths)
+            total = total + logs["stft_loss"] * lam.lambda_stft_loss
+        if tcfg.use_feat_match_loss:
+            fake_outs, real_outs = disc_forward_pair(disc, y_g, y, detach=True)
+        else:
+            fake_outs = disc_forward(disc, y_g, detach=True)
+        logs["adv_loss"] = gen_adv_loss(fake_outs)
+        total = total + logs["adv_loss"] * lam.lambda_adv
+        if tcfg.use_feat_match_loss:
+            logs["fm_loss"] = feature_matching_loss(fake_outs, real_outs)
+            total = total + logs["fm_loss"] * lam.lambda_feat_match_loss
+        logs["vq_loss"] = torch.sum(out.vq_loss)
+        total = total + logs["vq_loss"]
+        logs["gen_loss"] = total
+        return total, logs
+
+    def update(opt: ClippedAdamW, total) -> bool:
+        """Apply the side's update; False where the guard skipped it."""
+        if tcfg.guard_nonfinite and not _finite(total, opt.grads()):
+            return False
+        opt.step()
+        return True
+
+    def fused_step(state: TrainState, batch):
+        y = batch["wav"][:, None, :]
+        out = C.forward(state.gen, batch, training=True, step=state.step)
+        state.disc_opt.zero_grad()
+        disc_total, disc_logs = disc_losses(state.disc, y, out.gen_wav)
+        disc_total.backward()
+        ok_d = update(state.disc_opt, disc_total)
+        state.gen_opt.zero_grad()
+        gen_total, gen_logs = gen_losses(state.disc, y, out)
+        gen_total.backward()
+        ok_g = update(state.gen_opt, gen_total)
+        return {**disc_logs, **gen_logs}, codebook_histogram(out.vq_code, codebook_size), ok_d, ok_g
+
+    def accumulated_step(state: TrainState, batch):
+        n = n_accum
+        for k, v in batch.items():
+            if v.shape[0] % n:
+                raise ValueError(f"batch dim {v.shape[0]} of {k!r} not divisible by "
+                                 f"accumulate_grad_batches={n}")
+        mbs = [dict(zip(batch, vs)) for vs in zip(*(v.chunk(n) for v in batch.values()))]
+
+        def mean_logs(acc, logs):
+            for k, v in logs.items():
+                acc[k] = acc.get(k, 0.0) + v.detach() / n
+
+        disc_logs: Dict[str, Any] = {}
+        state.disc_opt.zero_grad()
+        for mb in mbs:  # phase 1: the discriminator's gradients at its weights before the update
+            with torch.no_grad():
+                fake = C.forward(state.gen, mb, training=True, step=state.step).gen_wav
+            total, logs = disc_losses(state.disc, mb["wav"][:, None, :], fake)
+            (total / n).backward()
+            mean_logs(disc_logs, logs)
+        ok_d = update(state.disc_opt, disc_logs["disc_loss"])
+
+        gen_logs: Dict[str, Any] = {}
+        hist = torch.zeros(codebook_size, device=batch["wav"].device)
+        state.gen_opt.zero_grad()
+        for mb in mbs:  # phase 2: the generator's, against the updated discriminator
+            out = C.forward(state.gen, mb, training=True, step=state.step)
+            total, logs = gen_losses(state.disc, mb["wav"][:, None, :], out)
+            (total / n).backward()
+            mean_logs(gen_logs, logs)
+            hist += codebook_histogram(out.vq_code, codebook_size)
+        ok_g = update(state.gen_opt, gen_logs["gen_loss"])
+        return {**disc_logs, **gen_logs}, hist, ok_d, ok_g
+
+    body = accumulated_step if n_accum > 1 else fused_step
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        with C.precision_scope(cfg):
+            logs, hist, ok_d, ok_g = body(state, batch)
+        metrics = {k: v.detach() for k, v in logs.items()}
+        if tcfg.guard_nonfinite:
+            metrics["nonfinite_skipped"] = torch.tensor(float(not (ok_d and ok_g)))
+        metrics["gen_lr"] = gen_sched(state.step)
+        metrics["codebook_hist"] = hist
+        state.step += 1
+        return metrics
+
+    return step

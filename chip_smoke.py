@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Build the CUDA kernels of ``audiotokenization_tpu_torch`` and drive its
-serving path on one GPU.
+serving and training paths on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -27,7 +27,19 @@ Phases, each fatal on failure:
     time, its plain version's, a library yardstick's and its bound (K2 and
     P1 both for their split-TF32 route and for fp32 on the SIMT pipes); for
     K1 also its device time alone (torch.profiler), and a check that one K1
-    call runs exactly one device kernel.
+    call runs exactly one device kernel;
+ 8. the training path: (a) K2's autograd Function at the 15 unit shapes
+    (B = 2): its gradients for all nine inputs against autograd through the
+    plain version in fp32 (TF32 off), rtol 1e-4 / atol 1e-4 x the
+    gradient's max magnitude, none all zero; (b) one fp32_strict flagship
+    step on 2 x 8000 samples on the card against the same step on the CPU
+    from the same weights (AdamW eps 1, no warmup, so an update is close to
+    lr·g): metrics within rtol 1e-3, each leaf's update within 1e-2 x its
+    max |update| plus twice the parameters' fp32 spacing (AdamW rounds a
+    parameter twice an update); (c) Config() in bf16 at
+    32 x 1 s: 2 warm-up steps, 5 timed (CUDA events), finite losses, fp32
+    masters, exactly K1 1 and K2 30 launches a step, then the train_step
+    and train_profile lines.
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -55,6 +67,11 @@ F64_RATIO = 4.0            # kernel's error vs float64 <= 4x the fp32 plain vers
 PROBE_SHAPES = [(48, 16000, 3), (96, 8000, 3), (192, 4000, 3)]  # scripts/probe_v5.py
 LAT_RTOL, LAT_ATOL = 1e-3, 2e-4   # the repo's latent tolerance
 WAV_RTOL, WAV_ATOL = 1e-3, 2e-5   # the repo's waveform tolerance
+GRAD_RTOL = 1e-4           # K2's gradients against autograd of its plain version
+REF_B, REF_T = 2, 8000     # the fp32_strict step held against the CPU: 2 x 0.5 s
+STEP_RTOL = 1e-3           # that step's metrics, card against CPU
+UPDATE_TOL = 1e-2          # its updates, x each leaf's max |update|
+TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 
 
 def fail(msg: str):
@@ -528,6 +545,155 @@ def time_p1():
     return rows
 
 
+def check_k2_grads(shapes):
+    """(a) K2's Function on the card: the gradients of all nine inputs against
+    autograd through residual_unit_plain (fp32, TF32 off) at each unit shape,
+    B = 2. Returns the worst error relative to the gradient's max magnitude."""
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import (
+        fused_residual_unit, residual_unit_plain)
+
+    names = ("x", "w7", "b7", "w1", "b1", "alpha1", "beta1", "alpha2", "beta2")
+    worst, worst_at = 0.0, ""
+    for C, T, d in shapes:
+        args = unit_inputs(C, T, d)
+        args = [(a[:2] if i == 0 else a).detach().clone().requires_grad_(True)
+                for i, a in enumerate(args)]
+        g_out = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(C + d)).cuda()
+        got = torch.autograd.grad(fused_residual_unit(*args, dilation=d), args, g_out)
+        want = torch.autograd.grad(residual_unit_plain(*args, dilation=d), args, g_out)
+        for name, g, w in zip(names, got, want):
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            if not bool(g.abs().max() > 0):
+                fail(f"K2 gradient of {name} at C={C} T={T} d={d} is all zero")
+            if not (torch.isfinite(g).all() and bool(
+                    ((g - w).abs() <= GRAD_RTOL * w.abs() + GRAD_RTOL * scale).all())):
+                fail(f"K2 gradient of {name} at C={C} T={T} d={d} outside rtol {GRAD_RTOL:g} / "
+                     f"atol {GRAD_RTOL:g} x max |grad| ({err:.3g} against {scale:.3g})")
+            if err / scale > worst:
+                worst, worst_at = err / scale, f"{name} at C={C} T={T} d={d}"
+    print(f"K2 gradients (15 shapes, 9 inputs each): worst |grad - plain| / max |plain| = "
+          f"{worst:.3g} ({worst_at})")
+    return worst
+
+
+def _leaves(state):
+    return {**{"gen." + k: v.detach().cpu().clone() for k, v in state.gen.state_dict().items()},
+            **{"disc." + k: v.detach().cpu().clone() for k, v in state.disc.state_dict().items()}}
+
+
+def train_step_vs_cpu(cfg):
+    """(b) One fp32_strict step at full width on the card against the same
+    step on the CPU, from the same weights and batch."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.train.state import init_train_state, train_state
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    cfg = copy.deepcopy(cfg)
+    t = cfg.train
+    t.precision = "fp32_strict"
+    for o in (t.gen_optim_params, t.disc_optim_params):
+        o.eps = 1.0  # an update close to lr·g, not lr·sign(g)
+    for sp in (t.gen_schedule_params, t.disc_schedule_params):
+        sp.warmup_step = 0
+    ref = init_train_state(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = train_state(cfg, copy.deepcopy(ref.gen).cuda(), copy.deepcopy(ref.disc).cuda())
+    wav = (np.random.RandomState(1).randn(REF_B, REF_T) * 0.1).astype(np.float32)
+    before = _leaves(ref)
+    t0 = time.perf_counter()
+    m_card = make_train_step(cfg)(card, {"wav": torch.from_numpy(wav).cuda()})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m_cpu = make_train_step(cfg, device="cpu")(ref, {"wav": torch.from_numpy(wav)})
+    t2 = time.perf_counter()
+    worst_metric = 0.0
+    for key, want in m_cpu.items():
+        got = m_card[key]
+        if key == "codebook_hist":
+            flips = int((got.cpu() != want).sum())
+            if float(got.sum()) != float(want.sum()):
+                fail("fp32_strict step: the codebook histograms count different totals")
+            continue
+        got, want = float(got), float(want)
+        worst_metric = max(worst_metric, abs(got - want) / max(abs(want), 1e-30))
+        if not (np.isfinite(got) and abs(got - want) <= STEP_RTOL * abs(want)):
+            fail(f"fp32_strict step: {key} {got!r} on the card against {want!r} on the CPU")
+    after_card, after_cpu = _leaves(card), _leaves(ref)
+    worst_update, worst_at = 0.0, ""
+    for name, b in before.items():
+        want, got = after_cpu[name] - b, after_card[name] - b
+        scale = want.abs().max().item()
+        # AdamW rounds each parameter twice an update (the decay, then the step):
+        # each side's (after - before) is good to 1 spacing of the parameter
+        spacing = torch.from_numpy(2 * np.spacing(np.maximum(b.abs().numpy(),
+                                                             after_cpu[name].abs().numpy())))
+        err = (got - want).abs()
+        if bool((err > UPDATE_TOL * scale + spacing).any()):  # an update may round to 0
+            fail(f"fp32_strict step: update of {name} off by {err.max().item():.3g} against "
+                 f"max |update| {scale:.3g}")
+        if scale > 0 and err.max().item() / scale > worst_update:
+            worst_update, worst_at = err.max().item() / scale, name
+    out = {"card_s": t1 - t0, "cpu_s": t2 - t1, "worst_metric_rel": worst_metric,
+           "worst_update_rel": worst_update, "worst_update_leaf": worst_at,
+           "hist_bins_differing": flips, "leaves": len(before)}
+    print(json.dumps({"train_step_vs_cpu": out}))
+    return out
+
+
+def train_path(cfg, card):
+    """(c) Config() in bf16 at 32 x 1 s: 2 warm-up steps, then 5 steps timed
+    with CUDA events and counted; one more step under torch.profiler."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+    from audiotokenization_tpu_torch.train.state import init_train_state
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    if cfg.train.precision != "bf16":
+        fail(f"the timed training step runs Config()'s bf16, got {cfg.train.precision}")
+    state = init_train_state(cfg, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(cfg)
+    wav = torch.from_numpy((np.random.RandomState(2).randn(B, SR) * 0.1).astype(np.float32)).cuda()
+    for _ in range(TRAIN_WARMUP):
+        step(state, {"wav": wav})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    vq_argmin.launches = fused_residual_unit.launches = 0
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        metrics = step(state, {"wav": wav})
+    end.record()
+    torch.cuda.synchronize()
+    launches = {"vq_argmin": vq_argmin.launches / TRAIN_STEPS,
+                "residual_unit": fused_residual_unit.launches / TRAIN_STEPS}
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_units = 2 * len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    print(f"train path launches per step: K1 {launches['vq_argmin']:g} "
+          f"K2 {launches['residual_unit']:g}")
+    if launches != {"vq_argmin": nq, "residual_unit": n_units}:
+        fail(f"expected K1 {nq} and K2 {n_units} launches per training step")
+    last = {k: float(v) for k, v in metrics.items() if k != "codebook_hist"}
+    bad = [k for k, v in last.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"non-finite training metrics: {bad}")
+    dtypes = {p.dtype for m in (state.gen, state.disc) for p in m.parameters()}
+    if dtypes != {torch.float32}:
+        fail(f"master parameters are {dtypes}, not fp32")
+    last["codes_used"] = int((metrics["codebook_hist"] > 0).sum())
+    out = {"ms_per_step": ms, "audio_s_per_s": B * SR / cfg.dataset.sample_rate / (ms / 1e3),
+           "peak_memory_gb": peak_gb, "launches_per_step": launches, "batch": [B, SR],
+           "precision": cfg.train.precision, "steps_timed": TRAIN_STEPS, "metrics": last}
+    print(json.dumps({"train_step": out, "card": card}))
+    print(json.dumps({"train_profile": device_profile(lambda: step(state, {"wav": wav}), top=12)}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -568,6 +734,10 @@ def main() -> int:
     k1 = time_k1(cfg)
     rows = time_k2(shapes)
     p1_rows = time_p1()
+
+    check_k2_grads(shapes)
+    train_step_vs_cpu(cfg)
+    train = train_path(cfg, card)
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
     # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
     # launch per probe shape.
@@ -583,11 +753,13 @@ def main() -> int:
         {"name": "vq_argmin", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/vq_argmin.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/vq_kernel.py:33",
-         "launches": e2e["launches"]["vq_argmin"], "max_abs_err": k1_err, **k1},
+         "launches": e2e["launches"]["vq_argmin"], "max_abs_err": k1_err,
+         "train_launches_per_step": train["launches_per_step"]["vq_argmin"], **k1},
         {"name": "fused_residual_unit", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/residual_unit.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/residual_unit_kernel.py:46",
          "launches": e2e["launches"]["residual_unit"], "max_abs_err": k2_err,
+         "train_launches_per_step": train["launches_per_step"]["residual_unit"],
          "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
          "bound_by": bound_by(rows), "bound_simt_ms": tot["bound_simt_ms"],
          "library_ms": tot["library_ms"]},
@@ -603,7 +775,8 @@ def main() -> int:
                       "note": "K1 per call (ms: wrapper calls back to back; host_ms: "
                               "the host's time per call; device_ms: the kernel alone); K2 summed over the main path's "
                               f"{e2e['launches']['residual_unit']} unit launches; P1 "
-                              f"summed over its path's {p1_launches} launches (probe shapes)"}))
+                              f"summed over its path's {p1_launches} launches (probe shapes); "
+                              "train_launches_per_step: the bf16 training step's"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

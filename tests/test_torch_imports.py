@@ -35,4 +35,6 @@ def test_no_jax_imports(path):
 
 def test_scan_sees_the_port():
     names = {p.name for p in FILES}
-    assert {"codec.py", "vq_kernel.py", "residual_unit_kernel.py", "chip_smoke.py"} <= names
+    assert {"codec.py", "vq_kernel.py", "residual_unit_kernel.py", "chip_smoke.py",
+            "step.py", "state.py", "schedule.py", "metrics.py", "discriminators.py",
+            "mel.py", "gan.py", "stft_loss.py", "stft.py", "params.py"} <= names
