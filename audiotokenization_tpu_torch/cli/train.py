@@ -1,0 +1,107 @@
+"""Codec training CLI (counterpart of ``audiotokenization_tpu/cli/train.py``).
+
+Usage:
+  python -m audiotokenization_tpu_torch.cli.train --config path/to/config.yaml \\
+      [--override dataset.train.filelist=... train.max_steps=1000 ...] \\
+      [--run_dir runs/my_run] [--device cuda|cpu]
+
+The run dir gets config.json, checkpoints (ckpt/, ckpt_best/, best.json)
+and metrics.jsonl; running the command again with a higher --max_steps
+resumes from its latest checkpoint. One card (or the CPU with --device
+cpu, for small configs). The semantic branch's flags are not ported and
+raise.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+from pathlib import Path
+
+from ..config import Config
+from ..data.dataset import AudioDataset, DataLoader
+
+
+def make_loaders(cfg: Config, *, dataset_root=None, pin_memory: bool = False,
+                 skip_test: bool = False):
+    """(train, val, test) loaders of the config's filelists, as the JAX CLI
+    builds them: the train split shuffled from ``train.seed``, the val split
+    in order, the test split full length and one file a batch (val and test
+    None without a filelist)."""
+    kw = dict(sample_rate=cfg.dataset.sample_rate, root=dataset_root)
+    train_loader = DataLoader(
+        AudioDataset(cfg.dataset.train, train=True,
+                     pad_to_multiple_of=cfg.dataset.pad_to_multiple_of, **kw),
+        batch_size=cfg.dataset.train.batch_size, shuffle=cfg.dataset.train.shuffle,
+        seed=cfg.train.seed, pin_memory=pin_memory)
+    val_loader = None
+    if cfg.dataset.val.filelist:
+        val_loader = DataLoader(
+            AudioDataset(cfg.dataset.val, pad_to_multiple_of=cfg.dataset.pad_to_multiple_of, **kw),
+            batch_size=cfg.dataset.val.batch_size, shuffle=False, pin_memory=pin_memory)
+    test_loader = None
+    if cfg.dataset.test.filelist and not skip_test:
+        hop = math.prod(cfg.model.codec_encoder.up_ratios)
+        test_loader = DataLoader(AudioDataset(cfg.dataset.test, pad_to_multiple_of=hop, **kw),
+                                 batch_size=1, shuffle=False, drop_last=False)
+    return train_loader, val_loader, test_loader
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--override", type=str, nargs="*", default=[])
+    p.add_argument("--run_dir", type=str, default=None)
+    p.add_argument("--dataset_root", type=str, default=None)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--no_wandb", action="store_true")
+    p.add_argument("--semantic_dir", type=str, default=None,
+                   help="precomputed w2v-bert targets (semantic branch: not ported)")
+    p.add_argument("--w2v_bert_path", type=str, default=None,
+                   help="w2v-bert teacher snapshot (semantic branch: not ported)")
+    p.add_argument("--w2v_bert_init", choices=["pretrained", "random"], default="pretrained",
+                   help="teacher init (semantic branch: not ported)")
+    p.add_argument("--resume_from", type=str, default=None,
+                   help="run dir to restore the train state from; default: "
+                        "this run dir's latest checkpoint")
+    p.add_argument("--resume_best", action="store_true",
+                   help="with --resume_from: prefer its best checkpoint")
+    p.add_argument("--profile_steps", type=int, nargs=2, default=None,
+                   metavar=("START", "STOP"),
+                   help="write a torch.profiler trace of these steps to <run_dir>/profile")
+    p.add_argument("--skip_test", action="store_true",
+                   help="skip the full-length test pass after training")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
+    args = p.parse_args(argv)
+
+    from ..config import load_config
+    from ..models.codec import resolve_device
+    from ..train.loop import train
+    from ..utils.logging import MetricsLogger
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config, args.override)
+    if (cfg.train.use_semantic or args.semantic_dir or args.w2v_bert_path
+            or args.w2v_bert_init != "pretrained"):
+        raise NotImplementedError("the semantic branch (use_semantic, --semantic_dir, "
+                                  "--w2v_bert_*) is not ported yet (ROADMAP Queue 1 item 15)")
+    run_dir = args.run_dir or str(Path(cfg.log_dir) / cfg.name)
+    if args.resume_from is None and cfg.resume_ckpt:
+        args.resume_from = cfg.resume_ckpt
+    train_loader, val_loader, test_loader = make_loaders(
+        cfg, dataset_root=args.dataset_root, pin_memory=device.type == "cuda",
+        skip_test=args.skip_test)
+    logger = MetricsLogger(run_dir, run_name=cfg.name, use_wandb=not args.no_wandb)
+    try:
+        return train(cfg, train_loader=train_loader, val_loader=val_loader,
+                     test_loader=test_loader, run_dir=run_dir, max_steps=args.max_steps,
+                     logger=logger,
+                     profile_steps=tuple(args.profile_steps) if args.profile_steps else None,
+                     resume_from=args.resume_from, resume_best=args.resume_best, device=device)
+    finally:
+        logger.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -154,8 +154,9 @@ class ScheduleParams:
 
 @dataclass
 class TrainConfig:
-    """Training settings (``train/step.py``); the loop's fields (steps,
-    logging, checkpoints, parallelism) wait for the port's training loop."""
+    """Training settings: the step's (``train/step.py``) and the loop's
+    (``train/loop.py``: steps, logging, validation, checkpoints; the loop
+    runs on one card and refuses the parallel fields' other values)."""
     max_steps: int = 600000
     precision: str = "bf16"  # bf16 | fp32 | fp32_strict
     remat: Any = "auto"
@@ -286,3 +287,12 @@ def load_config(path: str | Path | None = None, overrides: Sequence[str] = ()) -
             obj = getattr(obj, p)
         _merge(obj, {parts[-1]: val})
     return cfg
+
+
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg, path: str | Path):
+    """``config.json`` of a run dir, as the JAX package writes it."""
+    Path(path).write_text(json.dumps(to_dict(cfg), indent=2))

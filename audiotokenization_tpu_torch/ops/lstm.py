@@ -4,7 +4,14 @@
 The JAX package runs the recurrence through ``lax.scan``; its gate order
 [i, f, g, o] and weight layout (w_ih (4H, in), w_hh (4H, H), b_ih, b_hh) are
 torch's, so the port holds the weights in an ``nn.LSTM`` (cuDNN on the
-card). The masked (ragged) and streaming forms come with later slices.
+card). The streaming form comes with a later slice.
+
+Masked (ragged) batches: ``valid`` is a per-sample (B, T) prefix mask. As
+in the JAX scan, a masked step neither updates the state nor emits output,
+so each sample's reverse scan starts at its own last valid frame. Here the
+batch is packed to its lengths (``pack_padded_sequence``, which cuDNN runs
+per sample) and the padded outputs are zeroed. A row of length 0 is packed
+as length 1 and its outputs zeroed: harmless, as in JAX.
 """
 from __future__ import annotations
 
@@ -12,19 +19,42 @@ import math
 
 import torch
 from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+
+def _lengths(valid, shape) -> torch.Tensor:
+    """(B, T) prefix mask -> its (B,) lengths, int64 on the CPU (one device
+    sync); anything but a per-sample prefix mask of ``shape`` raises."""
+    if valid.shape != shape:
+        raise ValueError(f"lstm: valid must be (B, T) = {tuple(shape)}, got {tuple(valid.shape)}")
+    valid = valid.bool()
+    lengths = valid.sum(1)
+    prefix = torch.arange(shape[1], device=valid.device)[None] < lengths[:, None]
+    if not torch.equal(prefix, valid):
+        raise ValueError("lstm: valid must be a prefix mask per sample (valid frames first)")
+    return lengths.cpu()
 
 
 def lstm(x, module: nn.LSTM, *, valid=None):
-    """x: (B, T, in) -> (B, T, H·directions), zero initial state."""
-    if valid is not None:
-        raise NotImplementedError("the masked LSTM path is not ported yet")
-    return module(x)[0]
+    """x: (B, T, in) -> (B, T, H·directions), zero initial state. valid:
+    optional (B, T) prefix mask; masked steps emit zeros and leave the
+    state alone (module docstring)."""
+    if valid is None:
+        return module(x)[0]
+    lengths = _lengths(valid, x.shape[:2])
+    packed = pack_padded_sequence(x, lengths.clamp_min(1), batch_first=True,
+                                  enforce_sorted=False)
+    out = pad_packed_sequence(module(packed)[0], batch_first=True, total_length=x.shape[1])[0]
+    return out * valid[:, :, None].to(out.dtype)
 
 
 def res_lstm(x, module: nn.LSTM, *, valid=None):
-    """ResLSTM: x (B, F, T) -> (B, F, T), with the residual skip."""
+    """ResLSTM: x (B, F, T) -> (B, F, T), with the residual skip; with
+    ``valid``, masked frames come out zero, skip included."""
     xt = x.transpose(1, 2)
     y = lstm(xt, module, valid=valid) + xt
+    if valid is not None:
+        y = y * valid[:, :, None].to(y.dtype)
     return y.transpose(1, 2).contiguous()
 
 

@@ -1,3 +1,3 @@
-"""The GAN training step and its state (counterpart of
-``audiotokenization_tpu/train``: the step, its optimizers and schedule, and
-the codebook histogram)."""
+"""Training (counterpart of ``audiotokenization_tpu/train``): the GAN step,
+its optimizers and schedule, the loop, checkpoints and evaluation
+metrics."""

@@ -1,0 +1,216 @@
+"""Checkpoints of the train state and the run dir's config (counterpart of
+``audiotokenization_tpu/train/checkpoint.py``, in this package's own
+format).
+
+The run-dir layout is the JAX package's: ``config.json``; ``ckpt/<step>/``,
+the rolling window (``max_to_keep`` newest); ``ckpt_best/<step>/``, one deep,
+the step with the lowest monitored metric (``mel_loss``), with ``best.json``
+naming it. Each step dir holds ``state.pt``, ``torch.save`` of
+``TrainState.state_dict()``. A save is written into a temporary dir, synced
+to disk and renamed, so a crash never leaves a half checkpoint.
+
+Saving is asynchronous. On the caller's thread, ``save`` copies the state
+into pinned host buffers (reused from save to save) with copies queued on
+the current stream: the next step's in-place optimizer updates queue behind
+them, so the copy holds this step's values without a host sync. A
+background thread waits for the copies and writes the file; ``wait`` joins
+it, and the next ``save`` waits for the previous write before reusing the
+buffers. Reading a JAX (Orbax) run dir is not part of this package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ..config import Config, load_config, save_config
+from ..models.codec import Codec, resolve_device
+from .state import TrainState
+
+STATE_FILE = "state.pt"
+
+
+def _steps(directory: Path) -> list[int]:
+    """The saved steps under ``directory`` (temporary dirs excluded)."""
+    if not directory.is_dir():
+        return []
+    return sorted(int(p.name) for p in directory.iterdir() if p.name.isdigit())
+
+
+def _write_step(directory: Path, step: int, write):
+    """``write(path)`` into a temporary dir, then rename it to ``<step>``."""
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / f".{step}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir()
+    write(tmp / STATE_FILE)
+    final = directory / str(step)
+    shutil.rmtree(final, ignore_errors=True)
+    os.replace(tmp, final)
+
+
+def _save_file(obj, path: Path):
+    with open(path, "wb") as f:
+        torch.save(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _load_file(path: Path, *, mmap: bool = False):
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=mmap)
+
+
+class CheckpointManager:
+    def __init__(self, directory, cfg: Config, *, max_to_keep: int = 3):
+        self.directory = Path(directory).resolve()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        save_config(cfg, self.directory / "config.json")
+        self.max_to_keep = max_to_keep
+        self.best_metric = None
+        best_file = self.directory / "best.json"
+        if best_file.exists():
+            self.best_metric = json.loads(best_file.read_text()).get("metric")
+        self._buffers: dict = {}  # pinned host copies of the state's tensors, by path
+        self._queued: set = set()  # steps handed to the writer
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.last_save: Optional[dict] = None  # {"stall_s", "bytes"} of the last save
+
+    def _host_copy(self, tree, path=()):
+        """``tree`` with every tensor copied into its host buffer: pinned and
+        non-blocking from the card, a plain copy on the CPU."""
+        if isinstance(tree, dict):
+            return {k: self._host_copy(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self._host_copy(v, path + (i,)) for i, v in enumerate(tree)]
+        if not torch.is_tensor(tree):
+            return tree
+        buf = self._buffers.get(path)
+        if buf is None or buf.shape != tree.shape or buf.dtype != tree.dtype:
+            buf = torch.empty(tree.shape, dtype=tree.dtype, pin_memory=tree.is_cuda)
+            self._buffers[path] = buf
+        return buf.copy_(tree.detach(), non_blocking=True)
+
+    def save(self, state: TrainState, *, metric: Optional[float] = None) -> bool:
+        """Queue a save of ``state`` at its step: into the rolling window
+        unless that step is there already, and as the best when ``metric``
+        is below the best so far. Returns whether anything was queued."""
+        t0 = time.perf_counter()
+        step = int(state.step)
+        rolling = step not in self._queued and step not in _steps(self.directory / "ckpt")
+        best = metric is not None and (self.best_metric is None or metric < self.best_metric)
+        if not (rolling or best):
+            return False
+        self.wait()  # the previous write still reads the buffers
+        host = self._host_copy(state.state_dict())
+        done = None
+        if next(state.gen.parameters()).is_cuda:
+            done = torch.cuda.Event()
+            done.record()
+        if rolling:
+            self._queued.add(step)
+        if best:
+            self.best_metric = float(metric)
+        self._writer = threading.Thread(target=self._write, args=(host, done, step, rolling, best),
+                                        name="checkpoint-writer", daemon=True)
+        self._writer.start()
+        self.last_save = {"stall_s": time.perf_counter() - t0,
+                          "bytes": sum(b.numel() * b.element_size() for b in self._buffers.values())}
+        return True
+
+    def _write(self, host, done, step: int, rolling: bool, best: bool):
+        try:
+            if done is not None:
+                done.synchronize()
+            ckpt, ckpt_best = self.directory / "ckpt", self.directory / "ckpt_best"
+            if rolling:
+                _write_step(ckpt, step, lambda p: _save_file(host, p))
+                for old in _steps(ckpt)[:-self.max_to_keep]:
+                    shutil.rmtree(ckpt / str(old))
+            if best:
+                def write_best(p: Path):
+                    try:  # the rolling file of the same step, linked rather than written twice
+                        os.link(ckpt / str(step) / STATE_FILE, p)
+                    except OSError:
+                        _save_file(host, p)
+
+                _write_step(ckpt_best, step, write_best)
+                for old in _steps(ckpt_best):
+                    if old != step:
+                        shutil.rmtree(ckpt_best / str(old))
+                tmp = self.directory / ".best.json.tmp"
+                tmp.write_text(json.dumps({"metric": self.best_metric, "step": step}))
+                os.replace(tmp, self.directory / "best.json")
+        except BaseException as e:  # re-raised on the caller's thread by wait()
+            self._error = e
+
+    def wait(self):
+        """Join the write in flight; raise what it raised."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("writing a checkpoint failed") from err
+
+    def latest_step(self) -> Optional[int]:
+        steps = _steps(self.directory / "ckpt")
+        return steps[-1] if steps else None
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+        """Load the given (default: latest) step into ``state``, in place."""
+        self.wait()
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return state
+        state.load_state_dict(_load_file(self.directory / "ckpt" / str(step) / STATE_FILE))
+        return state
+
+
+def restore_train_state(directory, state: TrainState, *, best: bool = False,
+                        step: Optional[int] = None) -> TrainState:
+    """Load a full train state from another run dir into ``state`` (resume
+    with the optimizers and the step, possibly into a new run dir): its best
+    checkpoint if ``best`` and one was saved, else its latest (or ``step``)."""
+    directory = Path(directory).resolve()
+    ckpt = directory / "ckpt"
+    if best and _steps(directory / "ckpt_best"):
+        ckpt = directory / "ckpt_best"
+    steps = _steps(ckpt)
+    step = step if step is not None else (steps[-1] if steps else None)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    state.load_state_dict(_load_file(ckpt / str(step) / STATE_FILE))
+    return state
+
+
+def load_checkpoint_params(directory, *, step: Optional[int] = None, best: bool = False,
+                           device="cuda"):
+    """(cfg, Codec) from a run dir, for inference: the generator of the
+    latest (or ``step``'s) checkpoint, or with ``best`` of the best one,
+    falling back to the step ``best.json`` names and then to the latest.
+    The codec is on ``device`` in eval mode; raises without a card unless
+    ``device="cpu"``."""
+    device = resolve_device(device)
+    directory = Path(directory).resolve()
+    cfg = load_config(directory / "config.json")
+    ckpt = directory / "ckpt"
+    if best:
+        if _steps(directory / "ckpt_best"):
+            ckpt = directory / "ckpt_best"
+        elif (directory / "best.json").exists():
+            step = json.loads((directory / "best.json").read_text())["step"]
+    steps = _steps(ckpt)
+    step = step if step is not None else (steps[-1] if steps else None)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    sd = _load_file(ckpt / str(step) / STATE_FILE, mmap=True)  # reads the generator's part only
+    codec = Codec(cfg, generator=torch.Generator().manual_seed(0))
+    codec.load_state_dict(sd["gen"])
+    return cfg, codec.to(device).eval()

@@ -1,0 +1,329 @@
+"""The training loop (counterpart of ``audiotokenization_tpu/train/loop.py``
+on one card): the GAN step of ``train/step.py`` over the loader's batches,
+with periodic validation (reconstruction metrics and codebook statistics),
+asynchronous checkpoints (rolling window plus the best on ``mel_loss``),
+``metrics.jsonl`` logging, and a full-length test pass at the end through
+the ragged codec.
+
+Between log, validation and checkpoint steps the loop reads nothing back
+from the card: the step's metrics and the codebook histogram stay on the
+device until a log step. Batches arrive in pinned memory and upload with
+``non_blocking=True``. The generator stays in ``train()`` mode throughout
+(cuDNN's LSTM has no backward in eval mode, and nothing else differs);
+validation and the test pass run under ``torch.no_grad()``.
+
+Data parallelism, tensor and pipeline parallelism and FSDP are not ported:
+their settings raise ``NotImplementedError`` (ROADMAP Queue 1 item 18). As
+in the JAX loop, a resumed run restarts the loader at its first epoch.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..models import codec as C
+from ..utils.logging import MetricsLogger
+from . import metrics as M
+from .checkpoint import CheckpointManager, restore_train_state
+from .state import init_train_state
+from .step import make_train_step
+
+
+def _single_device(cfg: Config, device) -> torch.device:
+    """The one card (or the CPU) the loop runs on; parallel settings raise."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != 1:
+            raise NotImplementedError(
+                f"the loop runs on one device, {len(device)} were requested: data "
+                "parallelism is not ported yet (ROADMAP Queue 1 item 18)")
+        device = device[0]
+    t = cfg.train
+    if int(t.tensor_parallel) > 1 or int(t.pipeline_parallel) > 1 or t.fsdp:
+        raise NotImplementedError(
+            "tensor_parallel, pipeline_parallel and fsdp are not ported yet "
+            "(ROADMAP Queue 1 item 18)")
+    return C.resolve_device(device)
+
+
+def _device_of(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def make_eval_step(cfg: Config):
+    """``eval_step(gen, batch)`` -> the validation metrics of one batch, on
+    the device: SI-SNR, SI-SDR, the codebook histogram and both waveforms."""
+    codebook_size = cfg.model.codec_decoder.codebook_size
+
+    def eval_step(gen, batch):
+        with torch.no_grad():
+            out = C.forward(gen, batch, training=False)
+            y, y_ = out.gt_wav[:, 0, :], out.gen_wav[:, 0, :]
+            return {"si_snr": M.si_snr(y_, y), "si_sdr": M.si_sdr(y_, y),
+                    "codebook_hist": M.codebook_histogram(out.vq_code, codebook_size),
+                    "gen_wav": out.gen_wav, "gt_wav": out.gt_wav}
+
+    return eval_step
+
+
+def run_validation(cfg: Config, gen, val_loader, *, compute_stoi: bool = True,
+                   max_batches: Optional[int] = None, artifact_dir: Optional[str] = None,
+                   step: int = 0, eval_step=None, timings: Optional[dict] = None):
+    """Validation pass over fixed-length batches. STOI and PESQ run on a
+    seeded random subset of ``quality_metric_items`` items per batch, as in
+    the JAX loop. With ``artifact_dir``, writes the first item of each
+    batch in ``cfg.dataset.val.log_idxs`` (original and reconstruction) as
+    wavs. ``timings``, when given, accumulates the seconds spent in the
+    device forward (up to the metrics on the host) as ``forward_s`` and in
+    STOI/PESQ as ``quality_s``."""
+    eval_step = eval_step if eval_step is not None else make_eval_step(cfg)
+    device = _device_of(gen)
+    sr = cfg.dataset.sample_rate
+    agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": [], "quality_items": []}
+    hist = None
+    log_idxs = set(cfg.dataset.val.log_idxs or ())
+    forward_s = quality_s = 0.0
+    for i, batch in enumerate(val_loader):
+        if max_batches is not None and i >= max_batches:
+            break
+        if len(set(batch["lengths"].tolist())) > 1:
+            # no masking in the fixed-crop forward: zero tails would skew the
+            # metrics; full-length evaluation is run_test's ragged path
+            raise ValueError(
+                "run_validation got a ragged batch (unequal lengths); use a "
+                "fixed min_audio_length val split or run_test's ragged path")
+        t0 = time.perf_counter()
+        out = eval_step(gen, {"wav": batch["wav"].to(device, non_blocking=True)})
+        agg["si_snr"].append(float(out["si_snr"]))
+        agg["si_sdr"].append(float(out["si_sdr"]))
+        hist = out["codebook_hist"] if hist is None else hist + out["codebook_hist"]
+        dump = artifact_dir is not None and i in log_idxs
+        if compute_stoi or dump:
+            gt = out["gt_wav"][:, 0].float().cpu().numpy()
+            est = out["gen_wav"][:, 0].float().cpu().numpy()
+        t1 = time.perf_counter()
+        if dump:
+            _dump_val_artifacts(artifact_dir, i, step, gt[0], est[0], sr)
+        if compute_stoi:
+            cap = cfg.dataset.val.quality_metric_items
+            if cap >= len(gt):
+                idxs = range(len(gt))
+            else:
+                seed = ((int(step or 0) << 10) ^ i) & 0xFFFFFFFF
+                idxs = np.random.RandomState(seed).choice(len(gt), cap, replace=False)
+            for j in idxs:
+                agg["quality_items"].append(1.0)
+                s = M.stoi(gt[j], est[j], sr)
+                if np.isfinite(s):
+                    agg["stoi"].append(s)
+                p = M.pesq_metric(gt[j], est[j], sr)
+                if p is not None:
+                    agg["pesq"].append(p)
+        forward_s += t1 - t0
+        quality_s += time.perf_counter() - t1
+    if timings is not None:
+        timings["forward_s"] = timings.get("forward_s", 0.0) + forward_s
+        timings["quality_s"] = timings.get("quality_s", 0.0) + quality_s
+    return _finalize_validation(
+        agg, None if hist is None else hist.double().cpu().numpy(),
+        cfg.model.codec_decoder.codebook_size)
+
+
+def _finalize_validation(agg, hist, codebook_size):
+    """Means of the aggregates, ``val_``-prefixed, through the (sum, count)
+    vector that ``reduce_validation_aggregates`` reduces; the STOI/PESQ
+    subsample size as ``val_quality_items_used``; perplexity and
+    utilization of the summed histogram (numpy, or None when no batch)."""
+    keys = sorted(agg)
+    local = np.concatenate([
+        np.asarray([np.sum(agg[k]) if agg[k] else 0.0 for k in keys], np.float64),
+        np.asarray([len(agg[k]) for k in keys], np.float64),
+        np.zeros(codebook_size, np.float64) if hist is None else np.asarray(hist, np.float64),
+    ])
+    total = reduce_validation_aggregates(local)
+    sums, counts = total[:len(keys)], total[len(keys):2 * len(keys)]
+    results = {f"val_{k}": float(sums[i] / counts[i])
+               for i, k in enumerate(keys) if counts[i] > 0 and k != "quality_items"}
+    if "val_pesq" in results:
+        results["val_pesq_impl"] = M.pesq_impl()  # which calibration made the number
+    if "quality_items" in keys and counts[keys.index("quality_items")] > 0:
+        results["val_quality_items_used"] = float(counts[keys.index("quality_items")])
+    h = torch.from_numpy(total[2 * len(keys):]).float()
+    if float(h.sum()) > 0:
+        results["val_codebook_perplexity"] = float(M.perplexity_from_histogram(h))
+        results["val_codebook_utilization"] = float(M.utilization_from_histogram(h))
+    return results
+
+
+def reduce_validation_aggregates(local: np.ndarray) -> np.ndarray:
+    """The sum of the aggregate vector over processes: one process here, so
+    the identity (the JAX loop all-gathers across hosts)."""
+    return local
+
+
+def _dump_val_artifacts(artifact_dir, batch_idx, step, gt, gen, sr):
+    """The original and reconstructed wavs of one validation item (the
+    spectrogram PNG comes with the eval CLI)."""
+    from ..data.audio_io import write_wav
+
+    d = Path(artifact_dir) / f"val_batch_{batch_idx}"
+    d.mkdir(parents=True, exist_ok=True)
+    write_wav(d / f"step{step}_original.wav", gt, sr)
+    write_wav(d / f"step{step}_reconstructed.wav", gen, sr)
+
+
+def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None):
+    """Full-length test pass over a batch-1 loader: each file zero-padded
+    to a whole number of seconds and run through the ragged codec
+    (``utils/ragged.py``), metrics on its own length. Returns
+    ``test_``-prefixed metrics."""
+    from ..utils.ragged import make_ragged_codec
+
+    sr = cfg.dataset.sample_rate
+    hop = math.prod(cfg.model.codec_decoder.up_ratios)
+    quantum = max(sr // hop * hop, hop)
+    ragged = make_ragged_codec(cfg, device=_device_of(gen))
+    agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": []}
+    hist = np.zeros(cfg.model.codec_decoder.codebook_size, np.int64)
+    for i, batch in enumerate(test_loader):
+        if max_batches is not None and i >= max_batches:
+            break
+        w = batch["wav"][0].numpy()
+        wav = torch.zeros((1, -(-len(w) // quantum) * quantum))
+        wav[0, :len(w)] = torch.from_numpy(w)
+        recon, codes = ragged(gen, wav, torch.tensor([len(w)]))
+        est = recon[0, :len(w)].float().cpu().numpy()
+        np.add.at(hist, codes[:, 0, :len(w) // hop].cpu().numpy().reshape(-1), 1)
+        e, t = torch.from_numpy(est)[None], torch.from_numpy(w)[None]
+        agg["si_snr"].append(float(M.si_snr(e, t)))
+        agg["si_sdr"].append(float(M.si_sdr(e, t)))
+        s = M.stoi(w, est, sr)
+        if np.isfinite(s):
+            agg["stoi"].append(s)
+        p = M.pesq_metric(w, est, sr)
+        if p is not None:
+            agg["pesq"].append(p)
+    res = _finalize_validation(agg, hist, cfg.model.codec_decoder.codebook_size)
+    return {k.replace("val_", "test_"): v for k, v in res.items()}
+
+
+def _profiler(device: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
+
+
+def train(cfg: Config, *, train_loader, val_loader=None, test_loader=None, run_dir: str,
+          max_steps: Optional[int] = None, logger: Optional[MetricsLogger] = None,
+          profile_steps: Optional[tuple] = None, resume_from: Optional[str] = None,
+          resume_best: bool = False, device="cuda"):
+    """Train until ``max_steps`` (default ``cfg.train.max_steps``) and return
+    the ``TrainState``.
+
+    The state starts from ``cfg.train.seed``, then from ``resume_from``'s
+    checkpoint (its best with ``resume_best``) or else ``run_dir``'s latest.
+    Before the first step, ``num_sanity_val_steps`` validation batches run
+    (metrics discarded, a ``sanity_val_ok`` line). Every
+    ``log_every_n_steps`` steps the metrics are logged with
+    ``steps_per_sec`` over the steps since the last log (host time between
+    two device syncs); every ``val_every_n_steps`` a validation pass is
+    logged with ``val_forward_s`` and ``val_quality_s``; every
+    ``checkpoint_every_n_steps`` and at ``max_steps`` a checkpoint is saved
+    and ``ckpt_stall_ms`` and ``ckpt_bytes`` logged. Then the test pass over
+    ``test_loader``, if given. ``profile_steps=(start, stop)`` writes a
+    ``torch.profiler`` trace of those steps to ``<run_dir>/profile``.
+    Raises without a card unless ``device="cpu"``.
+    """
+    device = _single_device(cfg, device)
+    t = cfg.train
+    state = init_train_state(cfg, generator=torch.Generator().manual_seed(t.seed), device=device)
+    ckpt = CheckpointManager(run_dir, cfg)
+    if resume_from is not None:
+        restore_train_state(resume_from, state, best=resume_best)
+    elif ckpt.latest_step() is not None:
+        ckpt.restore(state)
+    # a logger made here is closed here; the caller's stays open
+    with (contextlib.nullcontext(logger) if logger is not None
+          else MetricsLogger(run_dir, run_name=cfg.name, use_wandb=False)) as logger:
+        return _train(cfg, state, ckpt, logger, train_loader=train_loader,
+                      val_loader=val_loader, test_loader=test_loader, run_dir=run_dir,
+                      max_steps=max_steps, profile_steps=profile_steps, device=device)
+
+
+def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *,
+           train_loader, val_loader, test_loader, run_dir, max_steps, profile_steps, device):
+    """The loop of ``train`` from a restored state."""
+    t = cfg.train
+    step_fn = make_train_step(cfg, device=device)
+    eval_step = make_eval_step(cfg) if val_loader is not None else None
+    max_steps = max_steps if max_steps is not None else t.max_steps
+
+    step = state.step
+    if step < max_steps and len(train_loader) == 0:
+        raise ValueError("the training loader yields no batch (fewer files than batch_size?)")
+    if val_loader is not None and t.num_sanity_val_steps > 0:
+        # a fault in the eval path shows at step 0, not at val_every_n_steps
+        run_validation(cfg, state.gen, val_loader, eval_step=eval_step,
+                       max_batches=t.num_sanity_val_steps, compute_stoi=False)
+        logger.log({"sanity_val_ok": 1.0}, step)
+    t_last = time.perf_counter()
+    hist_accum = None
+    skip_accum = 0.0
+    prof = None
+    while step < max_steps:
+        for batch in train_loader:
+            if step >= max_steps:
+                break
+            wav = batch["wav"].to(device, non_blocking=True)
+            if profile_steps and step == profile_steps[0]:
+                prof = _profiler(device)
+                prof.start()
+            metrics = step_fn(state, {"wav": wav})
+            step = state.step
+            if prof is not None and step == profile_steps[1]:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                prof.stop()
+                (Path(run_dir) / "profile").mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(Path(run_dir) / "profile" / f"trace_{step}.json"))
+                prof = None
+            h = metrics.pop("codebook_hist")
+            hist_accum = h if hist_accum is None else hist_accum + h
+            if "nonfinite_skipped" in metrics:
+                # summed between logs: sampling the flag at log steps would hide skips
+                skip_accum = skip_accum + metrics.pop("nonfinite_skipped")
+            if step % t.log_every_n_steps == 0:
+                logs = {k: float(v) for k, v in metrics.items()}  # the device sync
+                now = time.perf_counter()
+                logs["steps_per_sec"] = t.log_every_n_steps / (now - t_last)
+                t_last = now
+                if t.guard_nonfinite:
+                    logs["nonfinite_skipped"] = float(skip_accum)
+                    skip_accum = 0.0
+                logs["codebook_perplexity"] = float(M.perplexity_from_histogram(hist_accum))
+                logs["codebook_utilization"] = float(M.utilization_from_histogram(hist_accum))
+                hist_accum = None
+                logger.log(logs, step)
+            if val_loader is not None and step % t.val_every_n_steps == 0:
+                timings: dict = {}
+                val = run_validation(cfg, state.gen, val_loader, artifact_dir=run_dir,
+                                     step=step, eval_step=eval_step, timings=timings)
+                logger.log({**val, "val_forward_s": timings["forward_s"],
+                            "val_quality_s": timings["quality_s"]}, step)
+            if step % t.checkpoint_every_n_steps == 0 or step == max_steps:
+                mel = metrics.get("mel_loss")
+                if ckpt.save(state, metric=float(mel) if mel is not None else None):
+                    logger.log({"ckpt_stall_ms": ckpt.last_save["stall_s"] * 1e3,
+                                "ckpt_bytes": ckpt.last_save["bytes"]}, step)
+    ckpt.save(state)
+    ckpt.wait()
+    if test_loader is not None:
+        logger.log(run_test(cfg, state.gen, test_loader), step)
+    return state

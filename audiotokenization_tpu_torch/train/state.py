@@ -66,6 +66,22 @@ class ClippedAdamW:
         self.adamw.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """The update count (the schedule's index) and AdamW's state: its
+        moments and step, live tensors (no copies)."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, sd: dict):
+        """Restores ``state_dict()``'s content. This optimizer keeps its own
+        implementation flags (fused on the card, not on the CPU), so a state
+        saved on one device loads on another; AdamW places the moments and
+        step on the parameters' device."""
+        own = ("fused", "foreach", "capturable", "differentiable")
+        groups = [{**saved, **{k: cur[k] for k in own if k in cur}}
+                  for saved, cur in zip(sd["adamw"]["param_groups"], self.adamw.param_groups)]
+        self.adamw.load_state_dict({"state": sd["adamw"]["state"], "param_groups": groups})
+        self.count = int(sd["count"])
+
 
 def make_optimizers(cfg: Config, gen: nn.Module, disc: nn.Module):
     t = cfg.train
@@ -80,6 +96,23 @@ class TrainState:
     gen_opt: ClippedAdamW
     disc_opt: ClippedAdamW
     step: int = 0
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs: both modules' parameters, both
+        optimizers (moments, AdamW steps, update counts) and the step. The
+        tensors are the live ones."""
+        return {"step": self.step, "gen": self.gen.state_dict(),
+                "disc": self.disc.state_dict(), "gen_opt": self.gen_opt.state_dict(),
+                "disc_opt": self.disc_opt.state_dict()}
+
+    def load_state_dict(self, sd: dict):
+        """Copies ``state_dict()``'s content into this state's own tensors,
+        in place, so the optimizers keep their parameters."""
+        self.gen.load_state_dict(sd["gen"])
+        self.disc.load_state_dict(sd["disc"])
+        self.gen_opt.load_state_dict(sd["gen_opt"])
+        self.disc_opt.load_state_dict(sd["disc_opt"])
+        self.step = int(sd["step"])
 
 
 def train_state(cfg: Config, gen: Codec, disc: Discriminator) -> TrainState:

@@ -39,7 +39,27 @@ Phases, each fatal on failure:
     parameter twice an update); (c) Config() in bf16 at
     32 x 1 s: 2 warm-up steps, 5 timed (CUDA events), finite losses, fp32
     masters, exactly K1 1 and K2 30 launches a step, then the train_step
-    and train_profile lines.
+    and train_profile lines;
+ 9. the training loop (train_loop_path) on Config() in bf16 at full width:
+    a seeded synthetic corpus under build/ (72 training WAVs of 1-3 s, 8 of
+    them at 24 kHz so that the loader resamples; 32 validation files; 4
+    test files of 1.3-2.7 s); train.loop.train for 8 steps (batch 32 x 1 s,
+    logs every 2, validation and checkpoints every 4, one sanity batch,
+    STOI/PESQ on 2 items a batch, the test pass at the end), then a resume
+    through cli.train.main to step 10. Fatal unless: metrics.jsonl
+    continues at step 10; every leaf of the step-8 checkpoint, restored
+    into a fresh state, equals the state train returned, bit for bit; K1
+    launches once and K2 30 times per train step, per validation batch and
+    per test file, and nowhere else in the loop; every logged loss is
+    finite; both test passes log test_si_snr and test_codebook_perplexity;
+    the 4 test files through make_ragged_codec equal each file's own
+    forward (both fp32_strict): tokens except at frames whose top-2 gap is
+    under 1e-5, waveforms within rtol 1e-3 / atol 2e-5. Prints the loop's
+    audio-s/s (windows without validation or checkpoint) beside the bare
+    step's, the stall and bytes per checkpoint save, the validation split
+    (device forward, host STOI/PESQ) and the test pass's audio-s/s (the
+    train_loop line), then deletes the corpus and the run dir; then the
+    bare step once more (bare, loop, bare: the train_loop_vs_bare line).
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -72,6 +92,8 @@ REF_B, REF_T = 2, 8000     # the fp32_strict step held against the CPU: 2 x 0.5 
 STEP_RTOL = 1e-3           # that step's metrics, card against CPU
 UPDATE_TOL = 1e-2          # its updates, x each leaf's max |update|
 TRAIN_STEPS, TRAIN_WARMUP = 5, 2
+LOOP_STEPS, LOOP_RESUME_STEPS = 8, 10  # the loop's first run, then its resume
+LOOP_TEST_SECONDS = (1.3, 1.8, 2.2, 2.7)
 
 
 def fail(msg: str):
@@ -642,6 +664,38 @@ def train_step_vs_cpu(cfg):
     return out
 
 
+def timed_steps(step, state, wav):
+    """ms per step over TRAIN_STEPS steps (CUDA events), and the last metrics."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        metrics = step(state, {"wav": wav})
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TRAIN_STEPS, metrics
+
+
+def bare_step_again(cfg) -> float:
+    """The bare bf16 step's audio-s/s once more, after the loop, as
+    train_path times it: bare, loop, bare in one run, since a host-bound
+    step's rate moves with its host."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.train.state import init_train_state
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    state = init_train_state(cfg, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(cfg)
+    wav = torch.from_numpy((np.random.RandomState(2).randn(B, SR) * 0.1).astype(np.float32)).cuda()
+    for _ in range(TRAIN_WARMUP):
+        step(state, {"wav": wav})
+    torch.cuda.synchronize()
+    ms, _ = timed_steps(step, state, wav)
+    return B * SR / cfg.dataset.sample_rate / (ms / 1e3)
+
+
 def train_path(cfg, card):
     """(c) Config() in bf16 at 32 x 1 s: 2 warm-up steps, then 5 steps timed
     with CUDA events and counted; one more step under torch.profiler."""
@@ -661,16 +715,10 @@ def train_path(cfg, card):
         step(state, {"wav": wav})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     vq_argmin.launches = fused_residual_unit.launches = 0
-    start.record()
-    for _ in range(TRAIN_STEPS):
-        metrics = step(state, {"wav": wav})
-    end.record()
-    torch.cuda.synchronize()
+    ms, metrics = timed_steps(step, state, wav)
     launches = {"vq_argmin": vq_argmin.launches / TRAIN_STEPS,
                 "residual_unit": fused_residual_unit.launches / TRAIN_STEPS}
-    ms = start.elapsed_time(end) / TRAIN_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_units = 2 * len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
     nq = cfg.model.codec_decoder.vq_num_quantizers
@@ -692,6 +740,310 @@ def train_path(cfg, card):
     print(json.dumps({"train_step": out, "card": card}))
     print(json.dumps({"train_profile": device_profile(lambda: step(state, {"wav": wav}), top=12)}))
     return out
+
+
+def write_corpus(root: Path, sr: int = SR):
+    """A seeded synthetic corpus: noise and a pitch under a syllable-rate
+    envelope with pauses, as PCM16 WAVs. 72 training files of 1-3 s (8 of
+    them at 24 kHz), 32 validation files of 1-1.5 s and the test files of
+    LOOP_TEST_SECONDS; returns the three filelists."""
+    import numpy as np
+    from audiotokenization_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.RandomState(5)
+
+    def clip(path, seconds, rate):
+        t = np.arange(int(seconds * rate)) / rate
+        env = np.clip(np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6)), 0, None) ** 2
+        pitch = np.sin(2 * np.pi * rng.uniform(100, 250) * t)
+        w = env * (0.5 * pitch + 0.5 * rng.randn(len(t))) * 0.3 + 0.003 * rng.randn(len(t))
+        write_wav(path, w.astype(np.float32), rate)
+        return str(path)
+
+    train = [clip(root / f"train{i}.wav", rng.uniform(1.0, 3.0), 24000 if i % 9 == 4 else sr)
+             for i in range(72)]
+    val = [clip(root / f"val{i}.wav", rng.uniform(1.0, 1.5), sr) for i in range(32)]
+    test = [clip(root / f"test{i}.wav", s, sr) for i, s in enumerate(LOOP_TEST_SECONDS)]
+    lists = {}
+    for name, files in (("train", train), ("val", val), ("test", test)):
+        lists[name] = root / f"{name}.txt"
+        lists[name].write_text("\n".join(files))
+    return lists
+
+
+class LaunchLedger:
+    """K1 and K2 launches per call of the loop's train step, eval step and
+    ragged codec: wraps the factories the loop calls (and restores them),
+    reading the host-side counters only, so nothing syncs the card."""
+
+    def __init__(self):
+        from audiotokenization_tpu_torch.train import loop
+        from audiotokenization_tpu_torch.utils import ragged
+
+        self.calls = {"train_step": [], "val_batch": [], "test_file": []}
+        self.test_s = []
+        self._patched = [(loop, "make_train_step"), (loop, "make_eval_step"),
+                         (ragged, "make_ragged_codec"), (loop, "run_test")]
+        self._orig = [getattr(m, n) for m, n in self._patched]
+        counted = {"make_train_step": "train_step", "make_eval_step": "val_batch",
+                   "make_ragged_codec": "test_file"}
+        for (module, name), orig in zip(self._patched, self._orig):
+            if name in counted:
+                setattr(module, name, self._factory(orig, self.calls[counted[name]]))
+        loop.run_test = self._timed(self._orig[3])
+
+    @staticmethod
+    def _counts():
+        from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+        from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+        return vq_argmin.launches, fused_residual_unit.launches
+
+    def _factory(self, make, record):
+        def wrapped_make(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def counted(*a, **kw):
+                before = self._counts()
+                out = fn(*a, **kw)
+                after = self._counts()
+                record.append((after[0] - before[0], after[1] - before[1]))
+                return out
+
+            return counted
+
+        return wrapped_make
+
+    def _timed(self, run_test):
+        import torch
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = run_test(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.test_s.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def close(self):
+        for (module, name), orig in zip(self._patched, self._orig):
+            setattr(module, name, orig)
+
+
+def _state_leaves(state):
+    """name -> tensor (or other leaf) of a train state's state dict."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}.{i}")
+        else:
+            out[path] = node
+
+    walk(state.state_dict(), "state")
+    return out
+
+
+def ragged_vs_per_file(cfg, codec, test_list):
+    """The test files through make_ragged_codec as one batch against each
+    file's own forward, both fp32_strict (full fp32, TF32 off)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.data.dataset import load_clip, read_filelist
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.conv import linear
+    from audiotokenization_tpu_torch.utils.ragged import make_ragged_codec
+
+    strict = copy.deepcopy(cfg)
+    strict.train.precision = "fp32_strict"
+    hop = int(np.prod(cfg.model.codec_encoder.up_ratios))
+    wavs = [load_clip(f, sample_rate=SR, min_audio_length=-1, pad_to_multiple_of=hop, train=False)
+            for f in read_filelist(test_list)]
+    lengths = [len(w) for w in wavs]
+    batch = torch.zeros((len(wavs), max(lengths)))
+    for i, w in enumerate(wavs):
+        batch[i, :len(w)] = torch.from_numpy(w)
+    own_cfg, codec.cfg = codec.cfg, strict
+    try:
+        recon, codes = make_ragged_codec(strict)(codec, batch.cuda(), torch.tensor(lengths))
+        flips = near = 0
+        wav_err = 0.0
+        layer = codec.quantizer.layers[0]
+        for i, w in enumerate(wavs):
+            x = torch.from_numpy(w)[None].cuda()
+            with torch.no_grad():
+                out = C.forward(codec, {"wav": x})
+                with C.full_fp32():
+                    z_e = linear(C.encode(codec, x).transpose(1, 2), layer.in_proj)
+                    gap = top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook))
+            n = len(w) // hop
+            differ = (codes[0, i, :n] != out.vq_code[0, 0]).cpu()
+            flips += int(differ.sum())
+            near += int((gap.cpu() < GAP).sum())
+            if (differ & (gap.cpu() >= GAP)).any():
+                fail(f"ragged codec: tokens of test file {i} differ from its own forward "
+                     "at frames with a top-2 gap >= 1e-5")
+            got, want = recon[i, :len(w)], out.gen_wav[0, 0]
+            wav_err = max(wav_err, (got - want).abs().max().item())
+            if not torch.allclose(got, want, rtol=WAV_RTOL, atol=WAV_ATOL):
+                fail(f"ragged codec: waveform of test file {i} outside rtol 1e-3 / atol 2e-5 "
+                     "of its own forward")
+    finally:
+        codec.cfg = own_cfg
+    out = {"files": len(wavs), "lengths": lengths, "token_flips": flips,
+           "near_ties": near, "max_abs_err_wav": wav_err}
+    print(f"ragged codec vs per-file forward (fp32_strict, {len(wavs)} files): {flips} tokens "
+          f"differ, {near} frames under the {GAP:g} top-2 gap, max |dwav| = {wav_err:.3g}")
+    return out
+
+
+def train_loop_path(cfg, card, bare):
+    """9. The training loop at full width (module docstring); ``bare`` is
+    train_path's result, the bare step's rate in the same run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import train as cli
+    from audiotokenization_tpu_torch.config import save_config
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+    from audiotokenization_tpu_torch.train import loop
+    from audiotokenization_tpu_torch.train.checkpoint import restore_train_state
+    from audiotokenization_tpu_torch.train.state import init_train_state
+    from audiotokenization_tpu_torch.utils.logging import MetricsLogger
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_", dir=build_dir))
+    ledger = None
+    try:
+        lists = write_corpus(root)
+        cfg = copy.deepcopy(cfg)
+        d, t = cfg.dataset, cfg.train
+        d.train.filelist, d.val.filelist, d.test.filelist = (str(lists[k]) for k in ("train", "val", "test"))
+        d.train.batch_size = d.val.batch_size = B
+        d.train.min_audio_length = d.val.min_audio_length = SR
+        d.val.quality_metric_items = 2
+        t.max_steps = LOOP_STEPS
+        t.log_every_n_steps, t.val_every_n_steps, t.checkpoint_every_n_steps = 2, 4, 4
+        t.num_sanity_val_steps = 1
+        if t.precision != "bf16":
+            fail(f"the loop runs Config()'s bf16, got {t.precision}")
+        run_dir = root / "run"
+        cfg_file = root / "config.json"
+        save_config(cfg, cfg_file)
+
+        ledger = LaunchLedger()
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        train_loader, val_loader, test_loader = cli.make_loaders(cfg, pin_memory=True)
+        logger = MetricsLogger(run_dir, run_name=cfg.name, use_wandb=False)
+        t0 = time.perf_counter()
+        state = loop.train(cfg, train_loader=train_loader, val_loader=val_loader,
+                           test_loader=test_loader, run_dir=str(run_dir), logger=logger)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        logger.close()
+        if state.step != LOOP_STEPS:
+            fail(f"the loop stopped at step {state.step}, not {LOOP_STEPS}")
+
+        fresh = init_train_state(cfg, generator=torch.Generator().manual_seed(1))
+        restore_train_state(run_dir, fresh, step=LOOP_STEPS)
+        want, got = _state_leaves(state), _state_leaves(fresh)
+        if want.keys() != got.keys():
+            fail("the restored state's leaves differ from the saved state's")
+        differ = [k for k in want if not (torch.equal(want[k], got[k]) if torch.is_tensor(want[k])
+                                          else want[k] == got[k])]
+        if differ:
+            fail(f"{len(differ)} leaves of the step-{LOOP_STEPS} checkpoint differ from the "
+                 f"state train returned, e.g. {differ[:3]}")
+        n_tensors = sum(torch.is_tensor(v) for v in want.values())
+        print(f"train loop: the step-{LOOP_STEPS} checkpoint restores all {len(want)} leaves "
+              f"({n_tensors} tensors) bit for bit")
+        del fresh, state, want, got
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        state = cli.main(["--config", str(cfg_file), "--run_dir", str(run_dir),
+                          "--max_steps", str(LOOP_RESUME_STEPS), "--no_wandb"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches = (vq_argmin.launches, fused_residual_unit.launches)
+        ledger.close()
+        if state.step != LOOP_RESUME_STEPS:
+            fail(f"the resumed loop stopped at step {state.step}, not {LOOP_RESUME_STEPS}")
+
+        logs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        step_logs = [r for r in logs if "gen_loss" in r]
+        want_steps = list(range(t.log_every_n_steps, LOOP_RESUME_STEPS + 1, t.log_every_n_steps))
+        if [r["step"] for r in step_logs] != want_steps:
+            fail(f"metrics.jsonl logs steps {[r['step'] for r in step_logs]}, not {want_steps}")
+        losses = {k: v for r in step_logs for k, v in r.items() if k.endswith("_loss")}
+        bad = [(r["step"], k) for r in step_logs for k, v in r.items()
+               if k.endswith("_loss") and not np.isfinite(v)]
+        if bad or not losses:
+            fail(f"non-finite logged losses: {bad}")
+        tests = [r for r in logs if "test_si_snr" in r]
+        if len(tests) != 2 or not all("test_codebook_perplexity" in r for r in tests):
+            fail("the test passes did not log test_si_snr and test_codebook_perplexity")
+
+        nq = cfg.model.codec_decoder.vq_num_quantizers
+        n_units = 2 * len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+        n_val = sum(1 for r in logs if "sanity_val_ok" in r) + sum(1 for r in logs if "val_si_snr" in r)
+        expect = {"train_step": LOOP_RESUME_STEPS, "val_batch": n_val,
+                  "test_file": 2 * len(LOOP_TEST_SECONDS)}
+        per_call = {}
+        for kind, calls in ledger.calls.items():
+            if len(calls) != expect[kind] or set(calls) != {(nq, n_units)}:
+                fail(f"loop launches per {kind}: {calls}, expected {expect[kind]} calls of "
+                     f"K1 {nq} / K2 {n_units}")
+            per_call[kind] = {"vq_argmin": nq, "residual_unit": n_units, "calls": len(calls)}
+        total = tuple(sum(c[i] for calls in ledger.calls.values() for c in calls) for i in (0, 1))
+        if launches != total:
+            fail(f"the loop launched K1/K2 {launches} times, its steps, validation batches "
+                 f"and test files {total}")
+        print(f"train loop launches: K1 {launches[0]}, K2 {launches[1]} over "
+              f"{expect['train_step']} steps, {n_val} validation batches and "
+              f"{expect['test_file']} test files (K1 {nq} / K2 {n_units} each)")
+
+        # the rate of log windows that hold no validation, checkpoint or the first steps
+        audio_per_step = B * SR / cfg.dataset.sample_rate
+        clean = [r for r in step_logs if r["step"] > t.log_every_n_steps
+                 and (r["step"] - t.log_every_n_steps) % t.val_every_n_steps != 0
+                 and (r["step"] - t.log_every_n_steps) % t.checkpoint_every_n_steps != 0]
+        windows = {r["step"]: r["steps_per_sec"] * audio_per_step for r in clean}
+        loop_rate = float(np.mean(list(windows.values())))
+        saves = [{"step": r["step"], "stall_ms": r["ckpt_stall_ms"], "bytes": r["ckpt_bytes"]}
+                 for r in logs if "ckpt_stall_ms" in r]
+        vals = [{"step": r["step"], "forward_s": r["val_forward_s"],
+                 "quality_s": r["val_quality_s"], "stoi": r.get("val_stoi"),
+                 "pesq": r.get("val_pesq"), "si_snr": r["val_si_snr"]}
+                for r in logs if "val_forward_s" in r]
+        test_audio = sum(LOOP_TEST_SECONDS)
+        ragged = ragged_vs_per_file(cfg, state.gen, lists["test"])
+        out = {"audio_s_per_s_by_window": windows, "audio_s_per_s": loop_rate,
+               "bare_step_audio_s_per_s": bare["audio_s_per_s"],
+               "loop_over_bare": loop_rate / bare["audio_s_per_s"],
+               "checkpoint_saves": saves, "validation": vals,
+               "test_pass_s": ledger.test_s, "test_audio_s": test_audio,
+               "test_audio_s_per_s": [test_audio / s for s in ledger.test_s],
+               "first_run_s": first_s, "resume_run_s": resume_s,
+               "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]},
+               "launches_per_call": per_call, "ragged_vs_per_file": ragged,
+               "last_losses": {k: v for k, v in step_logs[-1].items() if k.endswith("_loss")},
+               "test_metrics": {k: v for k, v in tests[-1].items() if k.startswith("test_")}}
+        print(json.dumps({"train_loop": out, "card": card}))
+        return out
+    finally:
+        if ledger is not None:
+            ledger.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -738,6 +1090,12 @@ def main() -> int:
     check_k2_grads(shapes)
     train_step_vs_cpu(cfg)
     train = train_path(cfg, card)
+    loop = train_loop_path(cfg, card, train)
+    bare = [train["audio_s_per_s"], bare_step_again(cfg)]
+    print(json.dumps({"train_loop_vs_bare": {
+        "bare_before_audio_s_per_s": bare[0], "loop_audio_s_per_s": loop["audio_s_per_s"],
+        "bare_after_audio_s_per_s": bare[1],
+        "loop_over_bare_mean": loop["audio_s_per_s"] / (sum(bare) / 2)}, "card": card}))
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
     # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
     # launch per probe shape.
@@ -754,12 +1112,14 @@ def main() -> int:
          "source": "audiotokenization_tpu_torch/csrc/vq_argmin.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/vq_kernel.py:33",
          "launches": e2e["launches"]["vq_argmin"], "max_abs_err": k1_err,
-         "train_launches_per_step": train["launches_per_step"]["vq_argmin"], **k1},
+         "train_launches_per_step": train["launches_per_step"]["vq_argmin"],
+         "loop_launches": loop["launches"]["vq_argmin"], **k1},
         {"name": "fused_residual_unit", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/residual_unit.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/residual_unit_kernel.py:46",
          "launches": e2e["launches"]["residual_unit"], "max_abs_err": k2_err,
          "train_launches_per_step": train["launches_per_step"]["residual_unit"],
+         "loop_launches": loop["launches"]["residual_unit"],
          "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
          "bound_by": bound_by(rows), "bound_simt_ms": tot["bound_simt_ms"],
          "library_ms": tot["library_ms"]},
@@ -776,7 +1136,9 @@ def main() -> int:
                               "the host's time per call; device_ms: the kernel alone); K2 summed over the main path's "
                               f"{e2e['launches']['residual_unit']} unit launches; P1 "
                               f"summed over its path's {p1_launches} launches (probe shapes); "
-                              "train_launches_per_step: the bf16 training step's"}))
+                              "train_launches_per_step: the bf16 training step's; "
+                              "loop_launches: the training loop's (K1 1 / K2 30 per train "
+                              "step, validation batch and test file)"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

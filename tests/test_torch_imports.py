@@ -37,4 +37,6 @@ def test_scan_sees_the_port():
     names = {p.name for p in FILES}
     assert {"codec.py", "vq_kernel.py", "residual_unit_kernel.py", "chip_smoke.py",
             "step.py", "state.py", "schedule.py", "metrics.py", "discriminators.py",
-            "mel.py", "gan.py", "stft_loss.py", "stft.py", "params.py"} <= names
+            "mel.py", "gan.py", "stft_loss.py", "stft.py", "params.py", "loop.py",
+            "checkpoint.py", "dataset.py", "audio_io.py", "flac.py", "resample.py",
+            "logging.py", "ragged.py", "train.py", "pesq_p862.py", "pesq_tables.py"} <= names

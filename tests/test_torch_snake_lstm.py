@@ -50,9 +50,13 @@ def test_res_lstm_matches_jax(layers, bidirectional):
 
 
 def test_lstm_masked_path_is_refused():
+    """The masked path takes per-sample prefix masks (tests/test_torch_ragged.py);
+    a mask with a hole, or of another shape, is refused."""
     m = TL.init_lstm(4, 4, num_layers=1, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        TL.res_lstm(torch.zeros(1, 4, 3), m, valid=torch.ones(1, 3, dtype=torch.bool))
+    with pytest.raises(ValueError, match="prefix"):
+        TL.res_lstm(torch.zeros(1, 4, 3), m, valid=torch.tensor([[True, False, True]]))
+    with pytest.raises(ValueError, match="valid must be"):
+        TL.res_lstm(torch.zeros(1, 4, 3), m, valid=torch.ones(3, dtype=torch.bool))
 
 
 def test_init_lstm_uses_the_generator_only():
