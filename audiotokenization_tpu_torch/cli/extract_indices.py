@@ -1,0 +1,269 @@
+"""Corpus token extraction (counterpart of
+``audiotokenization_tpu/cli/extract_indices.py``).
+
+Walks the LibriTTS / LibriSpeech subsets under
+``<dataset_root>/<dataset_path>/<subset>`` for audio files, tokenizes each
+one (encoder -> VQ) and saves its codes as
+``<save_path>/<output_folder>/<subset>/<speaker>/<chapter>/<fileid>.npy``:
+int16, or int32 for codebooks above 32767 codes; (T,) for one quantizer,
+(T, Nq) for several. A file that fails is counted and skipped.
+
+    python -m audiotokenization_tpu_torch.cli.extract_indices \\
+        --save_path runs/my_run --dataset_root data --dataset_path LibriSpeech \\
+        --ext_audio .wav --subsets test-clean [--batch_size 16] [--device cpu]
+
+The model comes from a port run dir (``config.json`` + ``ckpt/<step>/
+state.pt``; a JAX run dir converts into one with
+``scripts/jax_run_to_torch.py``) or from a reference run dir or ``.ckpt``
+(``convert.load_reference_checkpoint``, which needs PyYAML). Weight norm is
+folded for inference.
+
+By default each file is zero-padded to a whole number of hops and goes
+through the ragged tokenizer (``utils/ragged.py``) in buckets of
+ceil(length / 1 s) seconds, ``--batch_size`` rows a device call; each
+file's tokens equal its own per-file ``tokenize``. PCM16-exact audio ships
+to the device as int16. ``--exact`` tokenizes each file alone at its raw
+length. Only the conformant mode is ported; sequence and tensor
+parallelism and the semantic targets raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--dataset_root", type=str, default="../../datasets")
+    p.add_argument("--save_path", type=str, required=True,
+                   help="run dir (the port's or the reference's) holding the checkpoint")
+    p.add_argument("--output_folder", type=str, default="extracted_indices")
+    p.add_argument("--duration", type=float, default=None,
+                   help="optional fixed clip duration in seconds (pad/trim)")
+    p.add_argument("--sample_rate", type=int, default=16000)
+    p.add_argument("--dataset_path", type=str, default="LibriTTS")
+    p.add_argument("--ext_audio", type=str, default=".flac")
+    p.add_argument("--subsets", type=str, nargs="+", required=True)
+    p.add_argument("--exact", action="store_true",
+                   help="tokenize each file alone at its raw length")
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--mode", choices=("conformant", "high", "balanced", "fast"),
+                   default="conformant",
+                   help="only 'conformant' (full fp32) is ported")
+    p.add_argument("--semantic_dir", type=str, default=None,
+                   help="precomputed w2v-bert targets (semantic branch: not ported)")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="shard each utterance across devices (not ported)")
+    p.add_argument("--tensor_parallel", type=int, nargs="?", const=-1, default=0, metavar="N",
+                   help="shard conformer weights over N devices (not ported)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
+    return p
+
+
+def load_model(save_path, *, device="cuda"):
+    """(cfg, Codec) from a port run dir (``config.json``) or a reference run
+    dir / ``.ckpt``, on ``device`` in eval mode, with the weight norm folded
+    into one weight per conv (the reference's inference-time
+    ``remove_weight_norm``)."""
+    from ..ops.conv import fold_weight_norm
+
+    p = Path(save_path)
+    if (p / "config.json").exists():
+        from ..train.checkpoint import load_checkpoint_params
+
+        cfg, codec = load_checkpoint_params(p, device=device)
+    else:
+        from ..convert import load_reference_checkpoint
+
+        cfg, codec = load_reference_checkpoint(p, device=device)
+    return cfg, fold_weight_norm(codec)
+
+
+def iter_corpus(root: Path, subsets, ext: str):
+    """(subset, file) of every ``*<ext>`` under ``root/<subset>``, sorted."""
+    for subset in subsets:
+        base = root / subset
+        if not base.exists():
+            print(f"warning: subset path missing: {base}")
+            continue
+        for f in sorted(base.rglob(f"*{ext}")):
+            yield subset, f
+
+
+def parse_fileid(fileid: str):
+    """(speaker, chapter) of a LibriTTS (``_``) or LibriSpeech (``-``) file id."""
+    if "_" in fileid:
+        parts = fileid.split("_")
+    elif "-" in fileid:
+        parts = fileid.split("-")
+    else:
+        return "unknown", "unknown"
+    if len(parts) >= 2:
+        return parts[0], parts[1]
+    return "unknown", "unknown"
+
+
+def _refuse_unported(args):
+    if args.sequence_parallel or args.tensor_parallel:
+        raise NotImplementedError("--sequence_parallel and --tensor_parallel are not ported yet "
+                                  "(ROADMAP Queue 1 item 18)")
+    if args.semantic_dir:
+        raise NotImplementedError("--semantic_dir (the semantic branch) is not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
+    if args.mode != "conformant":
+        raise NotImplementedError(f"tokenize mode {args.mode!r} is not ported yet "
+                                  "(ROADMAP Queue 1 item 6)")
+
+
+def _as_pcm16(w: np.ndarray) -> np.ndarray:
+    """int16 when the float samples are PCM16-exact (int16 / 32768 is exact
+    in float32, and the tokenizer converts back bit for bit), else float32."""
+    w = np.asarray(w, np.float32)
+    scaled = w * 32768.0
+    if (np.abs(scaled) <= 32767).all() and (scaled == np.round(scaled)).all():
+        return scaled.astype(np.int16)
+    return w
+
+
+def main(argv=None):
+    """Extract the corpus; prints and returns the closing summary (``saved``,
+    ``errors``, ``audio_seconds``, ``wall_seconds``, ``audio_s_per_s``, and
+    ``device_batches`` with the wall seconds split into ``read_s``,
+    ``resample_s``, ``device_s`` and ``save_s``)."""
+    from ..data.audio_io import read_audio
+    from ..models import codec as C
+    from ..ops.resample import resample
+    from ..utils.ragged import make_ragged_tokenizer
+
+    args = build_argparser().parse_args(argv)
+    _refuse_unported(args)
+    device = C.resolve_device(args.device)
+    cfg, codec = load_model(args.save_path, device=device)
+    hop = math.prod(cfg.model.codec_encoder.up_ratios)
+    out_dir = Path(args.save_path) / args.output_folder
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # int16 is the reference's contract; larger codebooks would overflow it
+    dtype = np.int16 if cfg.model.codec_decoder.codebook_size <= 32767 else np.int32
+    ragged = None if args.exact else make_ragged_tokenizer(cfg, device=device)
+    quantum = max(args.sample_rate // hop * hop, hop)
+    split = {"read_s": 0.0, "resample_s": 0.0, "device_s": 0.0, "save_s": 0.0}
+    stats = {"saved": 0, "errors": 0, "device_batches": 0}
+    pending: dict = {}
+
+    def save_one(subset, fileid, codes):  # codes (Nq, frames)
+        t0 = time.perf_counter()
+        indices = codes.T if codes.shape[0] > 1 else codes[0]
+        speaker, chapter = parse_fileid(fileid)
+        sub_dir = out_dir / subset / speaker / chapter
+        sub_dir.mkdir(parents=True, exist_ok=True)
+        np.save(sub_dir / f"{fileid}.npy", indices.astype(dtype))
+        split["save_s"] += time.perf_counter() - t0
+
+    def device_call(rows, plen, dt):
+        """One ragged call on ``rows`` (at most batch_size), zero-padded to
+        (batch_size, plen) -> codes (Nq, batch_size, plen / hop) on the host."""
+        t0 = time.perf_counter()
+        wavs = np.zeros((args.batch_size, plen), dt)
+        lens = np.zeros((args.batch_size,), np.int64)
+        for i, w in enumerate(rows):
+            wavs[i, :len(w)] = w
+            lens[i] = len(w)
+        codes = ragged(codec, torch.from_numpy(wavs), torch.from_numpy(lens)).cpu().numpy()
+        split["device_s"] += time.perf_counter() - t0
+        stats["device_batches"] += 1
+        return codes
+
+    def flush(key):
+        items = pending.pop(key, None)
+        if not items:
+            return
+        plen, dt = key
+        try:
+            codes = device_call([w for _, _, w in items], plen, dt)
+            for i, (subset, fileid, w) in enumerate(items):
+                save_one(subset, fileid, codes[:, i, :len(w) // hop])
+            stats["saved"] += len(items)
+        except Exception as exc:
+            # one bad batch must not lose batch_size files: each file alone,
+            # through the same bucket shape
+            print(f"batch error ({len(items)} files), retrying per file: "
+                  f"{type(exc).__name__}: {exc}")
+            for subset, fileid, w in items:
+                try:
+                    save_one(subset, fileid, device_call([w], plen, dt)[:, 0, :len(w) // hop])
+                    stats["saved"] += 1
+                except Exception as exc2:
+                    print(f"error on {fileid}: {type(exc2).__name__}: {exc2}")
+                    stats["errors"] += 1
+
+    t_start = time.perf_counter()
+    audio_seconds = 0.0
+    last_print = 0
+    for subset, f in iter_corpus(Path(args.dataset_root) / args.dataset_path, args.subsets,
+                                 args.ext_audio):
+        fileid = f.stem
+        try:
+            t0 = time.perf_counter()
+            wav, sr = read_audio(f)
+            wav = wav[0]
+            if args.duration is not None:
+                target = int(args.duration * sr)
+                if len(wav) < target:
+                    wav = np.pad(wav, (0, target - len(wav)))
+                wav = wav[:target]
+            t1 = time.perf_counter()
+            split["read_s"] += t1 - t0
+            if sr != args.sample_rate:
+                wav = resample(torch.from_numpy(np.ascontiguousarray(wav)), sr,
+                               args.sample_rate).numpy()
+                split["resample_s"] += time.perf_counter() - t1
+            audio_seconds += len(wav) / args.sample_rate
+            if not args.exact and len(wav) % hop != 0:
+                wav = np.pad(wav, (0, hop - len(wav) % hop))
+            if ragged is not None:
+                w = _as_pcm16(wav)
+                key = (-(-len(w) // quantum) * quantum, w.dtype.str)
+                bucket = pending.setdefault(key, [])
+                bucket.append((subset, fileid, w))
+                if len(bucket) == args.batch_size:
+                    flush(key)
+            else:
+                t0 = time.perf_counter()
+                x = torch.from_numpy(np.asarray(wav, np.float32))[None].to(device)
+                codes = C.tokenize(codec, x).cpu().numpy()[:, 0]
+                split["device_s"] += time.perf_counter() - t0
+                stats["device_batches"] += 1
+                save_one(subset, fileid, codes)
+                stats["saved"] += 1
+            if stats["saved"] - last_print >= 100:
+                last_print = stats["saved"]
+                rate = audio_seconds / (time.perf_counter() - t_start)
+                print(f"saved={stats['saved']} errors={stats['errors']} "
+                      f"throughput={rate:.1f} audio-s/s", flush=True)
+        except FileNotFoundError as e:
+            print(f"skip (missing): {e}")
+            stats["errors"] += 1
+        except Exception as e:
+            print(f"error on {fileid}: {type(e).__name__}: {e}")
+            stats["errors"] += 1
+    for key in sorted(pending):
+        flush(key)
+    wall = time.perf_counter() - t_start
+    summary = {"saved": stats["saved"], "errors": stats["errors"],
+               "audio_seconds": round(audio_seconds, 1), "wall_seconds": round(wall, 1),
+               "audio_s_per_s": round(audio_seconds / max(wall, 1e-9), 2),
+               "device_batches": stats["device_batches"], **split}
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,91 @@
+"""Decode tokens to audio with a trained codec (counterpart of
+``audiotokenization_tpu/cli/synthesize.py``, non-streaming).
+
+    python -m audiotokenization_tpu_torch.cli.synthesize --codec_ckpt runs/my_run \\
+        --random [--seconds 2 --num_samples 2 --seed 0 --out_dir synthesized] [--device cpu]
+
+``--random`` draws uniform tokens from a seeded ``torch.Generator`` (a codec
+smoke test: the draw is not JAX's ``jax.random`` one), then decodes them
+through ``codes_to_emb`` -> ``apply_fc_post_a`` -> ``decode`` in full fp32
+and writes ``sample_<i>.wav`` and the tokens as int16 ``tokens.npy``.
+``--codec_ckpt`` is any run dir ``cli/extract_indices.py::load_model``
+reads. Sampling from a token LM (``--lm_ckpt``), streaming, sequence and
+pipeline parallelism are not ported and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def decode_tokens(codec, tokens):
+    """tokens (B, Tf) int on the codec's device -> waveforms (B, Tf · hop),
+    in full fp32 without gradients."""
+    from ..models import codec as C
+
+    with torch.no_grad(), C.full_fp32():
+        emb = C.apply_fc_post_a(codec, C.codes_to_emb(codec, tokens[..., None]))
+        return C.decode(codec, emb)[:, 0]
+
+
+def main(argv=None):
+    """Synthesize; returns the waveforms (num_samples, T) as float32 numpy,
+    before their PCM16 rounding in the wav files."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--codec_ckpt", type=str, required=True)
+    p.add_argument("--lm_ckpt", type=str, default=None,
+                   help="token-LM run dir (not ported)")
+    p.add_argument("--random", action="store_true",
+                   help="sample uniform random tokens instead of the LM")
+    p.add_argument("--seconds", type=float, default=2.0)
+    p.add_argument("--num_samples", type=int, default=2)
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out_dir", type=str, default="synthesized")
+    p.add_argument("--sequence_parallel", action="store_true", help="not ported")
+    p.add_argument("--pipeline_parallel", type=int, default=0, metavar="N", help="not ported")
+    p.add_argument("--streaming", type=int, default=0, metavar="CHUNK_FRAMES",
+                   help="not ported")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
+    args = p.parse_args(argv)
+
+    if args.lm_ckpt:
+        raise NotImplementedError("sampling from a token LM (--lm_ckpt) is not ported yet "
+                                  "(ROADMAP Queue 1 item 16)")
+    if args.streaming:
+        raise NotImplementedError("--streaming is not ported yet (ROADMAP Queue 1 item 12)")
+    if args.sequence_parallel or args.pipeline_parallel:
+        raise NotImplementedError("--sequence_parallel and --pipeline_parallel are not ported "
+                                  "yet (ROADMAP Queue 1 item 18)")
+    if not args.random:
+        raise SystemExit("no --lm_ckpt given; pass --random for uniform tokens")
+
+    from ..data.audio_io import write_wav
+    from ..models.codec import resolve_device
+    from .extract_indices import load_model
+
+    device = resolve_device(args.device)
+    cfg, codec = load_model(args.codec_ckpt, device=device)
+    sr = cfg.dataset.sample_rate
+    n_frames = int(args.seconds * sr) // math.prod(cfg.model.codec_encoder.up_ratios)
+    tokens = torch.randint(0, cfg.model.codec_decoder.codebook_size,
+                           (args.num_samples, n_frames),
+                           generator=torch.Generator().manual_seed(args.seed))
+    wav = decode_tokens(codec, tokens.to(device)).cpu().numpy()
+    out = Path(args.out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for i in range(args.num_samples):
+        write_wav(out / f"sample_{i}.wav", wav[i], sr)
+    np.save(out / "tokens.npy", tokens.numpy().astype(np.int16))
+    print(f"wrote {args.num_samples} samples ({args.seconds}s @ {sr} Hz) to {out}")
+    return wav
+
+
+if __name__ == "__main__":
+    main()

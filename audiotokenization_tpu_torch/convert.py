@@ -1,4 +1,5 @@
-"""Parameter bridge from the JAX package's tree to the port's modules.
+"""Parameter bridges into the port's modules: from the JAX package's tree,
+and from the reference's PyTorch Lightning checkpoints.
 
 ``params_from_jax(tree)`` turns the JAX parameter tree — nested dicts and
 lists with numpy leaves (the caller does ``np.asarray(leaf)``) — into a
@@ -13,10 +14,21 @@ The discriminators' tree (``{"mpd": ..., "spec": ...}``) maps onto
 
 ``train_state_from_jax`` builds the port's train state from a JAX
 ``TrainState``.
+
+The reference's checkpoints (counterpart of ``audiotokenization_tpu/
+convert.py``): ``convert_codec_state_dict`` maps a CodecLightningModule
+state dict (``encoder.*``, ``decoder.*`` with the quantizer under
+``decoder.quantizer.*``) straight onto the port's state-dict keys, tensor
+for tensor, tolerant of the causal convs' inner ``.conv.``;
+``load_reference_checkpoint`` finds and reads a reference run dir. Only
+the BigCodec codec with the factorized VQ is ported: Conformer, FSQ and
+semantic checkpoints raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import re
+from pathlib import Path
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -71,3 +83,237 @@ def train_state_from_jax(state_tree, cfg: Config, device="cuda"):
     state = train_state(cfg, gen.to(device), disc.to(device))
     state.step = int(state_tree.step)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Reference (PyTorch Lightning) checkpoints
+# ---------------------------------------------------------------------------
+
+def _tensor(a) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.detach().to("cpu").clone()
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+class _View:
+    """Prefix view over a flat state dict, tolerant of causal ``.conv.`` nesting."""
+
+    def __init__(self, sd: Mapping[str, Any], prefix: str = ""):
+        self.sd = sd
+        self.prefix = prefix
+
+    def sub(self, name: str) -> "_View":
+        return _View(self.sd, f"{self.prefix}{name}.")
+
+    def has(self, name: str) -> bool:
+        return (self.prefix + name) in self.sd or (self.prefix + "conv." + name) in self.sd
+
+    def get(self, name: str) -> torch.Tensor:
+        for key in (self.prefix + name, self.prefix + "conv." + name):  # CausalConv's inner .conv
+            if key in self.sd:
+                return _tensor(self.sd[key])
+        raise KeyError(self.prefix + name)
+
+
+def _under(prefix: str, d: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in d.items()}
+
+
+def _conv(v: _View) -> Dict[str, torch.Tensor]:
+    """A weight-normed (``v``, ``g``) or plain (``w``) conv or linear, and its bias."""
+    if v.has("weight_v"):
+        p = {"v": v.get("weight_v"), "g": v.get("weight_g")}
+    else:
+        p = {"w": v.get("weight")}
+    if v.has("bias"):
+        p["b"] = v.get("bias")
+    return p
+
+
+def _snake(v: _View) -> Dict[str, torch.Tensor]:
+    return {"alpha": v.get("act.alpha"), "beta": v.get("act.beta")}
+
+
+def _lstm(v: _View, num_layers: int, bidirectional: bool = False) -> Dict[str, torch.Tensor]:
+    """The reference's ``lstm`` is an ``nn.LSTM``, as the port's is: same names."""
+    out = {}
+    for layer in range(num_layers):
+        for suffix in ("", "_reverse") if bidirectional else ("",):
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                key = f"{name}_l{layer}{suffix}"
+                out[key] = v.get(f"lstm.{key}")
+    return out
+
+
+def _residual_unit(v: _View) -> Dict[str, torch.Tensor]:
+    return {**_under("snake1", _snake(v.sub("block.0"))), **_under("conv1", _conv(v.sub("block.1"))),
+            **_under("snake2", _snake(v.sub("block.2"))), **_under("conv2", _conv(v.sub("block.3")))}
+
+
+def convert_bigcodec_encoder(sd: Mapping[str, Any], *, n_blocks: int = 5, n_units: int = 3,
+                             use_rnn: bool = True, rnn_num_layers: int = 2,
+                             rnn_bidirectional: bool = False) -> Dict[str, torch.Tensor]:
+    """The reference BigCodecEncoder's ``block`` Sequential -> the port's
+    ``BigCodecEncoder`` keys."""
+    v = _View(sd)
+    out = _under("conv_in", _conv(v.sub("block.0")))
+    for i in range(n_blocks):
+        bv = v.sub(f"block.{1 + i}")
+        for j in range(n_units):
+            out.update(_under(f"blocks.{i}.units.{j}", _residual_unit(bv.sub(f"block.{j}"))))
+        out.update(_under(f"blocks.{i}.snake", _snake(bv.sub(f"block.{n_units}"))))
+        out.update(_under(f"blocks.{i}.down", _conv(bv.sub(f"block.{n_units + 1}"))))
+    idx = 1 + n_blocks
+    if use_rnn:
+        out.update(_under("lstm", _lstm(v.sub(f"block.{idx}"), rnn_num_layers, rnn_bidirectional)))
+        idx += 1
+    out.update(_under("snake_out", _snake(v.sub(f"block.{idx}"))))
+    out.update(_under("conv_out", _conv(v.sub(f"block.{idx + 1}"))))
+    return out
+
+
+def convert_bigcodec_decoder(sd: Mapping[str, Any], *, n_blocks: int = 5, n_units: int = 3,
+                             use_rnn: bool = True, rnn_num_layers: int = 2,
+                             rnn_bidirectional: bool = False) -> Dict[str, torch.Tensor]:
+    """The reference BigCodecDecoder's ``model`` Sequential -> the port's
+    ``BigCodecDecoder`` keys."""
+    v = _View(sd)
+    out = _under("conv_in", _conv(v.sub("model.0")))
+    idx = 1
+    if use_rnn:
+        out.update(_under("lstm", _lstm(v.sub(f"model.{idx}"), rnn_num_layers, rnn_bidirectional)))
+        idx += 1
+    for i in range(n_blocks):
+        bv = v.sub(f"model.{idx + i}")
+        out.update(_under(f"blocks.{i}.snake", _snake(bv.sub("block.0"))))
+        out.update(_under(f"blocks.{i}.up", _conv(bv.sub("block.1"))))
+        for j in range(n_units):
+            out.update(_under(f"blocks.{i}.units.{j}", _residual_unit(bv.sub(f"block.{2 + j}"))))
+    idx += n_blocks
+    out.update(_under("snake_out", _snake(v.sub(f"model.{idx}"))))
+    out.update(_under("conv_out", _conv(v.sub(f"model.{idx + 1}"))))
+    return out
+
+
+def convert_residual_vq(sd: Mapping[str, Any], *, num_quantizers: int = 1,
+                        prefix: str = "quantizer.") -> Dict[str, torch.Tensor]:
+    """The reference's FactorizedVQ stack -> the port's ``ResidualVQ`` keys."""
+    v = _View(sd, prefix)
+    out = {}
+    for q in range(num_quantizers):
+        lv = v.sub(f"layers.{q}")
+        out[f"layers.{q}.codebook"] = lv.get("_codebook.weight")
+        if lv.has("in_proj.weight_v") or lv.has("in_proj.weight"):
+            out.update(_under(f"layers.{q}.in_proj", _conv(lv.sub("in_proj"))))
+            out.update(_under(f"layers.{q}.out_proj", _conv(lv.sub("out_proj"))))
+    return out
+
+
+def split_lightning_state_dict(sd: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """A CodecLightningModule state dict split by its first name:
+    ``encoder``, ``decoder``, ``discriminator``, ``fc_prior``, ..."""
+    groups: Dict[str, Dict[str, Any]] = {}
+    for k, val in sd.items():
+        head, _, rest = k.partition(".")
+        groups.setdefault(head, {})[rest] = val
+    return groups
+
+
+def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, torch.Tensor]:
+    """A CodecLightningModule state dict (torch tensors or numpy arrays) ->
+    the state dict of the port's ``Codec`` (CPU tensors, copied)."""
+    groups = split_lightning_state_dict(sd)
+    e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
+    for part, name in ((e, "encoder"), (d, "decoder")):
+        if part.type != "bigcodec":
+            raise NotImplementedError(f"converting a {part.type!r} {name} is not ported yet "
+                                      "(ROADMAP Queue 1 item 13)")
+    if d.fsq or d.quantizer != "fvq":
+        raise NotImplementedError(f"converting the {'fsq' if d.fsq else d.quantizer!r} quantizer "
+                                  "is not ported yet (ROADMAP Queue 1 item 14)")
+    if "fc_prior" in groups or cfg.train.use_semantic:
+        raise NotImplementedError("converting the semantic heads is not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
+    enc_sd, dec_sd = groups.get("encoder", {}), groups.get("decoder", {})
+    return {
+        **_under("encoder", convert_bigcodec_encoder(
+            enc_sd, n_blocks=len(e.up_ratios), n_units=len(e.dilations), use_rnn=e.use_rnn,
+            rnn_num_layers=e.rnn_num_layers, rnn_bidirectional=e.rnn_bidirectional)),
+        **_under("decoder", convert_bigcodec_decoder(
+            dec_sd, n_blocks=len(d.up_ratios), n_units=len(d.dilations), use_rnn=d.use_rnn,
+            rnn_num_layers=d.rnn_num_layers, rnn_bidirectional=d.rnn_bidirectional)),
+        **_under("quantizer", convert_residual_vq(dec_sd, num_quantizers=d.vq_num_quantizers)),
+    }
+
+
+def reference_config_to_config(ref_cfg: Mapping[str, Any]) -> Config:
+    """A composed reference Hydra config (a dict) onto ``Config()``; keys the
+    port does not know are ignored, so archived experiment configs load."""
+    cfg = Config()
+
+    def apply(obj, src):
+        for k, v in (src or {}).items():
+            if not hasattr(obj, k):
+                continue
+            cur = getattr(obj, k)
+            if hasattr(cur, "__dataclass_fields__") and isinstance(v, Mapping):
+                apply(cur, v)
+            elif isinstance(cur, tuple) and isinstance(v, (list, tuple)):
+                setattr(obj, k, tuple(v))
+            elif not isinstance(v, Mapping):
+                setattr(obj, k, v)
+
+    model = ref_cfg.get("model", {})
+    apply(cfg.model.codec_encoder, model.get("codec_encoder", {}))
+    apply(cfg.model.codec_decoder, model.get("codec_decoder", {}))
+    apply(cfg.model.mpd, model.get("mpd", {}))
+    apply(cfg.model.mstft, model.get("mstft", {}))
+    sp = model.get("mstft", {}).get("stft_params")
+    if sp:
+        apply(cfg.model.mstft.stft_params, sp)
+    apply(cfg.train, ref_cfg.get("train", {}))
+    if "lambdas" in ref_cfg.get("train", {}):
+        apply(cfg.train.lambdas, ref_cfg["train"]["lambdas"])
+    ds = ref_cfg.get("dataset", {})
+    for split in ("train", "val", "test"):
+        if split in ds:
+            apply(getattr(cfg.dataset, split), ds[split])
+    for k in ("sample_rate", "pad_to_multiple_of"):
+        if k in ds:
+            setattr(cfg.dataset, k, ds[k])
+    if "name" in ref_cfg:
+        cfg.name = ref_cfg["name"]
+    return cfg
+
+
+def load_reference_checkpoint(save_path, *, device="cuda"):
+    """(cfg, Codec) from a reference run dir or ``.ckpt`` file, the codec on
+    ``device`` in eval mode. A run dir holds ``hydra/config.yaml`` and
+    ``pl_log/last.ckpt``, ``checkpoints/last.ckpt`` or ``last.ckpt``, where
+    the reference's extract_indices looks for them; next to a ``.ckpt`` the
+    config is ``../../hydra/config.yaml`` or ``config.yaml``. Reading the
+    config needs PyYAML. Raises without a card unless ``device="cpu"``."""
+    device = resolve_device(device)
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("reading a reference run dir's hydra/config.yaml needs PyYAML "
+                          "(pip install pyyaml)") from e
+    p = Path(save_path)
+    if p.is_file():
+        ckpt_path = p
+        cfg_path = p.parent.parent / "hydra" / "config.yaml"
+        if not cfg_path.exists():
+            cfg_path = p.parent / "config.yaml"
+    else:
+        cfg_path = p / "hydra" / "config.yaml"
+        found = [p / c for c in ("pl_log/last.ckpt", "checkpoints/last.ckpt", "last.ckpt")
+                 if (p / c).exists()]
+        if not found:
+            raise FileNotFoundError(f"no checkpoint under {p}")
+        ckpt_path = found[0]
+    cfg = reference_config_to_config(yaml.safe_load(cfg_path.read_text()))
+    raw = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    codec = Codec(cfg, generator=torch.Generator().manual_seed(0))  # overwritten below
+    codec.load_state_dict(convert_codec_state_dict(raw.get("state_dict", raw), cfg))
+    return cfg, codec.to(device).eval()

@@ -84,7 +84,8 @@ class Codec(nn.Module):
                 f"only the BigCodec codec with the factorized VQ is ported, got "
                 f"{e.type}/{quantizer}/{d.type}")
         if cfg.train.use_semantic:
-            raise NotImplementedError("the semantic branch is not ported yet")
+            raise NotImplementedError("the semantic branch is not ported yet "
+                                      "(ROADMAP Queue 1 item 15)")
         self.cfg = cfg
         self.encoder = bigcodec.BigCodecEncoder(
             ngf=e.ngf, up_ratios=e.up_ratios, dilations=e.dilations,

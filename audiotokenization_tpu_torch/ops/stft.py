@@ -8,6 +8,8 @@ spectrogram discriminator use).
   (B, frames, F).
 - ``mel_filterbank``: slaney scale and slaney area norm (torchaudio's
   ``melscale_fbanks(norm='slaney', mel_scale='slaney')``), built in numpy.
+- ``mel_spectrogram``: the magnitude mel of ``torchaudio.transforms.
+  MelSpectrogram(center=True, norm/scale slaney)``, for the eval images.
 
 The spectral math runs in fp32 whatever the input dtype.
 """
@@ -104,3 +106,17 @@ def mel_filterbank(*, sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
     fb = np.maximum(0.0, np.minimum(down, up))
     fb = fb * (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
     return fb.T.astype(np.float32)
+
+
+def mel_spectrogram(x, *, sample_rate: int, n_fft: int, hop_length: int, n_mels: int,
+                    power: float = 1.0):
+    """x (..., T) -> (..., n_mels, frames): the mel of |STFT|^power, a Hann
+    window of n_fft, center=True with reflection (JAX ``ops/stft.py::
+    mel_spectrogram`` from 0 Hz to Nyquist)."""
+    fb = torch.from_numpy(mel_filterbank(sample_rate=sample_rate, n_fft=n_fft,
+                                         n_mels=n_mels)).to(x.device)
+    ri = torch.view_as_real(stft(x, n_fft=n_fft, hop_length=hop_length))
+    mag = torch.sqrt(torch.clamp_min(ri[..., 0] ** 2 + ri[..., 1] ** 2, 1e-20))
+    if power != 1.0:
+        mag = mag ** power
+    return torch.einsum("mf,...ft->...mt", fb, mag)

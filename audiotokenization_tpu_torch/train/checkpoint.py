@@ -15,7 +15,12 @@ the current stream: the next step's in-place optimizer updates queue behind
 them, so the copy holds this step's values without a host sync. A
 background thread waits for the copies and writes the file; ``wait`` joins
 it, and the next ``save`` waits for the previous write before reusing the
-buffers. Reading a JAX (Orbax) run dir is not part of this package.
+buffers.
+
+An inference run dir holds in ``state.pt`` the generator's weights alone
+(``{"step", "gen"}``): ``load_checkpoint_params`` reads it, a resume
+refuses it. ``scripts/jax_run_to_torch.py`` writes one from a JAX (Orbax)
+run dir; this package itself never reads Orbax.
 """
 from __future__ import annotations
 
@@ -64,6 +69,18 @@ def _save_file(obj, path: Path):
 
 def _load_file(path: Path, *, mmap: bool = False):
     return torch.load(path, map_location="cpu", weights_only=True, mmap=mmap)
+
+
+def _load_train_state(state: TrainState, path: Path):
+    """Load a full train state's file into ``state``; a generator-only file
+    (an inference run dir) raises."""
+    sd = _load_file(path)
+    if "disc" not in sd or "gen_opt" not in sd:
+        raise ValueError(
+            f"{path} holds only the generator's weights (an inference run dir, such as "
+            "scripts/jax_run_to_torch.py writes): it serves extraction and evaluation, "
+            "but training cannot resume from it")
+    state.load_state_dict(sd)
 
 
 class CheckpointManager:
@@ -169,7 +186,7 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return state
-        state.load_state_dict(_load_file(self.directory / "ckpt" / str(step) / STATE_FILE))
+        _load_train_state(state, self.directory / "ckpt" / str(step) / STATE_FILE)
         return state
 
 
@@ -186,7 +203,7 @@ def restore_train_state(directory, state: TrainState, *, best: bool = False,
     step = step if step is not None else (steps[-1] if steps else None)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
-    state.load_state_dict(_load_file(ckpt / str(step) / STATE_FILE))
+    _load_train_state(state, ckpt / str(step) / STATE_FILE)
     return state
 
 

@@ -168,14 +168,16 @@ def reduce_validation_aggregates(local: np.ndarray) -> np.ndarray:
 
 
 def _dump_val_artifacts(artifact_dir, batch_idx, step, gt, gen, sr):
-    """The original and reconstructed wavs of one validation item (the
-    spectrogram PNG comes with the eval CLI)."""
+    """The original and reconstructed wavs of one validation item, and their
+    mel spectrograms as a PNG (skipped without matplotlib)."""
+    from ..cli.inference_full import _save_spectrogram_png
     from ..data.audio_io import write_wav
 
     d = Path(artifact_dir) / f"val_batch_{batch_idx}"
     d.mkdir(parents=True, exist_ok=True)
     write_wav(d / f"step{step}_original.wav", gt, sr)
     write_wav(d / f"step{step}_reconstructed.wav", gen, sr)
+    _save_spectrogram_png(d / f"step{step}_spec.png", gt, gen, sr)
 
 
 def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None):

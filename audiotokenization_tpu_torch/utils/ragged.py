@@ -12,9 +12,11 @@ ResidualUnit is one launch of K2 and the VQ one launch of K1, as in
 ``models/codec.py``.
 
 Ported: the non-causal, non-anti-aliased BigCodec encoder and decoder with
-the factorized VQ (``make_ragged_codec``). The Conformer, causal,
-anti-aliased and semantic configurations raise ``NotImplementedError``;
-``make_ragged_tokenizer`` comes with corpus extraction.
+the factorized VQ, both the reconstruction (``make_ragged_codec``, the eval
+and test passes) and the conformant tokenizer (``make_ragged_tokenizer``,
+corpus extraction). The Conformer, causal, anti-aliased and semantic
+configurations raise ``NotImplementedError``, as do the tokenize modes
+``high``, ``balanced`` and ``fast``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from ..config import Config
 from ..models import bigcodec
-from ..models.codec import precision_scope, quantize, resolve_device
+from ..models.codec import full_fp32, precision_scope, quantize, resolve_device
 from ..ops.lstm import res_lstm
 
 
@@ -124,6 +126,33 @@ def _decode_masked_bigcodec(dec: bigcodec.BigCodecDecoder, z, frames):
             x = _edge_mask(bigcodec.residual_unit(x, unit, dilation=d), frames * S)
     x = bigcodec._wn_conv(dec.snake_out(x), dec.conv_out, padding=3)
     return torch.tanh(x)
+
+
+def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda"):
+    """Batched variable-length tokenization: ``run(codec, wavs, lengths)``
+    with wavs (B, L) float32 or int16 PCM, zero-padded, and lengths (B,) in
+    samples, returns codes (Nq, B, L // hop) on ``device`` (the codec's);
+    frames past lengths // hop are meaningless (trim per sample). Each row's
+    tokens equal the per-file ``tokenize`` of its own hop-padded samples.
+    Conformant mode only: full fp32, TF32 off, without gradients. Raises
+    without a card unless ``device="cpu"``."""
+    device = resolve_device(device)
+    if mode in ("high", "balanced", "fast"):
+        raise NotImplementedError(f"ragged tokenize mode {mode!r} is not ported yet "
+                                  "(ROADMAP Queue 1 item 6)")
+    if mode != "conformant":
+        raise ValueError(f"unknown tokenize mode {mode!r}")
+    _check_supported(cfg)
+    hop = math.prod(cfg.model.codec_encoder.up_ratios)
+
+    def run(codec, wavs, lengths):
+        wavs = _maybe_pcm16(torch.as_tensor(wavs, device=device)).float()
+        lengths = torch.as_tensor(lengths, device=device).long()
+        with torch.no_grad(), full_fp32():
+            _, codes, _ = quantize(codec, _encode_masked(codec.encoder, wavs, lengths, hop))
+        return codes
+
+    return run
 
 
 def make_ragged_codec(cfg: Config, *, device="cuda"):

@@ -36,7 +36,10 @@ Phases, each fatal on failure:
     from the same weights (AdamW eps 1, no warmup, so an update is close to
     lr·g): metrics within rtol 1e-3, each leaf's update within 1e-2 x its
     max |update| plus twice the parameters' fp32 spacing (AdamW rounds a
-    parameter twice an update); (c) Config() in bf16 at
+    parameter twice an update); (b') the same step in bf16 (Config()'s
+    precision) on the card against the CPU's with oneDNN off: every metric
+    within rtol 5e-2, the codebook histograms compared and printed
+    (train_step_bf16_vs_cpu line); (c) Config() in bf16 at
     32 x 1 s: 2 warm-up steps, 5 timed (CUDA events), finite losses, fp32
     masters, exactly K1 1 and K2 30 launches a step, then the train_step
     and train_profile lines;
@@ -59,7 +62,22 @@ Phases, each fatal on failure:
     step's, the stall and bytes per checkpoint save, the validation split
     (device forward, host STOI/PESQ) and the test pass's audio-s/s (the
     train_loop line), then deletes the corpus and the run dir; then the
-    bare step once more (bare, loop, bare: the train_loop_vs_bare line).
+    bare step once more (bare, loop, bare: the train_loop_vs_bare line);
+10. the offline paths on Config() (extract_path): a seeded corpus under
+    build/ in the LibriSpeech layout (64 WAVs of 0.7-6.3 s, no length a
+    whole number of hops, 8 at 24 kHz) and a port run dir of random weights
+    from seed 0 (CheckpointManager). cli.extract_indices at batch 16: 64
+    int16 .npy files of ceil(len / 200) frames, K1 once and K2 15 times per
+    device batch and nowhere else, and the tokens of 6 files (the shortest,
+    the longest, two at 24 kHz) equal to the CPU plain path's per-file
+    tokenize except at frames whose top-2 gap is under 1e-5; --exact on 4
+    files, the same check, one call a file; cli.inference_full on whole
+    files at batch 16: finite SI-SNR, SI-SDR and STOI, frames equal to the
+    files', K1 once and K2 30 times per device batch; cli.synthesize of
+    4 x 1 s of random tokens: K2 15 launches, the waveform within rtol 1e-3
+    / atol 2e-5 of the CPU's decode of its tokens.npy. Prints the extract
+    line (audio-s/s and where the time goes), then deletes the corpus and
+    the run dir.
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -90,10 +108,13 @@ WAV_RTOL, WAV_ATOL = 1e-3, 2e-5   # the repo's waveform tolerance
 GRAD_RTOL = 1e-4           # K2's gradients against autograd of its plain version
 REF_B, REF_T = 2, 8000     # the fp32_strict step held against the CPU: 2 x 0.5 s
 STEP_RTOL = 1e-3           # that step's metrics, card against CPU
+BF16_RTOL = 5e-2           # the bf16 step's metrics, card against CPU (the CPU test's)
 UPDATE_TOL = 1e-2          # its updates, x each leaf's max |update|
 TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 LOOP_STEPS, LOOP_RESUME_STEPS = 8, 10  # the loop's first run, then its resume
 LOOP_TEST_SECONDS = (1.3, 1.8, 2.2, 2.7)
+HOP = 200                  # Config()'s samples per frame
+EXTRACT_FILES, EXTRACT_BATCH, EXACT_FILES = 64, 16, 4  # the extraction phase's corpus
 
 
 def fail(msg: str):
@@ -664,6 +685,51 @@ def train_step_vs_cpu(cfg):
     return out
 
 
+def train_step_bf16_vs_cpu(cfg):
+    """(b') One bf16 step at the same small shape on the card against the
+    same step on the CPU (oneDNN off: this CPU build's bf16 conv2d is wrong
+    where the kernel is wider than the padded input), from the same weights
+    and batch: every metric within rtol 5e-2, the CPU test's bf16 tolerance;
+    the two codebook histograms compared (codes used, total count)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.train.state import init_train_state, train_state
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    if cfg.train.precision != "bf16":
+        fail(f"the bf16 comparison runs Config()'s bf16, got {cfg.train.precision}")
+    ref = init_train_state(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = train_state(cfg, copy.deepcopy(ref.gen).cuda(), copy.deepcopy(ref.disc).cuda())
+    wav = (np.random.RandomState(1).randn(REF_B, REF_T) * 0.1).astype(np.float32)
+    t0 = time.perf_counter()
+    m_card = make_train_step(cfg)(card, {"wav": torch.from_numpy(wav).cuda()})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=False):
+        m_cpu = make_train_step(cfg, device="cpu")(ref, {"wav": torch.from_numpy(wav)})
+    t2 = time.perf_counter()
+    hists = {"card": m_card.pop("codebook_hist").cpu(), "cpu": m_cpu.pop("codebook_hist")}
+    hist = {k: {"codes_used": int((h > 0).sum()), "count": float(h.sum()),
+                "top": [[int(i), float(h[i])] for i in torch.argsort(h, descending=True)[:4]
+                        if h[i] > 0]} for k, h in hists.items()}
+    rel = {}
+    for key, want in m_cpu.items():
+        got, want = float(m_card[key]), float(want)
+        rel[key] = abs(got - want) / max(abs(want), 1e-30)
+        if not (np.isfinite(got) and abs(got - want) <= BF16_RTOL * abs(want)):
+            fail(f"bf16 step: {key} {got!r} on the card against {want!r} on the CPU "
+                 f"(rtol {BF16_RTOL:g})")
+    if hist["card"]["count"] != hist["cpu"]["count"]:
+        fail("bf16 step: the codebook histograms count different totals")
+    out = {"card_s": t1 - t0, "cpu_s": t2 - t1, "batch": [REF_B, REF_T],
+           "metrics_card": {k: float(v) for k, v in m_card.items()},
+           "metrics_cpu": {k: float(v) for k, v in m_cpu.items()},
+           "rel_diff": rel, "worst_metric_rel": max(rel.values()), "codebook_hist": hist,
+           "hist_bins_differing": int((hists["card"] != hists["cpu"]).sum())}
+    print(json.dumps({"train_step_bf16_vs_cpu": out}))
+    return out
+
+
 def timed_steps(step, state, wav):
     """ms per step over TRAIN_STEPS steps (CUDA events), and the last metrics."""
     import torch
@@ -772,25 +838,20 @@ def write_corpus(root: Path, sr: int = SR):
 
 
 class LaunchLedger:
-    """K1 and K2 launches per call of the loop's train step, eval step and
-    ragged codec: wraps the factories the loop calls (and restores them),
-    reading the host-side counters only, so nothing syncs the card."""
+    """K1 and K2 launches per call of the functions that factories make:
+    wraps each ``(module, name)`` factory (and restores it), reading the
+    host-side counters only, so nothing syncs the card. ``calls[kind]``
+    lists (K1, K2) per call; ``timed``'s calls are timed into ``timed_s``."""
 
-    def __init__(self):
-        from audiotokenization_tpu_torch.train import loop
-        from audiotokenization_tpu_torch.utils import ragged
-
-        self.calls = {"train_step": [], "val_batch": [], "test_file": []}
-        self.test_s = []
-        self._patched = [(loop, "make_train_step"), (loop, "make_eval_step"),
-                         (ragged, "make_ragged_codec"), (loop, "run_test")]
+    def __init__(self, factories: dict, timed=None):
+        self.calls = {kind: [] for kind in factories}
+        self.timed_s = []
+        self._patched = list(factories.values()) + ([timed] if timed else [])
         self._orig = [getattr(m, n) for m, n in self._patched]
-        counted = {"make_train_step": "train_step", "make_eval_step": "val_batch",
-                   "make_ragged_codec": "test_file"}
-        for (module, name), orig in zip(self._patched, self._orig):
-            if name in counted:
-                setattr(module, name, self._factory(orig, self.calls[counted[name]]))
-        loop.run_test = self._timed(self._orig[3])
+        for kind, (module, name) in factories.items():
+            setattr(module, name, self._factory(getattr(module, name), self.calls[kind]))
+        if timed:
+            setattr(timed[0], timed[1], self._timed(getattr(*timed)))
 
     @staticmethod
     def _counts():
@@ -814,14 +875,14 @@ class LaunchLedger:
 
         return wrapped_make
 
-    def _timed(self, run_test):
+    def _timed(self, fn):
         import torch
 
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
-            out = run_test(*args, **kwargs)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            self.test_s.append(time.perf_counter() - t0)
+            self.timed_s.append(time.perf_counter() - t0)
             return out
 
         return timed
@@ -917,6 +978,7 @@ def train_loop_path(cfg, card, bare):
     from audiotokenization_tpu_torch.train import loop
     from audiotokenization_tpu_torch.train.checkpoint import restore_train_state
     from audiotokenization_tpu_torch.train.state import init_train_state
+    from audiotokenization_tpu_torch.utils import ragged as ragged_module
     from audiotokenization_tpu_torch.utils.logging import MetricsLogger
 
     build_dir = Path(__file__).resolve().parent / "build"
@@ -940,7 +1002,10 @@ def train_loop_path(cfg, card, bare):
         cfg_file = root / "config.json"
         save_config(cfg, cfg_file)
 
-        ledger = LaunchLedger()
+        ledger = LaunchLedger({"train_step": (loop, "make_train_step"),
+                               "val_batch": (loop, "make_eval_step"),
+                               "test_file": (ragged_module, "make_ragged_codec")},
+                              timed=(loop, "run_test"))
         vq_argmin.launches = fused_residual_unit.launches = 0
         train_loader, val_loader, test_loader = cli.make_loaders(cfg, pin_memory=True)
         logger = MetricsLogger(run_dir, run_name=cfg.name, use_wandb=False)
@@ -1031,8 +1096,8 @@ def train_loop_path(cfg, card, bare):
                "bare_step_audio_s_per_s": bare["audio_s_per_s"],
                "loop_over_bare": loop_rate / bare["audio_s_per_s"],
                "checkpoint_saves": saves, "validation": vals,
-               "test_pass_s": ledger.test_s, "test_audio_s": test_audio,
-               "test_audio_s_per_s": [test_audio / s for s in ledger.test_s],
+               "test_pass_s": ledger.timed_s, "test_audio_s": test_audio,
+               "test_audio_s_per_s": [test_audio / s for s in ledger.timed_s],
                "first_run_s": first_s, "resume_run_s": resume_s,
                "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]},
                "launches_per_call": per_call, "ragged_vs_per_file": ragged,
@@ -1040,6 +1105,236 @@ def train_loop_path(cfg, card, bare):
                "test_metrics": {k: v for k, v in tests[-1].items() if k.startswith("test_")}}
         print(json.dumps({"train_loop": out, "card": card}))
         return out
+    finally:
+        if ledger is not None:
+            ledger.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def write_extract_corpus(root: Path):
+    """EXTRACT_FILES seeded WAVs in the LibriSpeech layout under
+    ``root/LibriSpeech/test-clean/<spk>/<chap>/<spk>-<chap>-<nnnn>.wav``, of
+    0.7-6.3 s, none a whole number of hops long (also after resampling),
+    every eighth at 24 kHz; the first EXACT_FILES of them again under
+    ``test-exact`` for the --exact run. Returns [(path, rate, samples)] and
+    writes ``filelist.txt``."""
+    import shutil
+
+    import numpy as np
+    from audiotokenization_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.RandomState(7)
+    seconds = rng.permutation(np.linspace(0.7, 6.3, EXTRACT_FILES))
+    files = []
+    for i, sec in enumerate(seconds):
+        rate = 24000 if i % 8 == 3 else SR
+        n = int(sec * rate)
+        while ceil_div(n * SR, rate) % HOP == 0:  # the length once resampled to 16 kHz
+            n += 7
+        spk, chap = 100 + i % 4, 200 + i % 3
+        path = root / "LibriSpeech" / "test-clean" / str(spk) / str(chap) / f"{spk}-{chap}-{i:04d}.wav"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        t = np.arange(n) / rate
+        env = np.clip(np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6)), 0, None) ** 2
+        w = env * (0.5 * np.sin(2 * np.pi * rng.uniform(100, 250) * t) + 0.5 * rng.randn(n)) * 0.3
+        write_wav(path, (w + 0.003 * rng.randn(n)).astype(np.float32), rate)
+        files.append((path, rate, n))
+    for path, _, _ in files[:EXACT_FILES]:
+        dst = root / "LibriSpeech" / "test-exact" / path.relative_to(
+            root / "LibriSpeech" / "test-clean")
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(path, dst)
+    (root / "filelist.txt").write_text("\n".join(str(p) for p, _, _ in files))
+    return files
+
+
+def cpu_tokens(codec_cpu, path, *, hop_pad: bool):
+    """The CPU plain path's per-file tokens of one corpus file, as the CLI
+    prepares it (resampled on the host, zero-padded to a whole hop unless
+    --exact), and each frame's top-2 distance gap."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.data.audio_io import read_audio
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.conv import linear
+    from audiotokenization_tpu_torch.ops.resample import resample
+
+    wav, rate = read_audio(path)
+    wav = wav[0]
+    if rate != SR:
+        wav = resample(torch.from_numpy(wav), rate, SR).numpy()
+    if hop_pad and len(wav) % HOP:
+        wav = np.pad(wav, (0, HOP - len(wav) % HOP))
+    layer = codec_cpu.quantizer.layers[0]
+    with torch.no_grad(), C.full_fp32():
+        lat = C.encode(codec_cpu, torch.from_numpy(np.asarray(wav, np.float32))[None])
+        _, codes, _ = C.quantize(codec_cpu, lat)
+        z_e = linear(lat.transpose(1, 2), layer.in_proj)
+        gap = top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook))
+    return codes[0, 0].numpy(), gap.numpy()
+
+
+def hold_tokens(name, got, want, gap):
+    """Fail unless the tokens agree except at frames whose top-2 gap is under
+    GAP. Returns (frames that differ, frames under the gap)."""
+    import numpy as np
+
+    if got.shape != want.shape:
+        fail(f"{name}: {got.shape[0]} frames against {want.shape[0]} on the CPU")
+    differ = got != want
+    if (differ & (gap >= GAP)).any():
+        fail(f"{name}: {int(differ.sum())} tokens differ from the CPU's, some at a top-2 "
+             f"gap >= {GAP:g}")
+    return int(differ.sum()), int(np.sum(gap < GAP))
+
+
+def extract_path(cfg, card):
+    """10. Corpus extraction, evaluation and synthesis on Config() (module
+    docstring). Returns the numbers of the extract line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices, inference_full, synthesize
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+    from audiotokenization_tpu_torch.train.checkpoint import CheckpointManager
+    from audiotokenization_tpu_torch.train.state import init_train_state
+    from audiotokenization_tpu_torch.utils import ragged
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_extract_", dir=build_dir))
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    n_enc = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    n_dec = len(cfg.model.codec_decoder.up_ratios) * len(cfg.model.codec_decoder.dilations)
+    ledger = None
+    try:
+        files = write_extract_corpus(root)
+        run = root / "run"
+        t0 = time.perf_counter()
+        mngr = CheckpointManager(run, cfg)
+        mngr.save(init_train_state(cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+        mngr.wait()
+        setup_s = time.perf_counter() - t0
+        codec_cpu = extract_indices.load_model(run, device="cpu")[1]
+        # frames of each file resampled to 16 kHz and padded to a whole hop
+        frames_of = {p.stem: ceil_div(ceil_div(n * SR, rate), HOP) for p, rate, n in files}
+        common = ["--dataset_root", str(root), "--save_path", str(run), "--dataset_path",
+                  "LibriSpeech", "--ext_audio", ".wav"]
+
+        # extraction: buckets of 1 s, 16 rows a device batch
+        ledger = LaunchLedger({"batch": (ragged, "make_ragged_tokenizer")})
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        ext = extract_indices.main(common + ["--subsets", "test-clean", "--batch_size",
+                                             str(EXTRACT_BATCH)])
+        ext_launches = (vq_argmin.launches, fused_residual_unit.launches)
+        ledger.close()
+        calls = ledger.calls["batch"]
+        if ext["saved"] != EXTRACT_FILES or ext["errors"]:
+            fail(f"extraction saved {ext['saved']} files with {ext['errors']} errors")
+        if len(calls) != ext["device_batches"] or set(calls) != {(nq, n_enc)} \
+                or ext_launches != (nq * len(calls), n_enc * len(calls)):
+            fail(f"extraction launches {ext_launches} over batches {calls}: expected K1 {nq} "
+                 f"and K2 {n_enc} per device batch and nowhere else")
+        out = run / "extracted_indices"
+        npys = {p.stem: p for p in out.rglob("*.npy")}
+        if len(npys) != EXTRACT_FILES:
+            fail(f"extraction wrote {len(npys)} .npy files, not {EXTRACT_FILES}")
+        for stem, p in npys.items():
+            a = np.load(p)
+            if a.dtype != np.int16 or a.shape != (frames_of[stem],):
+                fail(f"{p.name}: {a.dtype} {a.shape}, expected int16 ({frames_of[stem]},)")
+        by_len = sorted(files, key=lambda f: f[2] * SR // f[1])
+        at24 = [f for f in files if f[1] != SR][:2]
+        picked = list(dict.fromkeys([by_len[0], by_len[-1], *at24, files[5], files[9]]))
+        flips = near = 0
+        for path, _, _ in picked:
+            want, gap = cpu_tokens(codec_cpu, path, hop_pad=True)
+            f, n = hold_tokens(f"extraction of {path.name}", np.load(npys[path.stem]), want, gap)
+            flips, near = flips + f, near + n
+
+        # --exact: one call a file at its raw length
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        exact = extract_indices.main(common + ["--subsets", "test-exact", "--exact",
+                                               "--output_folder", "exact"])
+        exact_launches = (vq_argmin.launches, fused_residual_unit.launches)
+        if exact_launches != (nq * EXACT_FILES, n_enc * EXACT_FILES):
+            fail(f"--exact launched K1/K2 {exact_launches} for {EXACT_FILES} files")
+        exact_flips = exact_near = 0
+        for path, _, _ in files[:EXACT_FILES]:
+            want, gap = cpu_tokens(codec_cpu, path, hop_pad=False)
+            got = np.load(next((run / "exact").rglob(f"{path.stem}.npy")))
+            f, n = hold_tokens(f"--exact extraction of {path.name}", got, want, gap)
+            exact_flips, exact_near = exact_flips + f, exact_near + n
+
+        # evaluation: whole files through the ragged codec, 16 rows a batch
+        ledger = LaunchLedger({"batch": (ragged, "make_ragged_codec")})
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        summary = inference_full.main(["--save_path", str(run), "--filelist",
+                                       str(root / "filelist.txt"), "--duration", "0",
+                                       "--batch_size", str(EXTRACT_BATCH), "--num_examples", "2"])
+        eval_launches = (vq_argmin.launches, fused_residual_unit.launches)
+        ledger.close()
+        calls = ledger.calls["batch"]
+        if not calls or set(calls) != {(nq, n_enc + n_dec)} \
+                or eval_launches != (nq * len(calls), (n_enc + n_dec) * len(calls)):
+            fail(f"evaluation launches {eval_launches} over batches {calls}: expected K1 {nq} "
+                 f"and K2 {n_enc + n_dec} per device batch and nowhere else")
+        bad = [k for k in ("si_snr", "si_sdr", "stoi")
+               if summary[k] is None or not np.isfinite(summary[k])]
+        if bad:
+            fail(f"evaluation summary without finite {bad}")
+        if summary["frames"] != sum(frames_of.values()):
+            fail(f"evaluation counted {summary['frames']} frames, the files hold "
+                 f"{sum(frames_of.values())}")
+        eval_batches = len(calls)
+
+        # synthesis from random tokens, against the CPU's decode of its tokens.npy
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        t0 = time.perf_counter()
+        wav = synthesize.main(["--codec_ckpt", str(run), "--random", "--seconds", "1",
+                               "--num_samples", "4", "--out_dir", str(root / "synth")])
+        synth_ms = (time.perf_counter() - t0) * 1e3
+        synth_launches = (vq_argmin.launches, fused_residual_unit.launches)
+        if synth_launches != (0, n_dec):
+            fail(f"synthesize launched K1/K2 {synth_launches}, expected 0 / {n_dec}")
+        tokens = torch.from_numpy(np.load(root / "synth" / "tokens.npy").astype(np.int64))
+        want = synthesize.decode_tokens(codec_cpu, tokens).numpy()
+        wav_err = float(np.abs(wav - want).max())
+        if wav.shape != want.shape or not np.allclose(wav, want, rtol=WAV_RTOL, atol=WAV_ATOL):
+            fail(f"synthesize: waveform outside rtol 1e-3 / atol 2e-5 of the CPU's decode "
+                 f"(max |d| {wav_err:.3g})")
+        codec = extract_indices.load_model(run)[1]
+        decode_ms = cuda_ms(lambda: synthesize.decode_tokens(codec, tokens.cuda()), iters=5)
+
+        audio_s = summary["audio_seconds"]
+        result = {
+            "files": EXTRACT_FILES, "audio_seconds": ext["audio_seconds"],
+            "batch_size": EXTRACT_BATCH, "run_dir_write_s": setup_s,
+            "extract": {k: ext[k] for k in ("audio_s_per_s", "wall_seconds", "device_batches",
+                                            "read_s", "resample_s", "device_s", "save_s")},
+            "extract_launches": {"vq_argmin": ext_launches[0], "residual_unit": ext_launches[1]},
+            "flips_vs_cpu": {"files": len(picked), "tokens_differ": flips, "near_ties": near,
+                             "exact_files": EXACT_FILES, "exact_tokens_differ": exact_flips,
+                             "exact_near_ties": exact_near},
+            "exact": {k: exact[k] for k in ("audio_s_per_s", "device_batches", "device_s")},
+            "eval": {"audio_s_per_s": summary["audio_s_per_s"], "wall_seconds":
+                     summary["wall_seconds"], "forward_s": summary["forward_s"],
+                     "quality_s": summary["quality_s"], "device_batches": eval_batches,
+                     "forward_audio_s_per_s": audio_s / summary["forward_s"],
+                     **{k: summary[k] for k in ("si_snr", "si_sdr", "stoi", "pesq", "frames",
+                                                "codebook_used", "perplexity_raw")}},
+            "eval_launches": {"vq_argmin": eval_launches[0], "residual_unit": eval_launches[1]},
+            "synthesize": {"ms": synth_ms, "decode_ms": decode_ms, "samples": 4, "seconds": 1,
+                           "max_abs_err_wav_vs_cpu": wav_err}}
+        print(json.dumps({"extract": result, "card": card}))
+        return result
     finally:
         if ledger is not None:
             ledger.close()
@@ -1089,8 +1384,10 @@ def main() -> int:
 
     check_k2_grads(shapes)
     train_step_vs_cpu(cfg)
+    train_step_bf16_vs_cpu(cfg)
     train = train_path(cfg, card)
     loop = train_loop_path(cfg, card, train)
+    ext = extract_path(cfg, card)
     bare = [train["audio_s_per_s"], bare_step_again(cfg)]
     print(json.dumps({"train_loop_vs_bare": {
         "bare_before_audio_s_per_s": bare[0], "loop_audio_s_per_s": loop["audio_s_per_s"],
@@ -1113,13 +1410,17 @@ def main() -> int:
          "replaces": "audiotokenization_tpu/ops/pallas/vq_kernel.py:33",
          "launches": e2e["launches"]["vq_argmin"], "max_abs_err": k1_err,
          "train_launches_per_step": train["launches_per_step"]["vq_argmin"],
-         "loop_launches": loop["launches"]["vq_argmin"], **k1},
+         "loop_launches": loop["launches"]["vq_argmin"],
+         "extract_launches": ext["extract_launches"]["vq_argmin"],
+         "eval_launches": ext["eval_launches"]["vq_argmin"], **k1},
         {"name": "fused_residual_unit", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/residual_unit.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/residual_unit_kernel.py:46",
          "launches": e2e["launches"]["residual_unit"], "max_abs_err": k2_err,
          "train_launches_per_step": train["launches_per_step"]["residual_unit"],
          "loop_launches": loop["launches"]["residual_unit"],
+         "extract_launches": ext["extract_launches"]["residual_unit"],
+         "eval_launches": ext["eval_launches"]["residual_unit"],
          "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
          "bound_by": bound_by(rows), "bound_simt_ms": tot["bound_simt_ms"],
          "library_ms": tot["library_ms"]},
@@ -1138,7 +1439,10 @@ def main() -> int:
                               f"summed over its path's {p1_launches} launches (probe shapes); "
                               "train_launches_per_step: the bf16 training step's; "
                               "loop_launches: the training loop's (K1 1 / K2 30 per train "
-                              "step, validation batch and test file)"}))
+                              "step, validation batch and test file); extract_launches / "
+                              "eval_launches: corpus extraction's (K1 1 / K2 15 per device "
+                              "batch) and full-length evaluation's (K1 1 / K2 30 per device "
+                              "batch)"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

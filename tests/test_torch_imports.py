@@ -39,4 +39,5 @@ def test_scan_sees_the_port():
             "step.py", "state.py", "schedule.py", "metrics.py", "discriminators.py",
             "mel.py", "gan.py", "stft_loss.py", "stft.py", "params.py", "loop.py",
             "checkpoint.py", "dataset.py", "audio_io.py", "flac.py", "resample.py",
-            "logging.py", "ragged.py", "train.py", "pesq_p862.py", "pesq_tables.py"} <= names
+            "logging.py", "ragged.py", "train.py", "pesq_p862.py", "pesq_tables.py",
+            "convert.py", "extract_indices.py", "inference_full.py", "synthesize.py"} <= names
