@@ -23,8 +23,10 @@ through the ragged tokenizer (``utils/ragged.py``) in buckets of
 ceil(length / 1 s) seconds, ``--batch_size`` rows a device call; each
 file's tokens equal its own per-file ``tokenize``. PCM16-exact audio ships
 to the device as int16. ``--exact`` tokenizes each file alone at its raw
-length. Only the conformant mode is ported; sequence and tensor
-parallelism and the semantic targets raise ``NotImplementedError``.
+length. ``--mode`` (conformant, high, balanced, fast; ``models/codec.py::
+encode_in_mode``) sets the encoder's precision on both paths. Sequence
+and tensor parallelism and the semantic targets raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ def build_argparser():
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--mode", choices=("conformant", "high", "balanced", "fast"),
                    default="conformant",
-                   help="only 'conformant' (full fp32) is ported")
+                   help="the encoder's precision: conformant (fp32), high (TF32 library "
+                        "calls), balanced (bf16 conv front), fast (bf16 encoder)")
     p.add_argument("--semantic_dir", type=str, default=None,
                    help="precomputed w2v-bert targets (semantic branch: not ported)")
     p.add_argument("--sequence_parallel", action="store_true",
@@ -118,9 +121,6 @@ def _refuse_unported(args):
     if args.semantic_dir:
         raise NotImplementedError("--semantic_dir (the semantic branch) is not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
-    if args.mode != "conformant":
-        raise NotImplementedError(f"tokenize mode {args.mode!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
 
 
 def _as_pcm16(w: np.ndarray) -> np.ndarray:
@@ -152,7 +152,7 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     # int16 is the reference's contract; larger codebooks would overflow it
     dtype = np.int16 if cfg.model.codec_decoder.codebook_size <= 32767 else np.int32
-    ragged = None if args.exact else make_ragged_tokenizer(cfg, device=device)
+    ragged = None if args.exact else make_ragged_tokenizer(cfg, mode=args.mode, device=device)
     quantum = max(args.sample_rate // hop * hop, hop)
     split = {"read_s": 0.0, "resample_s": 0.0, "device_s": 0.0, "save_s": 0.0}
     stats = {"saved": 0, "errors": 0, "device_batches": 0}
@@ -238,7 +238,7 @@ def main(argv=None):
             else:
                 t0 = time.perf_counter()
                 x = torch.from_numpy(np.asarray(wav, np.float32))[None].to(device)
-                codes = C.tokenize(codec, x).cpu().numpy()[:, 0]
+                codes = C.tokenize(codec, x, mode=args.mode).cpu().numpy()[:, 0]
                 split["device_s"] += time.perf_counter() - t0
                 stats["device_batches"] += 1
                 save_one(subset, fileid, codes)

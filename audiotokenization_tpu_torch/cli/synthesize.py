@@ -1,16 +1,20 @@
 """Decode tokens to audio with a trained codec (counterpart of
-``audiotokenization_tpu/cli/synthesize.py``, non-streaming).
+``audiotokenization_tpu/cli/synthesize.py``).
 
     python -m audiotokenization_tpu_torch.cli.synthesize --codec_ckpt runs/my_run \\
-        --random [--seconds 2 --num_samples 2 --seed 0 --out_dir synthesized] [--device cpu]
+        --random [--seconds 2 --num_samples 2 --seed 0 --out_dir synthesized] \\
+        [--streaming CHUNK_FRAMES] [--device cpu]
 
 ``--random`` draws uniform tokens from a seeded ``torch.Generator`` (a codec
 smoke test: the draw is not JAX's ``jax.random`` one), then decodes them
 through ``codes_to_emb`` -> ``apply_fc_post_a`` -> ``decode`` in full fp32
 and writes ``sample_<i>.wav`` and the tokens as int16 ``tokens.npy``.
 ``--codec_ckpt`` is any run dir ``cli/extract_indices.py::load_model``
-reads. Sampling from a token LM (``--lm_ckpt``), streaming, sequence and
-pipeline parallelism are not ported and raise ``NotImplementedError``.
+reads. ``--streaming CHUNK_FRAMES`` (causal checkpoints) decodes through
+the streaming synthesizer in chunks of that many frames
+(``models/streaming.py::stream_decode``, equal to the plain decode to fp32
+rounding). Sampling from a token LM (``--lm_ckpt``), sequence and pipeline
+parallelism are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ def main(argv=None):
     p.add_argument("--sequence_parallel", action="store_true", help="not ported")
     p.add_argument("--pipeline_parallel", type=int, default=0, metavar="N", help="not ported")
     p.add_argument("--streaming", type=int, default=0, metavar="CHUNK_FRAMES",
-                   help="not ported")
+                   help="causal checkpoints: decode through the streaming synthesizer "
+                        "in CHUNK_FRAMES-frame chunks")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     args = p.parse_args(argv)
@@ -58,8 +63,9 @@ def main(argv=None):
     if args.lm_ckpt:
         raise NotImplementedError("sampling from a token LM (--lm_ckpt) is not ported yet "
                                   "(ROADMAP Queue 1 item 16)")
-    if args.streaming:
-        raise NotImplementedError("--streaming is not ported yet (ROADMAP Queue 1 item 12)")
+    if sum(map(bool, (args.sequence_parallel, args.pipeline_parallel, args.streaming))) > 1:
+        raise SystemExit("--sequence_parallel / --pipeline_parallel / --streaming are "
+                         "distinct execution modes; pick one")
     if args.sequence_parallel or args.pipeline_parallel:
         raise NotImplementedError("--sequence_parallel and --pipeline_parallel are not ported "
                                   "yet (ROADMAP Queue 1 item 18)")
@@ -77,7 +83,14 @@ def main(argv=None):
     tokens = torch.randint(0, cfg.model.codec_decoder.codebook_size,
                            (args.num_samples, n_frames),
                            generator=torch.Generator().manual_seed(args.seed))
-    wav = decode_tokens(codec, tokens.to(device)).cpu().numpy()
+    if args.streaming:
+        from ..models.streaming import stream_decode
+
+        # tokens (B, Tf) -> the stream layout (Nq = 1, B, Tf)
+        wav = stream_decode(codec, tokens[None].to(device), chunk_frames=args.streaming,
+                            device=device).cpu().numpy()
+    else:
+        wav = decode_tokens(codec, tokens.to(device)).cpu().numpy()
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
     for i in range(args.num_samples):

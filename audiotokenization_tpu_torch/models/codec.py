@@ -9,11 +9,12 @@ encoder/decoder and the factorized-VQ quantizer. The serving path is
 Precision: cuDNN runs fp32 convolutions in TF32 unless told not to, which
 flips tokens as the TPU's bf16 default did. ``full_fp32()`` turns TF32 off
 for matmuls and cuDNN and restores the flags after; conformant ``tokenize``
-runs inside it, and so should ``decode`` wherever waveforms are held to the
-conformance tolerances. ``forward`` follows ``train.precision``:
-``fp32_strict`` inside ``full_fp32()``, ``fp32`` with TF32 allowed
-(``allow_tf32()``), ``bf16`` (training) on bf16 copies of every generator
-parameter but the quantizer's. The VQ is always fp32.
+runs inside it (the other modes: ``encode_in_mode``), and so should
+``decode`` wherever waveforms are held to the conformance tolerances.
+``forward`` follows ``train.precision``: ``fp32_strict`` inside
+``full_fp32()``, ``fp32`` with TF32 allowed (``allow_tf32()``), ``bf16``
+(training) on bf16 copies of every generator parameter but the
+quantizer's. The VQ is always fp32.
 """
 from __future__ import annotations
 
@@ -175,19 +176,56 @@ def apply_fc_post_a(codec: Codec, emb):
     return emb
 
 
+MODES = ("conformant", "high", "balanced", "fast")
+
+
+def encode_in_mode(encoder: bigcodec.BigCodecEncoder, x, mode: str, *, front, tail):
+    """``tail(front(x))`` at the precision of a tokenize ``mode``, without
+    gradients: ``front`` is the encoder's conv stack (conv_in and the
+    blocks), ``tail`` the ResLSTM, snake_out and conv_out. Returns fp32
+    latents.
+
+    - ``conformant``: fp32, TF32 off for cuDNN and cuBLAS;
+    - ``high``: fp32 tensors, cuDNN convs and LSTM and cuBLAS in TF32;
+    - ``balanced``: the front on bf16 copies of its parameters, the tail in
+      fp32 with TF32 off;
+    - ``fast``: the whole encoder on bf16 copies.
+
+    K2 has no TF32 or bf16 form (the JAX package's Pallas K2 takes fp32
+    only): in every mode each fused unit is the fp32-grade kernel, and in
+    ``balanced`` and ``fast`` ``ResidualUnitFn`` runs it on fp32 copies of
+    the bf16 inputs and casts its output back to bf16.
+    """
+    if mode not in MODES:
+        raise ValueError(f"unknown tokenize mode {mode!r}")
+    with torch.no_grad():
+        if mode in ("conformant", "high"):
+            with allow_tf32() if mode == "high" else full_fp32():
+                return tail(front(x)).float()
+        head = None if mode == "fast" else ("conv_in.", "blocks.")
+        bf16 = {n: p.detach().to(torch.bfloat16) for n, p in encoder.named_parameters()
+                if head is None or n.startswith(head)}
+        with full_fp32():
+            with parameters_as(encoder, bf16):
+                y = front(x.to(torch.bfloat16))
+                if mode == "fast":
+                    return tail(y).float()
+            return tail(y.float())
+
+
 def tokenize(codec: Codec, wav, *, mode: str = "conformant"):
     """wav (B, T) -> token indices (Nq, B, Tf) int32, on the codec's device.
 
-    mode='conformant': full fp32 everywhere (no TF32), the mode held to the
-    JAX package's tokens. The faster modes ('high', 'balanced', 'fast') are
-    not ported yet.
+    ``mode`` sets the encoder's precision (``encode_in_mode``): conformant
+    (fp32, the mode held to the JAX package's tokens), high, balanced or
+    fast. The VQ (K1) runs fp32 with TF32 off in every mode.
     """
-    if mode in ("high", "balanced", "fast"):
-        raise NotImplementedError(f"tokenize mode {mode!r} is not ported yet")
-    if mode != "conformant":
-        raise ValueError(f"unknown tokenize mode {mode!r}")
     device = codec.quantizer.layers[0].codebook.device
     wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
+    enc = codec.encoder
+    lat = encode_in_mode(enc, wav[:, None, :], mode,
+                         front=lambda x: bigcodec.encode_front(enc, x),
+                         tail=lambda y: bigcodec.encode_tail(enc, y))
     with full_fp32(), torch.no_grad():
-        _, codes, _ = quantize(codec, encode(codec, wav))
+        _, codes, _ = quantize(codec, lat)
     return codes

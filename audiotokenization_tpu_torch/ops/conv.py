@@ -5,7 +5,10 @@ Counterpart of ``audiotokenization_tpu/ops/conv.py``. Layouts are the JAX
 package's, which are PyTorch's: activations (B, C, T), conv weights
 (O, I/groups, K), transpose-conv weights (I, O/groups, K), linear weights
 (out, in). The convolutions are ``F.conv1d`` / ``F.conv_transpose1d``: the
-JAX package left them to XLA, and on the card they go to cuDNN.
+JAX package left them to XLA, and on the card they go to cuDNN. The causal
+pair (``causal_conv1d``, ``causal_conv_transpose1d``) is the reference's
+streaming form: left padding only, and a transpose conv trimmed on the
+right.
 
 Weight norm is kept as the ``{v, g}`` pair the JAX tree and torch's
 ``weight_norm`` use (w = g·v/‖v‖, norm over every dim but 0);
@@ -42,6 +45,19 @@ def conv_transpose1d(x, w, b=None, *, stride: int = 1, padding: int = 0,
     return F.conv_transpose1d(x, w, b, stride=stride, padding=padding,
                               output_padding=output_padding, groups=groups,
                               dilation=dilation)
+
+
+def causal_conv1d(x, w, b=None, *, stride: int = 1, dilation: int = 1, groups: int = 1):
+    """Streaming-causal conv: left padding (K - stride)·dilation, none on
+    the right (the reference's CausalConv1d)."""
+    x = F.pad(x, ((w.shape[-1] - stride) * dilation, 0))
+    return conv1d(x, w, b, stride=stride, dilation=dilation, groups=groups)
+
+
+def causal_conv_transpose1d(x, w, b=None, *, stride: int = 1):
+    """Causal transpose conv: the plain transpose conv with its last
+    ``stride`` samples trimmed (the reference's CausalConvTranspose1d)."""
+    return conv_transpose1d(x, w, b, stride=stride)[..., :-stride]
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@
 The JAX package runs the recurrence through ``lax.scan``; its gate order
 [i, f, g, o] and weight layout (w_ih (4H, in), w_hh (4H, H), b_ih, b_hh) are
 torch's, so the port holds the weights in an ``nn.LSTM`` (cuDNN on the
-card). The streaming form comes with a later slice.
+card). ``res_lstm_streaming`` is the streaming form: one-way, with each
+layer's (h, c) carried from one chunk to the next.
 
 Masked (ragged) batches: ``valid`` is a per-sample (B, T) prefix mask. As
 in the JAX scan, a masked step neither updates the state nor emits output,
@@ -56,6 +57,36 @@ def res_lstm(x, module: nn.LSTM, *, valid=None):
     if valid is not None:
         y = y * valid[:, :, None].to(y.dtype)
     return y.transpose(1, 2).contiguous()
+
+
+def res_lstm_streaming(x, module: nn.LSTM, state, *, valid=None):
+    """One chunk of a one-way ResLSTM stream: x (B, F, T), ``state`` the
+    per-layer list of (h, c), each (B, H), or None for the zero start ->
+    (y (B, F, T), new state). Equal to ``res_lstm`` over the whole stream.
+    valid: optional (T,) suffix mask, the frames that exist in the stream
+    (the anti-aliased stream's warm-up frames come first): the frames before
+    it leave the state untouched and come out zero, skip included."""
+    if module.bidirectional:
+        raise ValueError("res_lstm_streaming: the LSTM must be one-way")
+    xt = x.transpose(1, 2)
+    B, T, _ = xt.shape
+    skip = 0
+    if valid is not None:
+        valid = torch.as_tensor(valid, device="cpu").bool()
+        skip = T - int(valid.sum())
+        if valid.shape != (T,) or valid[:skip].any():
+            raise ValueError(f"res_lstm_streaming: valid must be a ({T},) suffix mask")
+    if state is None:
+        h = xt.new_zeros(module.num_layers, B, module.hidden_size)
+        h0, c0 = h, h
+    else:
+        h0 = torch.stack([h for h, _ in state]).to(xt.dtype)
+        c0 = torch.stack([c for _, c in state]).to(xt.dtype)
+    if skip == T:
+        return torch.zeros_like(x), list(zip(h0.unbind(0), c0.unbind(0)))
+    y, (hn, cn) = module(xt[:, skip:], (h0, c0))
+    y = torch.cat([xt.new_zeros(B, skip, y.shape[-1]), y + xt[:, skip:]], dim=1)
+    return y.transpose(1, 2).contiguous(), list(zip(hn.unbind(0), cn.unbind(0)))
 
 
 def init_lstm(input_size: int, hidden_size: int, *, num_layers: int,

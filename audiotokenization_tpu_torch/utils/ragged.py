@@ -5,18 +5,23 @@ Files of unequal length go in as one zero-padded batch with their lengths.
 A longer zero tail would move where each conv layer's zero padding begins,
 so ``_edge_mask`` zeroes each sample's positions past its own length after
 every conv, ResidualUnit and transpose conv, and the ResLSTM takes a
-per-sample prefix mask (``ops/lstm.py``). Each sample then computes what
-it computes alone: tokens equal to the per-file ``forward``, waveforms to
-fp32 rounding (``tests/test_torch_ragged.py``). On CUDA tensors every
-ResidualUnit is one launch of K2 and the VQ one launch of K1, as in
-``models/codec.py``.
+per-sample prefix mask (``ops/lstm.py``). Anti-aliased configs need more:
+each Activation1d replicate-pads at the file's own edge, so ``_MaskedAA``
+replicates each sample's tail from its last valid position before the 2x
+upsample and again before the 2x downsample, then re-zeroes it. Each
+sample then computes what it computes alone: tokens equal to the per-file
+``tokenize`` / ``forward``, waveforms to fp32 rounding
+(``tests/test_torch_ragged.py``, ``tests/test_torch_causal.py``). A fused
+ResidualUnit is one launch of K2 and the VQ one launch of K1 on CUDA
+tensors, as in ``models/codec.py``.
 
-Ported: the non-causal, non-anti-aliased BigCodec encoder and decoder with
-the factorized VQ, both the reconstruction (``make_ragged_codec``, the eval
-and test passes) and the conformant tokenizer (``make_ragged_tokenizer``,
-corpus extraction). The Conformer, causal, anti-aliased and semantic
-configurations raise ``NotImplementedError``, as do the tokenize modes
-``high``, ``balanced`` and ``fast``.
+Ported: the BigCodec encoder and decoder with the factorized VQ, plain,
+causal, anti-aliased or both, for the reconstruction (``make_ragged_codec``,
+the eval and test passes) and the tokenizer in every tokenize mode
+(``make_ragged_tokenizer``, corpus extraction; ``balanced`` splits at
+``_conv_front`` / ``_finish_masked``, as JAX does). The Conformer and
+semantic configurations and the other quantizers raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,8 +31,11 @@ import torch
 
 from ..config import Config
 from ..models import bigcodec
-from ..models.codec import full_fp32, precision_scope, quantize, resolve_device
+from ..models.codec import (MODES, encode_in_mode, full_fp32, precision_scope, quantize,
+                            resolve_device)
+from ..ops.alias_free import downsample1d, resample_filter, upsample1d
 from ..ops.lstm import res_lstm
+from ..ops.snake import snake_beta
 
 
 def _check_supported(cfg: Config):
@@ -37,10 +45,6 @@ def _check_supported(cfg: Config):
             raise NotImplementedError(
                 f"no ragged path for the {name} type {part.type!r} yet: the Conformer "
                 "family comes with its own slice (ROADMAP Queue 1 item 13)")
-        if part.causal or part.antialias:
-            raise NotImplementedError(
-                f"no ragged path for a causal or anti-aliased {name} yet: it comes with "
-                "the causal and streaming slice (ROADMAP Queue 1 item 12)")
     if cfg.train.use_semantic:
         raise NotImplementedError("no ragged path for the semantic branch yet "
                                   "(ROADMAP Queue 1 item 15)")
@@ -61,6 +65,44 @@ def _frame_valid(frames, T: int):
     return torch.arange(T, device=frames.device)[None, :] < frames[:, None]
 
 
+def _replicate_tail(x, bound):
+    """Each sample's positions >= bound take the value at bound - 1 (the
+    per-file replicate padding of Activation1d's filters). x (B, C, L);
+    bound (B,) int."""
+    idx = torch.minimum(torch.arange(x.shape[-1], device=x.device)[None, :],
+                        bound.clamp_min(1)[:, None] - 1)
+    return torch.gather(x, 2, idx[:, None, :].expand(-1, x.shape[1], -1))
+
+
+class _MaskedAA:
+    """Activation1d with per-sample tails. Without anti-aliasing a plain
+    snake (snake(0) = 0 keeps the zero tail). With it: replicate the tail,
+    2x upsample, snake, replicate the upsampled tail (the per-file
+    downsample pads with the edge value, not the interpolation past it),
+    2x downsample, then re-zero the tail for the next conv's zero padding.
+    bound: (B,) valid positions at this stride scale."""
+
+    def __init__(self, antialias: bool, bound):
+        self._aa = bigcodec._AA(antialias)
+        self.antialias = antialias
+        self.bound = bound
+
+    def __call__(self, x, snake):
+        if not self.antialias:
+            return self._aa(x, snake)
+        filt = resample_filter(2, x.device, x.dtype)
+        b = self.bound
+        x = upsample1d(_replicate_tail(x, b), filt, 2)
+        x = snake_beta(x, snake.alpha, snake.beta)
+        x = downsample1d(_replicate_tail(x, 2 * b), filt, 2)
+        return _edge_mask(x, b)
+
+
+def _aa_factory(part, lengths):
+    """Activation1d at stride scale S for ``part`` (encoder or decoder)."""
+    return lambda S: _MaskedAA(part.antialias, lengths // S)
+
+
 def _maybe_pcm16(wavs):
     """int16 PCM -> float32 on the device; int16 / 32768 is exact in float32,
     so this equals ``data.audio_io.read_wav``'s host conversion bit for bit."""
@@ -73,15 +115,18 @@ def _conv_front(enc: bigcodec.BigCodecEncoder, x, lengths):
     """The encoder's conv stack (conv_in and the blocks, no LSTM or tail),
     with each sample's tail re-zeroed after every conv and unit.
     x: (B, 1, L) -> (B, C, L / hop)."""
-    x = bigcodec._wn_conv(x, enc.conv_in, padding=3)
+    aa_at = _aa_factory(enc, lengths)
+    x = bigcodec._wn_conv(x, enc.conv_in, padding=3, causal=enc.causal)
     S = 1
     x = _edge_mask(x, lengths)
     for block, stride in zip(enc.blocks, enc.up_ratios):
+        aa = aa_at(S)
         for unit, d in zip(block.units, enc.dilations):
-            x = _edge_mask(bigcodec.residual_unit(x, unit, dilation=d), lengths // S)
-        x = block.snake(x)
+            x = _edge_mask(bigcodec.residual_unit(x, unit, dilation=d, aa=aa), lengths // S)
+        x = aa(x, block.snake)
         if stride != 1:
-            x = bigcodec._wn_conv(x, block.down, stride=stride, padding=stride // 2 + stride % 2)
+            x = bigcodec._wn_conv(x, block.down, stride=stride,
+                                  padding=stride // 2 + stride % 2, causal=enc.causal)
         else:
             x = bigcodec._wn_conv(x, block.down)
         S *= stride
@@ -95,7 +140,8 @@ def _finish_masked(enc: bigcodec.BigCodecEncoder, lat, lengths, hop: int):
     if enc.lstm is not None:
         lat = res_lstm(lat, enc.lstm, valid=_frame_valid(frames, lat.shape[-1]))
     lat = _edge_mask(lat, frames)  # the tail conv reads past each sample's last frame
-    return bigcodec._wn_conv(enc.snake_out(lat), enc.conv_out, padding=1)
+    lat = _MaskedAA(enc.antialias, frames)(lat, enc.snake_out)
+    return bigcodec._wn_conv(lat, enc.conv_out, padding=1, causal=enc.causal)
 
 
 def _encode_masked(enc: bigcodec.BigCodecEncoder, wavs, lengths, hop: int):
@@ -108,23 +154,25 @@ def _decode_masked_bigcodec(dec: bigcodec.BigCodecDecoder, z, frames):
     """The decoder with per-sample frame bounds: ``bigcodec_decode`` with
     each sample's tail re-zeroed after every spatial op. z (B, C, L) ->
     (B, 1, L · hop)."""
-    x = _edge_mask(bigcodec._wn_conv(z, dec.conv_in, padding=3), frames)
+    x = _edge_mask(bigcodec._wn_conv(z, dec.conv_in, padding=3, causal=dec.causal), frames)
     if dec.lstm is not None:
         x = res_lstm(x, dec.lstm, valid=_frame_valid(frames, x.shape[-1]))
         x = _edge_mask(x, frames)
     S = 1
     for block, stride in zip(dec.blocks, dec.up_ratios):
-        x = block.snake(x)
+        x = _MaskedAA(dec.antialias, frames * S)(x, block.snake)
         if stride != 1:
             x = bigcodec._wn_tconv(x, block.up, stride=stride, padding=stride // 2 + stride % 2,
-                                   output_padding=stride % 2)
+                                   output_padding=stride % 2, causal=dec.causal)
         else:
             x = bigcodec._wn_tconv(x, block.up)
         S *= stride
         x = _edge_mask(x, frames * S)
+        aa = _MaskedAA(dec.antialias, frames * S)
         for unit, d in zip(block.units, dec.dilations):
-            x = _edge_mask(bigcodec.residual_unit(x, unit, dilation=d), frames * S)
-    x = bigcodec._wn_conv(dec.snake_out(x), dec.conv_out, padding=3)
+            x = _edge_mask(bigcodec.residual_unit(x, unit, dilation=d, aa=aa), frames * S)
+    x = _MaskedAA(dec.antialias, frames * S)(x, dec.snake_out)
+    x = bigcodec._wn_conv(x, dec.conv_out, padding=3, causal=dec.causal)
     return torch.tanh(x)
 
 
@@ -133,14 +181,12 @@ def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda
     with wavs (B, L) float32 or int16 PCM, zero-padded, and lengths (B,) in
     samples, returns codes (Nq, B, L // hop) on ``device`` (the codec's);
     frames past lengths // hop are meaningless (trim per sample). Each row's
-    tokens equal the per-file ``tokenize`` of its own hop-padded samples.
-    Conformant mode only: full fp32, TF32 off, without gradients. Raises
-    without a card unless ``device="cpu"``."""
+    tokens equal the per-file ``tokenize`` of its own hop-padded samples,
+    in the same ``mode`` (``models/codec.py::encode_in_mode``; the VQ is
+    fp32 with TF32 off), without gradients. Raises without a card unless
+    ``device="cpu"``."""
     device = resolve_device(device)
-    if mode in ("high", "balanced", "fast"):
-        raise NotImplementedError(f"ragged tokenize mode {mode!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
-    if mode != "conformant":
+    if mode not in MODES:
         raise ValueError(f"unknown tokenize mode {mode!r}")
     _check_supported(cfg)
     hop = math.prod(cfg.model.codec_encoder.up_ratios)
@@ -148,8 +194,12 @@ def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda
     def run(codec, wavs, lengths):
         wavs = _maybe_pcm16(torch.as_tensor(wavs, device=device)).float()
         lengths = torch.as_tensor(lengths, device=device).long()
+        enc = codec.encoder
+        lat = encode_in_mode(enc, wavs[:, None, :], mode,
+                             front=lambda x: _conv_front(enc, x, lengths),
+                             tail=lambda y: _finish_masked(enc, y, lengths, hop))
         with torch.no_grad(), full_fp32():
-            _, codes, _ = quantize(codec, _encode_masked(codec.encoder, wavs, lengths, hop))
+            _, codes, _ = quantize(codec, lat)
         return codes
 
     return run

@@ -77,9 +77,43 @@ Phases, each fatal on failure:
     4 x 1 s of random tokens: K2 15 launches, the waveform within rtol 1e-3
     / atol 2e-5 of the CPU's decode of its tokens.npy. Prints the extract
     line (audio-s/s and where the time goes), then deletes the corpus and
-    the run dir.
-The last line is {"ok": true, "device": {...}}. Without a card, or without
-the package beside it, the script exits non-zero and prints no result.
+    the run dir;
+11. the tokenize modes on Config() (modes_path), phase 5's weights and
+    first batch: for conformant, high, balanced and fast at 32 x 1 s, K1 1
+    and K2 15 launches a call (K2 stays the fp32-grade kernel, with a bf16
+    cast around it in balanced and fast), codes in range, audio-s/s (CUDA
+    events, 5 calls after 2 warm-ups), a torch.profiler split (K2's share,
+    the share of the ResLSTM timed alone, idle), token flips and codes used
+    against conformant over 4 batches, and the latents' max |d| / max
+    |latent| against conformant, fatal over 1e-2 (high) or 5e-2 (balanced,
+    fast) (tokenize_mode lines). Inside phase 10, before its corpus goes,
+    cli.extract_indices --mode fast on it: K1 1 / K2 15 per device batch,
+    its audio-s/s and its flips against the conformant files (extract_fast
+    in the extract line);
+12. configs/bigcodec_causal.yaml at full width (causal_path), seed 0:
+    tokenize and decode of 32 x 1 s, K1 1 / K2 0 and no launch, the first
+    2 requests against the CPU as in phase 5; a StreamingTokenizer over
+    8 streams x 10 s in 3200-sample steps, K1 1 and K2 0 a step, tokens
+    equal to the card's offline tokenize of the whole streams but at top-2
+    gaps under 1e-5, step latency p50/p99 (CUDA events, a synchronise a
+    step) and the real-time factor; stream_decode of those codes in 16-frame
+    chunks within rtol 1e-3 / atol 2e-5 of the offline decode, no launch,
+    with the synthesizer's step latency; cli.synthesize --streaming 16 on a
+    causal run dir against the decode of its tokens; the tests' tiny causal
+    + anti-aliased codec streamed (delay_frames, flush) against the card's
+    offline tokenize and decode (the causal line);
+13. configs/bigcodec_antialias.yaml (non-causal, full width) as the first
+    part of 12 (K1 1 / K2 0); make_ragged_tokenizer on 4 files of 0.7-2.6 s
+    in one call against each file's own tokenize, K1 1 / K2 0, audio-s/s;
+    tokenize_chunked on Config(): one 30 s file in 10 s windows, K1 1 and
+    K2 15 a window, tokens equal to the offline tokenize but at top-2 gaps
+    under 1e-5, away from the file's edges (the first ceil(RF / hop) frames
+    and the last, where the windows' zero context reaches the ResLSTM's
+    start state and conv_out; counted apart) (the antialias_chunked line).
+The kernels line gives K1's and K2's launches on each of these paths
+(path_launches). The last line is {"ok": true, "device": {...}}. Without
+a card, or without the package beside it, the script exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -368,32 +402,84 @@ def probe_path():
     return launches, worst
 
 
+def seeded_codec(cfg, seed: int = 0):
+    """A codec of ``cfg`` with random weights from ``seed``, on the card, its
+    weight norm folded as for inference."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.conv import fold_weight_norm
+
+    return fold_weight_norm(C.init_codec(cfg, generator=torch.Generator().manual_seed(seed),
+                                         device="cuda"))
+
+
+def offline_decode(codec, codes):
+    """codes (Nq, B, Tf) -> waveforms (B, 1, Tf · hop): codes_to_emb ->
+    apply_fc_post_a -> decode, fp32 with TF32 off."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    with C.full_fp32(), torch.no_grad():
+        emb = C.apply_fc_post_a(codec, C.codes_to_emb(codec, codes.permute(1, 2, 0)))
+        return C.decode(codec, emb)
+
+
+def hold_against_cpu(name, codec, wav_np, codes, out, n_ref: int = 2):
+    """The card's tokens ``codes`` (Nq, B, Tf) and waveforms ``out`` of
+    ``wav_np`` against the same weights on the CPU, where the wrappers take
+    the plain versions, for the first ``n_ref`` requests: tokens except at
+    frames whose top-2 gap is under GAP, latents within LAT_RTOL / LAT_ATOL,
+    waveforms within WAV_RTOL / WAV_ATOL."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.conv import linear
+
+    cpu = copy.deepcopy(codec).cpu()
+    with C.full_fp32(), torch.no_grad():
+        lat_gpu = C.encode(codec, torch.from_numpy(wav_np[:n_ref]).cuda()).cpu()
+        lat_cpu = C.encode(cpu, torch.from_numpy(wav_np[:n_ref]))
+        _, codes_cpu, _ = C.quantize(cpu, lat_cpu)
+        layer = cpu.quantizer.layers[0]
+        z_e = linear(lat_cpu.transpose(1, 2), layer.in_proj)
+        gap = top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook))
+    wav_cpu = offline_decode(cpu, codes[:, :n_ref].cpu())
+    tok_gpu = codes[:, :n_ref].cpu()
+    flips = (tok_gpu != codes_cpu).reshape(-1)
+    near = gap < GAP
+    lat_err = (lat_gpu - lat_cpu).abs().max().item()
+    wav_err = (out[:n_ref].cpu() - wav_cpu).abs().max().item()
+    print(f"{name} vs CPU ({n_ref} requests): {int(flips.sum())} of {flips.numel()} "
+          f"tokens differ, {int(near.sum())} frames under the {GAP:g} top-2 gap; "
+          f"max |dlatent| = {lat_err:.3g}, max |dwav| = {wav_err:.3g}")
+    if (flips & ~near).any():
+        fail(f"{name}: tokens differ from the CPU at frames with a top-2 gap >= 1e-5")
+    if not torch.allclose(lat_gpu, lat_cpu, rtol=LAT_RTOL, atol=LAT_ATOL):
+        fail(f"{name}: latents outside rtol 1e-3 / atol 2e-4 of the CPU")
+    if not torch.allclose(out[:n_ref].cpu(), wav_cpu, rtol=WAV_RTOL, atol=WAV_ATOL):
+        fail(f"{name}: waveforms outside rtol 1e-3 / atol 2e-5 of the CPU")
+    return {"max_abs_err_latent": lat_err, "max_abs_err_wav": wav_err,
+            "token_flips": int(flips.sum()), "near_ties": int(near.sum())}
+
+
 def main_path(cfg):
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.models import codec as C
-    from audiotokenization_tpu_torch.ops.conv import fold_weight_norm, linear
     from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
     from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
 
-    codec = C.init_codec(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
-    fold_weight_norm(codec)
+    codec = seeded_codec(cfg)
     wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
     wav = torch.from_numpy(wav_np).cuda()
     nq = cfg.model.codec_decoder.vq_num_quantizers
     n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
-
-    def synthesize(codec, codes):
-        with C.full_fp32(), torch.no_grad():
-            emb = C.apply_fc_post_a(codec, C.codes_to_emb(codec, codes.permute(1, 2, 0)))
-            return C.decode(codec, emb)
 
     vq_argmin.launches = fused_residual_unit.launches = 0
     codes = C.tokenize(codec, wav, mode="conformant")
     torch.cuda.synchronize()
     tok_launches = (vq_argmin.launches, fused_residual_unit.launches)
     vq_argmin.launches = fused_residual_unit.launches = 0
-    out = synthesize(codec, codes)
+    out = offline_decode(codec, codes)
     torch.cuda.synchronize()
     dec_launches = (vq_argmin.launches, fused_residual_unit.launches)
     print(f"main path launches: tokenize K1 {tok_launches[0]} K2 {tok_launches[1]}; "
@@ -407,43 +493,17 @@ def main_path(cfg):
     if not torch.isfinite(out).all():
         fail("decoded waveform has non-finite values")
 
-    # the same weights on the CPU, where the wrappers take the plain versions
-    n_ref = 2
-    cpu = copy.deepcopy(codec).cpu()
-    with C.full_fp32(), torch.no_grad():
-        lat_gpu = C.encode(codec, wav[:n_ref]).cpu()
-        lat_cpu = C.encode(cpu, torch.from_numpy(wav_np[:n_ref]))
-        _, codes_cpu, _ = C.quantize(cpu, lat_cpu)
-        layer = cpu.quantizer.layers[0]
-        z_e = linear(lat_cpu.transpose(1, 2), layer.in_proj)
-        gap = top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook))
-    wav_cpu = synthesize(cpu, codes[:, :n_ref].cpu())
-    tok_gpu = codes[:, :n_ref].cpu()
-    flips = (tok_gpu != codes_cpu).reshape(-1)
-    near = gap < GAP
-    lat_err = (lat_gpu - lat_cpu).abs().max().item()
-    wav_err = (out[:n_ref].cpu() - wav_cpu).abs().max().item()
-    print(f"main path vs CPU ({n_ref} requests): {int(flips.sum())} of {flips.numel()} "
-          f"tokens differ, {int(near.sum())} frames under the {GAP:g} top-2 gap; "
-          f"max |dlatent| = {lat_err:.3g}, max |dwav| = {wav_err:.3g}")
-    if (flips & ~near).any():
-        fail("tokens differ from the CPU at frames with a top-2 gap >= 1e-5")
-    if not torch.allclose(lat_gpu, lat_cpu, rtol=LAT_RTOL, atol=LAT_ATOL):
-        fail("latents outside rtol 1e-3 / atol 2e-4 of the CPU")
-    if not torch.allclose(out[:n_ref].cpu(), wav_cpu, rtol=WAV_RTOL, atol=WAV_ATOL):
-        fail("waveforms outside rtol 1e-3 / atol 2e-5 of the CPU")
-    del cpu
+    cmp = hold_against_cpu("main path", codec, wav_np, codes, out)
 
     tok_ms = cuda_ms(lambda: C.tokenize(codec, wav), iters=5)
-    dec_ms = cuda_ms(lambda: synthesize(codec, codes), iters=5)
+    dec_ms = cuda_ms(lambda: offline_decode(codec, codes), iters=5)
     print(json.dumps({"tokenize_profile": device_profile(lambda: C.tokenize(codec, wav))}))
-    print(json.dumps({"decode_profile": device_profile(lambda: synthesize(codec, codes))}))
+    print(json.dumps({"decode_profile": device_profile(lambda: offline_decode(codec, codes))}))
     return {"tokenize_ms": tok_ms, "tokenize_audio_s_per_s": B / (tok_ms / 1e3),
             "decode_ms": dec_ms, "decode_audio_s_per_s": B / (dec_ms / 1e3),
             "launches": {"vq_argmin": tok_launches[0] + dec_launches[0],
                          "residual_unit": tok_launches[1] + dec_launches[1]},
-            "max_abs_err_latent": lat_err, "max_abs_err_wav": wav_err,
-            "token_flips": int(flips.sum()), "near_ties": int(near.sum())}
+            **cmp}
 
 
 def device_events(fn):
@@ -463,6 +523,21 @@ def device_events(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
               if e.device_type == DeviceType.CUDA]  # as the card ran them
+    return events, wall_ms
+
+
+def complete_events(fn, kernels: int, tries: int = 3):
+    """``device_events(fn)``, captured again, at most ``tries`` times, while
+    the profiler reports fewer than ``kernels`` device events: torch.profiler
+    has dropped kernel records on that card (21 of 50 K1 calls in one run).
+    A capture of ``kernels`` or more events is returned as it is, so the
+    callers' exact counts still fail on an extra kernel."""
+    for attempt in range(1, tries + 1):
+        events, wall_ms = device_events(fn)
+        if len(events) >= kernels:
+            break
+        print(f"the profiler reported {len(events)} of at least {kernels} device kernels "
+              f"(capture {attempt} of {tries})")
     return events, wall_ms
 
 
@@ -525,11 +600,11 @@ def time_k1(cfg):
         vq_argmin(enc, cb)
     host_ms = (time.perf_counter() - t0) * 1e3 / calls
     torch.cuda.synchronize()
-    many, _ = device_events(lambda: [vq_argmin(enc, cb) for _ in range(calls)])
+    many, _ = complete_events(lambda: [vq_argmin(enc, cb) for _ in range(calls)], calls)
     if len(many) != calls:
         fail(f"the profiler saw {len(many)} device kernels in {calls} K1 calls")
     device_ms = sum(stop - start for _, start, stop in many) / 1e3 / calls
-    one, _ = device_events(lambda: vq_argmin(enc, cb))
+    one, _ = complete_events(lambda: vq_argmin(enc, cb), 1)
     print(json.dumps({"k1_call_device_kernels": [name for name, _, _ in one]}))
     if len(one) != 1:
         fail(f"a K1 call at {m}x{n}x{dim} ran {len(one)} device kernels, not 1")
@@ -1259,6 +1334,29 @@ def extract_path(cfg, card):
             f, n = hold_tokens(f"extraction of {path.name}", np.load(npys[path.stem]), want, gap)
             flips, near = flips + f, near + n
 
+        # the same corpus in fast mode (phase 11), against the conformant files
+        ledger = LaunchLedger({"batch": (ragged, "make_ragged_tokenizer")})
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        fast = extract_indices.main(common + ["--subsets", "test-clean", "--batch_size",
+                                              str(EXTRACT_BATCH), "--mode", "fast",
+                                              "--output_folder", "fast"])
+        fast_launches = (vq_argmin.launches, fused_residual_unit.launches)
+        ledger.close()
+        calls = ledger.calls["batch"]
+        if fast["saved"] != EXTRACT_FILES or fast["errors"] or set(calls) != {(nq, n_enc)} \
+                or fast_launches != (nq * len(calls), n_enc * len(calls)):
+            fail(f"--mode fast extraction: {fast['saved']} saved, {fast['errors']} errors, "
+                 f"launches {fast_launches} over batches {calls}")
+        fast_differ = fast_tokens = 0
+        d_cfg = cfg.model.codec_decoder
+        for stem, p in npys.items():
+            a, b = np.load(p), np.load(next((run / "fast").rglob(f"{stem}.npy")))
+            if a.shape != b.shape or not 0 <= b.min() <= b.max() < d_cfg.codebook_size:
+                fail(f"--mode fast: {stem}.npy {b.shape}, codes {b.min()}..{b.max()}")
+            fast_differ, fast_tokens = fast_differ + int((a != b).sum()), fast_tokens + a.size
+        print(f"--mode fast extraction: {fast['audio_s_per_s']} audio-s/s, {fast_differ} of "
+              f"{fast_tokens} tokens differ from the conformant files")
+
         # --exact: one call a file at its raw length
         vq_argmin.launches = fused_residual_unit.launches = 0
         exact = extract_indices.main(common + ["--subsets", "test-exact", "--exact",
@@ -1324,6 +1422,12 @@ def extract_path(cfg, card):
                              "exact_files": EXACT_FILES, "exact_tokens_differ": exact_flips,
                              "exact_near_ties": exact_near},
             "exact": {k: exact[k] for k in ("audio_s_per_s", "device_batches", "device_s")},
+            "extract_fast": {**{k: fast[k] for k in ("audio_s_per_s", "wall_seconds",
+                                                     "device_batches", "device_s")},
+                             "launches": {"vq_argmin": fast_launches[0],
+                                          "residual_unit": fast_launches[1]},
+                             "tokens_differ": fast_differ, "tokens": fast_tokens,
+                             "flip_rate": fast_differ / fast_tokens},
             "eval": {"audio_s_per_s": summary["audio_s_per_s"], "wall_seconds":
                      summary["wall_seconds"], "forward_s": summary["forward_s"],
                      "quality_s": summary["quality_s"], "device_batches": eval_batches,
@@ -1339,6 +1443,464 @@ def extract_path(cfg, card):
         if ledger is not None:
             ledger.close()
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# 11-13: the tokenize modes, the causal and streaming codec, anti-aliasing
+# and chunked tokenization
+# ---------------------------------------------------------------------------
+
+# configs/*.yaml as overlays of Config(), so that a machine without PyYAML
+# builds them too; where PyYAML is present, repo_config checks they agree
+REPO_CONFIGS = {
+    "bigcodec_causal.yaml": {"name": "bigcodec-causal", "model": {
+        "codec_encoder": {"type": "bigcodec", "out_channels": 1024, "ngf": 48, "causal": True,
+                          "rnn_bidirectional": False},
+        "codec_decoder": {"type": "bigcodec", "in_channels": 1024, "causal": True,
+                          "codebook_size": 8192, "codebook_dim": 8}}},
+    "bigcodec_antialias.yaml": {
+        "name": "bigcodec-base512-1p2M-antialias",
+        "model": {
+            "codec_encoder": {"type": "bigcodec", "out_channels": 512, "ngf": 32, "use_rnn": True,
+                              "rnn_num_layers": 2, "up_ratios": [2, 4, 5, 5],
+                              "antialias": True},
+            "codec_decoder": {"type": "bigcodec", "in_channels": 512,
+                              "upsample_initial_channel": 512, "ngf": 32, "use_rnn": True,
+                              "rnn_num_layers": 2, "up_ratios": [5, 5, 4, 2],
+                              "codebook_size": 8192, "codebook_dim": 8, "antialias": True}},
+        "train": {"max_steps": 1200000, "precision": "bf16"}},
+}
+# the tests' tiny codec (hop 10, 64 codes), causal and anti-aliased
+TINY_CAUSAL_AA = {"model": {
+    "codec_encoder": {"ngf": 4, "out_channels": 32, "up_ratios": [2, 5], "rnn_num_layers": 1,
+                      "causal": True, "antialias": True},
+    "codec_decoder": {"in_channels": 32, "upsample_initial_channel": 16, "up_ratios": [5, 2],
+                      "rnn_num_layers": 1, "codebook_size": 64, "codebook_dim": 8,
+                      "causal": True, "antialias": True}}}
+MODE_BATCHES = 4           # batches of B x 1 s behind each mode's flip rate
+MODE_LAT_REL = {"high": 1e-2, "balanced": 5e-2, "fast": 5e-2}  # max |dlatent| / max |latent|
+STREAMS, STREAM_SECONDS, STREAM_CHUNK = 8, 10, 3200  # live streams, 0.2 s chunks
+SYNTH_CHUNK_FRAMES = 16    # stream_decode's chunk (0.2 s)
+CHUNKED_SECONDS, CHUNK_SECONDS = 30, 10.0
+AA_RAGGED_SAMPLES = (11400, 20800, 30200, 41600)  # 4 files of unequal length, whole hops
+
+
+def repo_config(name: str):
+    from audiotokenization_tpu_torch import config as PC
+
+    cfg = PC.from_dict(copy.deepcopy(REPO_CONFIGS[name]))
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        print(f"{name}: PyYAML is missing here; built from chip_smoke.REPO_CONFIGS")
+        return cfg
+    if PC.to_dict(PC.load_config(Path(__file__).resolve().parent / "configs" / name)) \
+            != PC.to_dict(cfg):
+        fail(f"chip_smoke.REPO_CONFIGS[{name!r}] differs from configs/{name}")
+    return cfg
+
+
+def counted(fn):
+    """(fn(), (K1, K2) launches of the call); the card synchronised after."""
+    import torch
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+    vq_argmin.launches = fused_residual_unit.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (vq_argmin.launches, fused_residual_unit.launches)
+
+
+def expect_launches(name, got, want):
+    print(f"{name}: K1 {got[0]}, K2 {got[1]} launches")
+    if tuple(got) != tuple(want):
+        fail(f"{name}: expected K1 {want[0]} and K2 {want[1]} launches, got {tuple(got)}")
+
+
+def frame_gaps(codec, lat):
+    """The top-2 distance gap of each frame of latents (B, C, T) -> (B, T)."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.conv import linear
+
+    layer = codec.quantizer.layers[0]
+    with C.full_fp32(), torch.no_grad():
+        z_e = linear(lat.transpose(1, 2), layer.in_proj)
+        return top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook)).reshape(
+            lat.shape[0], lat.shape[-1])
+
+
+def hold_codes(name, got, want, gap):
+    """Fail unless the codes (1, B, T) agree but at frames whose top-2 gap
+    (B, T) is under GAP. Returns (frames that differ, frames under GAP)."""
+    if tuple(got.shape) != tuple(want.shape):
+        fail(f"{name}: codes {tuple(got.shape)} against {tuple(want.shape)}")
+    differ = (got != want).reshape(gap.shape)
+    if (differ & (gap >= GAP)).any():
+        fail(f"{name}: {int(differ.sum())} tokens differ, some at a top-2 gap >= {GAP:g}")
+    return int(differ.sum()), int((gap < GAP).sum())
+
+
+def hold_wav(name, got, want):
+    import torch
+
+    err = (got - want).abs().max().item()
+    if got.shape != want.shape or not torch.allclose(got, want, rtol=WAV_RTOL, atol=WAV_ATOL):
+        fail(f"{name}: waveform {tuple(got.shape)} outside rtol 1e-3 / atol 2e-5 of "
+             f"{tuple(want.shape)} (max |d| {err:.3g})")
+    return err
+
+
+def _busy_ms(events) -> float:
+    """The union of the device spans (us) of ``events``, in ms."""
+    busy_us, end = 0.0, float("-inf")
+    for _, start, stop in sorted(events, key=lambda e: e[1]):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e3
+
+
+def step_ms(fn, steps):
+    """Latency of each of ``steps`` calls, each on an idle card (CUDA events
+    around the call, a synchronise after it, as a live stream's chunk
+    finds it); returns the outputs and the latencies in ms."""
+    import torch
+
+    outs, times = [], []
+    for args in steps:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(fn(*args))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return outs, times
+
+
+def percentiles(times):
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(times, 50)), "p99_ms": float(np.percentile(times, 99)),
+            "steps": len(times)}
+
+
+def modes_path(cfg, codec, card):
+    """11. Each tokenize mode on the flagship at B x 1 s (phase 5's weights
+    and first batch): launches, audio-s/s, the profiler's split, token flips
+    and code count against conformant over MODE_BATCHES batches, and the
+    latents' max |d| / max |latent|."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import bigcodec
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.lstm import res_lstm
+    from audiotokenization_tpu_torch.ops.params import parameters_as
+
+    enc = codec.encoder
+    d = cfg.model.codec_decoder
+    nq, n_units = d.vq_num_quantizers, len(enc.up_ratios) * len(enc.dilations)
+    wavs = [torch.from_numpy((np.random.RandomState(i).randn(B, SR) * 0.1).astype(np.float32))
+            .cuda() for i in range(MODE_BATCHES)]
+
+    def latents(wav, mode):
+        return C.encode_in_mode(enc, wav[:, None, :], mode,
+                                front=lambda x: bigcodec.encode_front(enc, x),
+                                tail=lambda y: bigcodec.encode_tail(enc, y))
+
+    lstm_in = torch.randn(B, enc.conv_out.weight().shape[1], SR // HOP).cuda()
+
+    def lstm_alone(mode):
+        """The encoder's ResLSTM alone, as ``mode`` runs it."""
+        with torch.no_grad():
+            if mode == "fast":
+                bf16 = {n: p.detach().to(torch.bfloat16) for n, p in enc.lstm.named_parameters()}
+                with C.full_fp32(), parameters_as(enc.lstm, bf16):
+                    return res_lstm(lstm_in.to(torch.bfloat16), enc.lstm)
+            with C.allow_tf32() if mode == "high" else C.full_fp32():
+                return res_lstm(lstm_in, enc.lstm)
+
+    ref_codes = [C.tokenize(codec, w) for w in wavs]
+    ref_lat = [latents(w, "conformant") for w in wavs]
+    rows = {}
+    for mode in C.MODES:
+        codes, launches = counted(lambda: C.tokenize(codec, wavs[0], mode=mode))
+        expect_launches(f"tokenize mode {mode}", launches, (nq, n_units))
+        all_codes = [codes] + [C.tokenize(codec, w, mode=mode) for w in wavs[1:]]
+        for c in all_codes:
+            if tuple(c.shape) != (nq, B, SR // HOP) or int(c.min()) < 0 \
+                    or int(c.max()) >= d.codebook_size:
+                fail(f"tokenize mode {mode}: codes {tuple(c.shape)} in "
+                     f"{int(c.min())}..{int(c.max())}")
+        flips = sum(int((c != r).sum()) for c, r in zip(all_codes, ref_codes))
+        used = int(torch.unique(torch.cat([c.reshape(-1) for c in all_codes])).numel())
+        lat_rel = max(((latents(w, mode) - r).abs().max() / r.abs().max()).item()
+                      for w, r in zip(wavs, ref_lat))
+        if mode in MODE_LAT_REL and not lat_rel <= MODE_LAT_REL[mode]:
+            fail(f"tokenize mode {mode}: max |dlatent| / max |latent| = {lat_rel:.3g} against "
+                 f"conformant, over {MODE_LAT_REL[mode]:g}")
+        ms = cuda_ms(lambda: C.tokenize(codec, wavs[0], mode=mode), iters=5)
+        events, wall_ms = device_events(lambda: C.tokenize(codec, wavs[0], mode=mode))
+        busy = _busy_ms(events)
+        k2_ms = _busy_ms([e for e in events if "tf32unit" in e[0]])
+        lstm_ms = _busy_ms(device_events(lambda: lstm_alone(mode))[0])
+        rows[mode] = {
+            "ms": ms, "audio_s_per_s": B / (ms / 1e3),
+            "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]},
+            "token_flips": flips, "tokens": MODE_BATCHES * nq * B * (SR // HOP),
+            "flip_rate": flips / (MODE_BATCHES * nq * B * (SR // HOP)), "codes_used": used,
+            "max_abs_dlatent_over_max_latent": lat_rel,
+            "profile": {"wall_ms": wall_ms, "device_busy_ms": busy, "k2_ms": k2_ms,
+                        "k2_share": k2_ms / busy, "lstm_alone_ms": lstm_ms,
+                        "lstm_share": lstm_ms / busy, "idle_share": 1 - busy / wall_ms}}
+        print(json.dumps({"tokenize_mode": {"mode": mode, **rows[mode]}, "card": card}))
+    return rows
+
+
+def offline_vs_cpu(name, cfg, codec):
+    """tokenize and decode of B x 1 s on the card: launches (K1 1 and K2 0
+    a tokenize, none a decode: these units are not K2's), the first 2
+    requests against the CPU, audio-s/s. Returns the numbers."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    hop = int(np.prod(cfg.model.codec_encoder.up_ratios))
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    wav = torch.from_numpy(wav_np).cuda()
+    codes, tok_launches = counted(lambda: C.tokenize(codec, wav))
+    out, dec_launches = counted(lambda: offline_decode(codec, codes))
+    expect_launches(f"{name} tokenize", tok_launches, (nq, 0))
+    expect_launches(f"{name} decode", dec_launches, (0, 0))
+    if tuple(codes.shape) != (nq, B, SR // hop) or tuple(out.shape) != (B, 1, SR) \
+            or not torch.isfinite(out).all():
+        fail(f"{name}: codes {tuple(codes.shape)}, waveform {tuple(out.shape)}")
+    cmp = hold_against_cpu(name, codec, wav_np, codes, out)
+    tok_ms = cuda_ms(lambda: C.tokenize(codec, wav), iters=5)
+    dec_ms = cuda_ms(lambda: offline_decode(codec, codes), iters=5)
+    return {"tokenize_ms": tok_ms, "tokenize_audio_s_per_s": B / (tok_ms / 1e3),
+            "decode_ms": dec_ms, "decode_audio_s_per_s": B / (dec_ms / 1e3),
+            "launches_per_tokenize": {"vq_argmin": tok_launches[0],
+                                      "residual_unit": tok_launches[1]}, **cmp}
+
+
+def stream_tokens(codec, streams, chunk, *, timed: bool):
+    """``streams`` (S, T) through a StreamingTokenizer in ``chunk``-sample
+    steps, flushed: (codes (Nq, S, T / hop) with the latency's warm-up
+    dropped, per-step (K1, K2) launches, per-step latencies or None)."""
+    import torch
+    from audiotokenization_tpu_torch.models.streaming import StreamingTokenizer
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+    tok = StreamingTokenizer(codec, chunk_samples=chunk)
+    state = [tok.init_state(batch_size=streams.shape[0])]
+    launches = []
+
+    def one(x):
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        codes, state[0] = tok.step(state[0], x)
+        launches.append((vq_argmin.launches, fused_residual_unit.launches))
+        return codes
+
+    steps = [(streams[:, i:i + chunk],) for i in range(0, streams.shape[1], chunk)]
+    if timed:
+        pieces, times = step_ms(one, steps)
+    else:
+        pieces, times = [one(*a) for a in steps], None
+    tail, _ = tok.flush(state[0])
+    codes = torch.cat(pieces + [tail], dim=2)[:, :, tok.delay_frames:]
+    return codes, launches, times
+
+
+def synth_steps(codec, codes, chunk_frames):
+    """Per-step latencies of a StreamingSynthesizer over whole chunks of
+    ``codes`` (Nq, S, T)."""
+    from audiotokenization_tpu_torch.models.streaming import StreamingSynthesizer
+
+    syn = StreamingSynthesizer(codec, chunk_frames=chunk_frames)
+    state = [syn.init_state(batch_size=codes.shape[1])]
+
+    def one(c):
+        wav, state[0] = syn.step(state[0], c)
+        return wav
+
+    steps = [(codes[:, :, t:t + chunk_frames],)
+             for t in range(0, codes.shape[-1] - chunk_frames + 1, chunk_frames)]
+    return step_ms(one, steps)[1]
+
+
+def causal_path(card):
+    """12. configs/bigcodec_causal.yaml at full width (module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch import config as PC
+    from audiotokenization_tpu_torch.cli import extract_indices, synthesize
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.streaming import stream_decode
+    from audiotokenization_tpu_torch.train.checkpoint import CheckpointManager
+    from audiotokenization_tpu_torch.train.state import init_train_state
+
+    cfg = repo_config("bigcodec_causal.yaml")
+    codec = seeded_codec(cfg)
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    hop = int(np.prod(cfg.model.codec_encoder.up_ratios))
+    result = {"offline": offline_vs_cpu("causal", cfg, codec)}
+
+    # live streams against the card's offline tokenize of the whole streams
+    streams = torch.from_numpy((np.random.RandomState(1).randn(STREAMS, STREAM_SECONDS * SR)
+                                * 0.1).astype(np.float32)).cuda()
+    with C.full_fp32(), torch.no_grad():
+        lat = C.encode(codec, streams)
+        _, off_codes, _ = C.quantize(codec, lat)
+    gap = frame_gaps(codec, lat)
+    stream_tokens(codec, streams[:, :2 * STREAM_CHUNK], STREAM_CHUNK, timed=False)  # warm-up
+    codes, launches, times = stream_tokens(codec, streams, STREAM_CHUNK, timed=True)
+    if set(launches) != {(nq, 0)}:
+        fail(f"streaming tokenizer: per-step launches {sorted(set(launches))}, expected "
+             f"K1 {nq} and K2 0 each step")
+    differ, near = hold_codes("streaming tokenizer vs offline tokenize", codes, off_codes, gap)
+    lat_s = percentiles(times)
+    result["stream_tokenize"] = {
+        "streams": STREAMS, "seconds": STREAM_SECONDS, "chunk_samples": STREAM_CHUNK,
+        **lat_s, "real_time_factor": STREAM_CHUNK / SR / (lat_s["p50_ms"] / 1e3),
+        "launches_per_step": {"vq_argmin": launches[0][0], "residual_unit": launches[0][1]},
+        "tokens_differ": differ, "near_ties": near}
+
+    # stream_decode of those codes against the card's offline decode
+    want = offline_decode(codec, off_codes)[:, 0]
+    got, launches = counted(lambda: stream_decode(codec, off_codes,
+                                                  chunk_frames=SYNTH_CHUNK_FRAMES))
+    expect_launches("stream_decode", launches, (0, 0))
+    err = hold_wav("stream_decode vs offline decode", got, want)
+    lat_d = percentiles(synth_steps(codec, off_codes, SYNTH_CHUNK_FRAMES))
+    result["stream_decode"] = {
+        "chunk_frames": SYNTH_CHUNK_FRAMES, **lat_d,
+        "real_time_factor": SYNTH_CHUNK_FRAMES * hop / SR / (lat_d["p50_ms"] / 1e3),
+        "max_abs_err_wav_vs_offline": err}
+
+    # cli.synthesize --streaming on a causal run dir
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_causal_", dir=build_dir))
+    try:
+        mngr = CheckpointManager(root / "run", cfg)
+        mngr.save(init_train_state(cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+        mngr.wait()
+        wav, launches = counted(lambda: synthesize.main(
+            ["--codec_ckpt", str(root / "run"), "--random", "--seconds", "1", "--num_samples",
+             "4", "--streaming", str(SYNTH_CHUNK_FRAMES), "--out_dir", str(root / "synth")]))
+        expect_launches("synthesize --streaming", launches, (0, 0))
+        tokens = torch.from_numpy(np.load(root / "synth" / "tokens.npy").astype(np.int64)).cuda()
+        loaded = extract_indices.load_model(root / "run")[1]
+        err = hold_wav("synthesize --streaming vs decode", torch.from_numpy(wav).cuda(),
+                       synthesize.decode_tokens(loaded, tokens))
+        result["synthesize_streaming"] = {"samples": 4, "seconds": 1,
+                                          "max_abs_err_wav_vs_decode": err}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the tests' tiny causal + anti-aliased codec: latency, delay_frames, flush
+    tiny = PC.from_dict(copy.deepcopy(TINY_CAUSAL_AA))
+    codec_t = seeded_codec(tiny)
+    wav_t = torch.from_numpy((np.random.RandomState(2).randn(2, 2000) * 0.1)
+                             .astype(np.float32)).cuda()
+    with C.full_fp32(), torch.no_grad():
+        lat_t = C.encode(codec_t, wav_t)
+        _, off_t, _ = C.quantize(codec_t, lat_t)
+    codes_t, launches, _ = stream_tokens(codec_t, wav_t, 200, timed=False)
+    if set(launches) != {(1, 0)}:
+        fail(f"tiny causal+AA streaming: per-step launches {sorted(set(launches))}")
+    differ_t, _ = hold_codes("tiny causal+AA streaming tokenizer vs offline",
+                             codes_t[:, :, :off_t.shape[-1]], off_t, frame_gaps(codec_t, lat_t))
+    rand = torch.from_numpy(np.random.RandomState(3).randint(0, 64, (1, 2, 57))).cuda()
+    err_t = hold_wav("tiny causal+AA stream_decode vs offline decode",
+                     stream_decode(codec_t, rand, chunk_frames=20),
+                     offline_decode(codec_t, rand)[:, 0])
+    result["tiny_causal_aa"] = {"tokens_differ": differ_t, "max_abs_err_wav": err_t,
+                                "frames": int(off_t.shape[-1])}
+    print(json.dumps({"causal": result, "card": card}))
+    return result
+
+
+def aa_chunked_path(cfg, codec, card):
+    """13. configs/bigcodec_antialias.yaml and tokenize_chunked on Config()
+    (module docstring)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.utils.chunked import (make_chunked_tokenizer,
+                                                           receptive_field_samples)
+    from audiotokenization_tpu_torch.utils.ragged import make_ragged_tokenizer
+
+    aa_cfg = repo_config("bigcodec_antialias.yaml")
+    aa = seeded_codec(aa_cfg)
+    nq = aa_cfg.model.codec_decoder.vq_num_quantizers
+    aa_hop = int(np.prod(aa_cfg.model.codec_encoder.up_ratios))
+    result = {"antialias_offline": offline_vs_cpu("antialias", aa_cfg, aa)}
+
+    # ragged: 4 files of unequal length in one call against each file alone
+    rng = np.random.RandomState(4)
+    files = [(rng.randn(n) * 0.1).astype(np.float32) for n in AA_RAGGED_SAMPLES]
+    batch = np.zeros((len(files), max(AA_RAGGED_SAMPLES)), np.float32)
+    for i, w in enumerate(files):
+        batch[i, :len(w)] = w
+    batch, lens = torch.from_numpy(batch).cuda(), torch.tensor(AA_RAGGED_SAMPLES).cuda()
+    run = make_ragged_tokenizer(aa_cfg)
+    codes, launches = counted(lambda: run(aa, batch, lens))
+    expect_launches("antialias ragged tokenizer", launches, (nq, 0))
+    differ = near = 0
+    for i, w in enumerate(files):
+        x = torch.from_numpy(w)[None].cuda()
+        with C.full_fp32(), torch.no_grad():
+            lat = C.encode(aa, x)
+            _, own, _ = C.quantize(aa, lat)
+        f, n = hold_codes(f"antialias ragged row {i} vs its own tokenize",
+                          codes[:, i:i + 1, :len(w) // aa_hop], own, frame_gaps(aa, lat))
+        differ, near = differ + f, near + n
+    ms = cuda_ms(lambda: run(aa, batch, lens), iters=5)
+    audio_s = sum(AA_RAGGED_SAMPLES) / SR
+    result["antialias_ragged"] = {"files": len(files), "audio_seconds": audio_s,
+                                  "ms": ms, "audio_s_per_s": audio_s / (ms / 1e3),
+                                  "launches_per_call": {"vq_argmin": launches[0],
+                                                        "residual_unit": launches[1]},
+                                  "tokens_differ": differ, "near_ties": near}
+
+    # tokenize_chunked on Config(): one long file in windows
+    d = cfg.model.codec_decoder
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    wav = torch.from_numpy((np.random.RandomState(5).randn(CHUNKED_SECONDS * SR) * 0.1)
+                           .astype(np.float32)).cuda()
+    with C.full_fp32(), torch.no_grad():
+        lat = C.encode(codec, wav[None])
+        _, off, _ = C.quantize(codec, lat)
+    chunked = make_chunked_tokenizer(codec, chunk_seconds=CHUNK_SECONDS)
+    got, launches = counted(lambda: chunked(wav))
+    windows = int(np.ceil(CHUNKED_SECONDS / CHUNK_SECONDS))
+    expect_launches("tokenize_chunked", launches, (windows * d.vq_num_quantizers,
+                                                   windows * n_units))
+    # away from the file's edges, where the chunks' zero context reaches the
+    # ResLSTM's start state and conv_out
+    edge = -(-receptive_field_samples(cfg) // HOP)
+    gap = frame_gaps(codec, lat)
+    inner = hold_codes("tokenize_chunked vs offline tokenize", got[None, :, edge:-1],
+                       off[:, :, edge:-1], gap[:, edge:-1])
+    edges = int((got[:, :edge] != off[0, :, :edge]).sum() + (got[:, -1] != off[0, :, -1]).sum())
+    ms = cuda_ms(lambda: chunked(wav), iters=3, warmup=1)
+    result["chunked"] = {"seconds": CHUNKED_SECONDS, "chunk_seconds": CHUNK_SECONDS,
+                         "windows": windows, "ms": ms,
+                         "audio_s_per_s": CHUNKED_SECONDS / (ms / 1e3),
+                         "launches_per_window": {"vq_argmin": launches[0] // windows,
+                                                 "residual_unit": launches[1] // windows},
+                         "tokens_differ_inside": inner[0], "near_ties_inside": inner[1],
+                         "edge_frames": edge + 1, "tokens_differ_at_edges": edges}
+    print(json.dumps({"antialias_chunked": result, "card": card}))
+    return result
 
 
 def main() -> int:
@@ -1393,6 +1955,23 @@ def main() -> int:
         "bare_before_audio_s_per_s": bare[0], "loop_audio_s_per_s": loop["audio_s_per_s"],
         "bare_after_audio_s_per_s": bare[1],
         "loop_over_bare_mean": loop["audio_s_per_s"] / (sum(bare) / 2)}, "card": card}))
+    flagship = seeded_codec(cfg)
+    modes = modes_path(cfg, flagship, card)
+    causal = causal_path(card)
+    aa = aa_chunked_path(cfg, flagship, card)
+    del flagship
+
+    def path_launches(kernel):
+        """A kernel's launches per call on the paths of phases 10-13."""
+        return {
+            "modes_per_call": {m: r["launches"][kernel] for m, r in modes.items()},
+            "extract_fast": ext["extract_fast"]["launches"][kernel],
+            "causal_per_tokenize": causal["offline"]["launches_per_tokenize"][kernel],
+            "stream_per_step": causal["stream_tokenize"]["launches_per_step"][kernel],
+            "antialias_per_tokenize": aa["antialias_offline"]["launches_per_tokenize"][kernel],
+            "antialias_ragged_per_call": aa["antialias_ragged"]["launches_per_call"][kernel],
+            "chunked_per_window": aa["chunked"]["launches_per_window"][kernel]}
+
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
     # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
     # launch per probe shape.
@@ -1412,7 +1991,8 @@ def main() -> int:
          "train_launches_per_step": train["launches_per_step"]["vq_argmin"],
          "loop_launches": loop["launches"]["vq_argmin"],
          "extract_launches": ext["extract_launches"]["vq_argmin"],
-         "eval_launches": ext["eval_launches"]["vq_argmin"], **k1},
+         "eval_launches": ext["eval_launches"]["vq_argmin"],
+         "path_launches": path_launches("vq_argmin"), **k1},
         {"name": "fused_residual_unit", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/residual_unit.cu",
          "replaces": "audiotokenization_tpu/ops/pallas/residual_unit_kernel.py:46",
@@ -1421,6 +2001,7 @@ def main() -> int:
          "loop_launches": loop["launches"]["residual_unit"],
          "extract_launches": ext["extract_launches"]["residual_unit"],
          "eval_launches": ext["eval_launches"]["residual_unit"],
+         "path_launches": path_launches("residual_unit"),
          "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
          "bound_by": bound_by(rows), "bound_simt_ms": tot["bound_simt_ms"],
          "library_ms": tot["library_ms"]},
@@ -1442,7 +2023,10 @@ def main() -> int:
                               "step, validation batch and test file); extract_launches / "
                               "eval_launches: corpus extraction's (K1 1 / K2 15 per device "
                               "batch) and full-length evaluation's (K1 1 / K2 30 per device "
-                              "batch)"}))
+                              "batch); path_launches: per call of each tokenize mode, per "
+                              "device batch of --mode fast extraction, per causal or "
+                              "anti-aliased tokenize and ragged call, per streaming step, per "
+                              "chunked window"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

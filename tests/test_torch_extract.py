@@ -158,9 +158,10 @@ def test_ragged_tokenizer_matches_jax_and_per_file(runs, pcm16):
 
 
 def test_ragged_tokenizer_refuses_unported_modes(runs):
-    for mode in ("high", "balanced", "fast"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            make_ragged_tokenizer(runs["cfg"], mode=mode, device="cpu")
+    """Every tokenize mode is ported now (tests/test_torch_modes.py); only
+    an unknown one raises."""
+    for mode in ("conformant", "high", "balanced", "fast"):
+        assert callable(make_ragged_tokenizer(runs["cfg"], mode=mode, device="cpu"))
     with pytest.raises(ValueError):
         make_ragged_tokenizer(runs["cfg"], mode="bogus", device="cpu")
 
@@ -222,7 +223,7 @@ def test_extract_cli_matches_jax(runs, jax_extracted, layout, mode, capsys):
 def test_extract_cli_refuses_what_is_not_ported(runs):
     base = _extract_args(runs, runs["port"], "never", "batch1") + ["--device", "cpu"]
     for extra, item in ((["--sequence_parallel"], "18"), (["--tensor_parallel", "2"], "18"),
-                        (["--semantic_dir", "x"], "15"), (["--mode", "fast"], "6")):
+                        (["--semantic_dir", "x"], "15")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             extract_indices.main(base + extra)
     if not torch.cuda.is_available():
@@ -307,10 +308,13 @@ def test_synthesize_matches_jax_decode(runs):
 
 def test_synthesize_refuses_what_is_not_ported(runs):
     base = ["--codec_ckpt", str(runs["port"]), "--random", "--device", "cpu"]
-    for extra, item in ((["--lm_ckpt", "x"], "16"), (["--streaming", "4"], "12"),
-                        (["--sequence_parallel"], "18"), (["--pipeline_parallel", "2"], "18")):
+    for extra, item in ((["--lm_ckpt", "x"], "16"), (["--sequence_parallel"], "18"),
+                        (["--pipeline_parallel", "2"], "18")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             synthesize.main(base + extra)
+    # --streaming is ported (tests/test_torch_streaming.py); it excludes the others
+    with pytest.raises(SystemExit, match="pick one"):
+        synthesize.main(base + ["--streaming", "4", "--sequence_parallel"])
 
 
 def test_validation_artifacts_include_the_spectrogram(tmp_path):

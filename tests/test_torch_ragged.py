@@ -118,7 +118,7 @@ def test_ragged_codec_zero_length_row_and_int16(tiny_codec):
 
 @pytest.mark.parametrize("change", [
     ("codec_encoder", "type", "conformer_stft"), ("codec_decoder", "type", "conformer_istft"),
-    ("codec_encoder", "causal", True), ("codec_decoder", "antialias", True),
+    ("codec_decoder", "quantizer", "ema_vq"), ("codec_decoder", "quantizer", "lfq"),
     ("codec_decoder", "quantizer", "fsq"), ("train", "use_semantic", True)],
     ids=lambda c: f"{c[1]}={c[2]}")
 def test_ragged_codec_refuses_unported_families(change):
