@@ -24,15 +24,16 @@ ceil(length / 1 s) seconds, ``--batch_size`` rows a device call; each
 file's tokens equal its own per-file ``tokenize``. PCM16-exact audio ships
 to the device as int16. ``--exact`` tokenizes each file alone at its raw
 length. ``--mode`` (conformant, high, balanced, fast; ``models/codec.py::
-encode_in_mode``) sets the encoder's precision on both paths. Sequence
-and tensor parallelism and the semantic targets raise
-``NotImplementedError``.
+encode_in_mode``) sets the encoder's precision on both paths; a mode the
+encoder lacks (the Conformer's ``balanced``) raises ``ValueError`` before
+any file is read. The frame count is the Conformer's ``hop_length`` or
+BigCodec's stride product (``config.codec_hop``). Sequence and tensor
+parallelism and the semantic targets raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import time
 from pathlib import Path
 
@@ -138,6 +139,7 @@ def main(argv=None):
     ``errors``, ``audio_seconds``, ``wall_seconds``, ``audio_s_per_s``, and
     ``device_batches`` with the wall seconds split into ``read_s``,
     ``resample_s``, ``device_s`` and ``save_s``)."""
+    from ..config import codec_hop
     from ..data.audio_io import read_audio
     from ..models import codec as C
     from ..ops.resample import resample
@@ -147,11 +149,12 @@ def main(argv=None):
     _refuse_unported(args)
     device = C.resolve_device(args.device)
     cfg, codec = load_model(args.save_path, device=device)
-    hop = math.prod(cfg.model.codec_encoder.up_ratios)
+    hop = codec_hop(cfg)
     out_dir = Path(args.save_path) / args.output_folder
     out_dir.mkdir(parents=True, exist_ok=True)
     # int16 is the reference's contract; larger codebooks would overflow it
     dtype = np.int16 if cfg.model.codec_decoder.codebook_size <= 32767 else np.int32
+    C.check_mode(type(codec.encoder), args.mode)
     ragged = None if args.exact else make_ragged_tokenizer(cfg, mode=args.mode, device=device)
     quantum = max(args.sample_rate // hop * hop, hop)
     split = {"read_s": 0.0, "resample_s": 0.0, "device_s": 0.0, "save_s": 0.0}

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import sys
 import time
 from collections import Counter
@@ -103,7 +102,7 @@ def main(argv=None):
 
 
 def _evaluate(args, out_dir: Path):
-    from ..config import DatasetSplit
+    from ..config import DatasetSplit, codec_hop
     from ..data.audio_io import write_wav
     from ..data.dataset import AudioDataset, DataLoader
     from ..models.codec import resolve_device
@@ -115,7 +114,7 @@ def _evaluate(args, out_dir: Path):
     device = resolve_device(args.device)
     cfg, codec = load_model(args.save_path, device=device)
     sr = cfg.dataset.sample_rate
-    hop = math.prod(cfg.model.codec_encoder.up_ratios)
+    hop = codec_hop(cfg)
     codebook_size = cfg.model.codec_decoder.codebook_size
     filelist = (args.filelist or cfg.dataset.test.filelist or cfg.dataset.val.filelist
                 or cfg.dataset.train.filelist)

@@ -19,7 +19,6 @@ parallelism are not ported and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import argparse
-import math
 from pathlib import Path
 
 import numpy as np
@@ -72,6 +71,7 @@ def main(argv=None):
     if not args.random:
         raise SystemExit("no --lm_ckpt given; pass --random for uniform tokens")
 
+    from ..config import codec_hop
     from ..data.audio_io import write_wav
     from ..models.codec import resolve_device
     from .extract_indices import load_model
@@ -79,7 +79,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg, codec = load_model(args.codec_ckpt, device=device)
     sr = cfg.dataset.sample_rate
-    n_frames = int(args.seconds * sr) // math.prod(cfg.model.codec_encoder.up_ratios)
+    n_frames = int(args.seconds * sr) // codec_hop(cfg)
     tokens = torch.randint(0, cfg.model.codec_decoder.codebook_size,
                            (args.num_samples, n_frames),
                            generator=torch.Generator().manual_seed(args.seed))

@@ -14,10 +14,9 @@ raise.
 from __future__ import annotations
 
 import argparse
-import math
 from pathlib import Path
 
-from ..config import Config
+from ..config import Config, codec_hop
 from ..data.dataset import AudioDataset, DataLoader
 
 
@@ -40,7 +39,7 @@ def make_loaders(cfg: Config, *, dataset_root=None, pin_memory: bool = False,
             batch_size=cfg.dataset.val.batch_size, shuffle=False, pin_memory=pin_memory)
     test_loader = None
     if cfg.dataset.test.filelist and not skip_test:
-        hop = math.prod(cfg.model.codec_encoder.up_ratios)
+        hop = codec_hop(cfg)
         test_loader = DataLoader(AudioDataset(cfg.dataset.test, pad_to_multiple_of=hop, **kw),
                                  batch_size=1, shuffle=False, drop_last=False)
     return train_loader, val_loader, test_loader

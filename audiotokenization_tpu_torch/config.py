@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional, Sequence, Tuple
@@ -238,6 +239,13 @@ def resolve_remat(cfg: Config) -> bool:
     n_acc = max(int(cfg.train.accumulate_grad_batches), 1)
     work = cfg.dataset.train.batch_size * crop // n_acc
     return not (cfg.train.precision == "bf16" and work <= 32 * 16000)
+
+
+def codec_hop(cfg) -> int:
+    """Samples per token frame: the Conformer encoder's ``hop_length``, or
+    the product of the BigCodec encoder's strides."""
+    e = cfg.model.codec_encoder
+    return e.hop_length if e.type == "conformer_stft" else math.prod(e.up_ratios)
 
 
 def _merge(obj, overlay: dict):

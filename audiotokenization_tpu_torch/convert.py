@@ -20,9 +20,10 @@ convert.py``): ``convert_codec_state_dict`` maps a CodecLightningModule
 state dict (``encoder.*``, ``decoder.*`` with the quantizer under
 ``decoder.quantizer.*``) straight onto the port's state-dict keys, tensor
 for tensor, tolerant of the causal convs' inner ``.conv.``;
-``load_reference_checkpoint`` finds and reads a reference run dir. Only
-the BigCodec codec with the factorized VQ is ported: Conformer, FSQ and
-semantic checkpoints raise ``NotImplementedError``.
+``load_reference_checkpoint`` finds and reads a reference run dir. Both
+codec families (BigCodec, and the Conformer STFT/ISTFT codec of the
+reference's config1) with the factorized VQ are ported: FSQ and semantic
+checkpoints raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -195,6 +196,50 @@ def convert_bigcodec_decoder(sd: Mapping[str, Any], *, n_blocks: int = 5, n_unit
     return out
 
 
+def _convert_backbone(v: _View, n_layers: int) -> Dict[str, torch.Tensor]:
+    """The reference's ``conformer_backbone.layers`` -> the port's
+    ``ConformerBackbone`` keys."""
+    out = {}
+    for i in range(n_layers):
+        lv, pre = v.sub(f"layers.{i}"), f"layers.{i}"
+        for ffn in ("ffn1", "ffn2"):
+            for w in ("w1", "w2", "w3"):
+                out.update(_under(f"{pre}.{ffn}.{w}", _conv(lv.sub(f"{ffn}.{w}"))))
+        out.update(_under(f"{pre}.attn.qkv", _conv(lv.sub("self_attn.qkv_proj"))))
+        out.update(_under(f"{pre}.attn.out", _conv(lv.sub("self_attn.out_proj"))))
+        for ours, theirs in (("pw1", "pointwise_conv1"), ("dw", "depthwise_conv"),
+                             ("pw2", "pointwise_conv2")):
+            out.update(_under(f"{pre}.conv.{ours}", _conv(lv.sub(f"conv.{theirs}"))))
+        out[f"{pre}.conv.norm"] = lv.get("conv.conv_norm.weight")
+        for ours, theirs in (("attn_norm", "attn_norm_in"), ("conv_norm", "conv_norm_in"),
+                             ("ffn1_norm", "ffn1_norm_in"), ("ffn2_norm", "ffn2_norm_in")):
+            out[f"{pre}.{ours}"] = lv.get(f"{theirs}.weight")
+    return out
+
+
+def convert_conformer_encoder(sd: Mapping[str, Any], *, n_layers: int) -> Dict[str, torch.Tensor]:
+    """The reference ConformerEncoderSTFT -> the port's ``ConformerEncoder`` keys."""
+    v = _View(sd)
+    out = {**_under("input_proj", _conv(v.sub("input_proj"))),
+           "input_norm": v.get("input_norm.weight"),
+           **_under("backbone", _convert_backbone(v.sub("conformer_backbone"), n_layers)),
+           "norm": v.get("norm.weight")}
+    if v.has("output_proj.weight_v") or v.has("output_proj.weight"):
+        out.update(_under("output_proj", _conv(v.sub("output_proj"))))
+    return out
+
+
+def convert_conformer_decoder(sd: Mapping[str, Any], *, n_layers: int) -> Dict[str, torch.Tensor]:
+    """The reference ConformerDecoderISTFT -> the port's ``ConformerDecoder`` keys."""
+    v = _View(sd)
+    out = {**_under("backbone", _convert_backbone(v.sub("conformer_backbone"), n_layers)),
+           "norm": v.get("norm.weight"),
+           **_under("head_out", _conv(v.sub("head.out")))}
+    if v.has("input_proj.weight_v") or v.has("input_proj.weight"):
+        out.update(_under("input_proj", _conv(v.sub("input_proj"))))
+    return out
+
+
 def convert_residual_vq(sd: Mapping[str, Any], *, num_quantizers: int = 1,
                         prefix: str = "quantizer.") -> Dict[str, torch.Tensor]:
     """The reference's FactorizedVQ stack -> the port's ``ResidualVQ`` keys."""
@@ -225,8 +270,9 @@ def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, to
     groups = split_lightning_state_dict(sd)
     e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
     for part, name in ((e, "encoder"), (d, "decoder")):
-        if part.type != "bigcodec":
-            raise NotImplementedError(f"converting a {part.type!r} {name} is not ported yet "
+        if part.type != "bigcodec" and part.ffn_type != "dense":
+            raise NotImplementedError(f"converting the Conformer {name}'s ffn_type "
+                                      f"{part.ffn_type!r} is not ported yet "
                                       "(ROADMAP Queue 1 item 13)")
     if d.fsq or d.quantizer != "fvq":
         raise NotImplementedError(f"converting the {'fsq' if d.fsq else d.quantizer!r} quantizer "
@@ -235,15 +281,20 @@ def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, to
         raise NotImplementedError("converting the semantic heads is not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
     enc_sd, dec_sd = groups.get("encoder", {}), groups.get("decoder", {})
-    return {
-        **_under("encoder", convert_bigcodec_encoder(
+    if e.type == "bigcodec":
+        enc = convert_bigcodec_encoder(
             enc_sd, n_blocks=len(e.up_ratios), n_units=len(e.dilations), use_rnn=e.use_rnn,
-            rnn_num_layers=e.rnn_num_layers, rnn_bidirectional=e.rnn_bidirectional)),
-        **_under("decoder", convert_bigcodec_decoder(
+            rnn_num_layers=e.rnn_num_layers, rnn_bidirectional=e.rnn_bidirectional)
+    else:
+        enc = convert_conformer_encoder(enc_sd, n_layers=e.n_layers)
+    if d.type == "bigcodec":
+        dec = convert_bigcodec_decoder(
             dec_sd, n_blocks=len(d.up_ratios), n_units=len(d.dilations), use_rnn=d.use_rnn,
-            rnn_num_layers=d.rnn_num_layers, rnn_bidirectional=d.rnn_bidirectional)),
-        **_under("quantizer", convert_residual_vq(dec_sd, num_quantizers=d.vq_num_quantizers)),
-    }
+            rnn_num_layers=d.rnn_num_layers, rnn_bidirectional=d.rnn_bidirectional)
+    else:
+        dec = convert_conformer_decoder(dec_sd, n_layers=d.n_layers)
+    return {**_under("encoder", enc), **_under("decoder", dec),
+            **_under("quantizer", convert_residual_vq(dec_sd, num_quantizers=d.vq_num_quantizers))}
 
 
 def reference_config_to_config(ref_cfg: Mapping[str, Any]) -> Config:

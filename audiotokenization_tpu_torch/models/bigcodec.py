@@ -23,7 +23,18 @@ card), as the JAX package runs it on XLA.
 The encoder and decoder functions take an optional ``aa``: an
 Activation1d with the config's ``antialias`` that the ragged and streaming
 paths replace with one that knows the true edges of each sequence
-(``utils/ragged.py::_MaskedAA``, ``parallel/sp.py::_SPAA``).
+(``MaskedAA`` below, ``parallel/sp.py::_SPAA``).
+
+Ragged batches (``lengths``): files of unequal length go in as one
+zero-padded batch with their lengths. A longer zero tail would move where
+each conv layer's zero padding begins, so ``edge_mask`` zeroes each
+sample's positions past its own length after every conv, ResidualUnit and
+transpose conv, and the ResLSTM takes a per-sample prefix mask
+(``ops/lstm.py``). Anti-aliased configs need more: each Activation1d
+replicate-pads at the file's own edge, so ``MaskedAA`` replicates each
+sample's tail from its last valid position before the 2x upsample and
+again before the 2x downsample, then re-zeroes it. Each sample then
+computes what it computes alone (``utils/ragged.py``).
 
 Init: the reference's weight-normed convs effectively start from torch's
 default (kaiming-uniform v, g = ‖v‖) with zeroed biases; transpose convs
@@ -31,10 +42,12 @@ keep torch's default bias.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-from ..ops.alias_free import activation1d
+from ..ops.alias_free import activation1d, downsample1d, resample_filter, upsample1d
 from ..ops.conv import (causal_conv1d, causal_conv_transpose1d, conv1d, conv_transpose1d,
                         init_wn_conv1d, init_wn_conv_transpose1d)
 from ..ops.cuda.residual_unit_kernel import fused_residual_unit
@@ -150,6 +163,16 @@ def decoder_block(x, p: DecoderBlock, *, stride: int, dilations, aa: _AA):
 class BigCodecEncoder(nn.Module):
     """wav (B, 1, T) -> latents (B, out_channels, T / prod(up_ratios))."""
 
+    modes = ("conformant", "high", "balanced", "fast")  # balanced: bf16 front, fp32 tail
+
+    @classmethod
+    def from_config(cls, e, *, generator: torch.Generator):
+        """From the ``codec_encoder`` group ``e`` of a config."""
+        return cls(ngf=e.ngf, up_ratios=e.up_ratios, dilations=e.dilations,
+                   out_channels=e.out_channels, use_rnn=e.use_rnn,
+                   rnn_num_layers=e.rnn_num_layers, rnn_bidirectional=e.rnn_bidirectional,
+                   causal=e.causal, antialias=e.antialias, generator=generator)
+
     def __init__(self, *, ngf=48, up_ratios=(2, 2, 2, 5, 5), dilations=(1, 3, 9),
                  out_channels=1024, use_rnn=True, rnn_num_layers=2,
                  rnn_bidirectional=False, causal=False, antialias=False,
@@ -173,12 +196,35 @@ class BigCodecEncoder(nn.Module):
         self.snake_out = SnakeBeta(d)
         self.conv_out = init_wn_conv1d(d, out_channels, 3, generator=generator)
 
-    def forward(self, x):
-        return bigcodec_encode(self, x)
+    def stages(self, lengths=None, *, remat: bool = False):
+        """(front, tail) of ``forward``: conv_in and the blocks, then the
+        ResLSTM, snake_out and conv_out (the ``balanced`` mode's split).
+        ``lengths``: (B,) samples of a zero-padded ragged batch."""
+        if lengths is None:
+            return (lambda x: encode_front(self, x, remat=remat),
+                    lambda y: encode_tail(self, y))
+        return (lambda x: masked_front(self, x, lengths),
+                lambda y: masked_tail(self, y, lengths))
+
+    def forward(self, x, *, lengths=None, remat: bool = False):
+        """``remat``: each EncoderBlock's activations are recomputed in the
+        backward; ``lengths``: (B,) samples of a ragged batch (frames past
+        lengths // hop are meaningless)."""
+        front, tail = self.stages(lengths, remat=remat)
+        return tail(front(x))
 
 
 class BigCodecDecoder(nn.Module):
     """quantized latents (B, in_channels, Tf) -> waveform (B, 1, Tf · hop)."""
+
+    @classmethod
+    def from_config(cls, d, *, generator: torch.Generator):
+        """From the ``codec_decoder`` group ``d`` of a config."""
+        return cls(in_channels=d.in_channels,
+                   upsample_initial_channel=d.upsample_initial_channel,
+                   up_ratios=d.up_ratios, dilations=d.dilations, use_rnn=d.use_rnn,
+                   rnn_num_layers=d.rnn_num_layers, rnn_bidirectional=d.rnn_bidirectional,
+                   causal=d.causal, antialias=d.antialias, generator=generator)
 
     def __init__(self, *, in_channels=1024, upsample_initial_channel=1536,
                  up_ratios=(5, 5, 2, 2, 2), dilations=(1, 3, 9), use_rnn=True,
@@ -202,8 +248,13 @@ class BigCodecDecoder(nn.Module):
         self.snake_out = SnakeBeta(out_dim)
         self.conv_out = init_wn_conv1d(out_dim, 1, 7, generator=generator)
 
-    def forward(self, x):
-        return bigcodec_decode(self, x)
+    def forward(self, x, *, frames=None, remat: bool = False):
+        """``frames``: (B,) frame counts of a ragged batch, each sample
+        decoded as its own frames decode alone; ``remat`` as in the
+        encoder."""
+        if frames is None:
+            return bigcodec_decode(self, x, remat=remat)
+        return masked_decode(self, x, frames)
 
 
 def _block(fn, x, block, *, remat: bool, **kwargs):
@@ -248,3 +299,109 @@ def bigcodec_decode(p: BigCodecDecoder, x, *, remat: bool = False):
                    dilations=p.dilations, aa=aa)
     x = aa(x, p.snake_out)
     return torch.tanh(_wn_conv(x, p.conv_out, padding=3, causal=p.causal))
+
+
+# -- ragged batches: each sample's tail re-zeroed (module docstring) ------------------
+
+
+def edge_mask(x, bound):
+    """Zero each sample's positions >= bound. x (B, C, L); bound (B,) int,
+    at x's stride scale."""
+    g = torch.arange(x.shape[-1], device=x.device)
+    return x * (g[None, :] < bound[:, None])[:, None, :].to(x.dtype)
+
+
+def _frame_valid(frames, T: int):
+    """(B,) frame counts -> (B, T) bool mask."""
+    return torch.arange(T, device=frames.device)[None, :] < frames[:, None]
+
+
+def _replicate_tail(x, bound):
+    """Each sample's positions >= bound take the value at bound - 1 (the
+    per-file replicate padding of Activation1d's filters). x (B, C, L);
+    bound (B,) int."""
+    idx = torch.minimum(torch.arange(x.shape[-1], device=x.device)[None, :],
+                        bound.clamp_min(1)[:, None] - 1)
+    return torch.gather(x, 2, idx[:, None, :].expand(-1, x.shape[1], -1))
+
+
+class MaskedAA:
+    """Activation1d with per-sample tails. Without anti-aliasing a plain
+    snake (snake(0) = 0 keeps the zero tail). With it: replicate the tail,
+    2x upsample, snake, replicate the upsampled tail (the per-file
+    downsample pads with the edge value, not the interpolation past it),
+    2x downsample, then re-zero the tail for the next conv's zero padding.
+    bound: (B,) valid positions at this stride scale."""
+
+    def __init__(self, antialias: bool, bound):
+        self._aa = _AA(antialias)
+        self.antialias = antialias
+        self.bound = bound
+
+    def __call__(self, x, snake):
+        if not self.antialias:
+            return self._aa(x, snake)
+        filt = resample_filter(2, x.device, x.dtype)
+        b = self.bound
+        x = upsample1d(_replicate_tail(x, b), filt, 2)
+        x = snake_beta(x, snake.alpha, snake.beta)
+        x = downsample1d(_replicate_tail(x, 2 * b), filt, 2)
+        return edge_mask(x, b)
+
+
+def masked_front(enc: BigCodecEncoder, x, lengths):
+    """``encode_front`` of a ragged batch: x (B, 1, L), lengths (B,)
+    samples -> (B, C, L / hop), each sample's tail re-zeroed after every
+    conv and unit."""
+    x = _wn_conv(x, enc.conv_in, padding=3, causal=enc.causal)
+    S = 1
+    x = edge_mask(x, lengths)
+    for block, stride in zip(enc.blocks, enc.up_ratios):
+        aa = MaskedAA(enc.antialias, lengths // S)
+        for unit, d in zip(block.units, enc.dilations):
+            x = edge_mask(residual_unit(x, unit, dilation=d, aa=aa), lengths // S)
+        x = aa(x, block.snake)
+        if stride != 1:
+            x = _wn_conv(x, block.down, stride=stride, padding=stride // 2 + stride % 2,
+                         causal=enc.causal)
+        else:
+            x = _wn_conv(x, block.down)
+        S *= stride
+        x = edge_mask(x, lengths // S)
+    return x
+
+
+def masked_tail(enc: BigCodecEncoder, lat, lengths):
+    """``encode_tail`` of a ragged batch over ``masked_front``'s latents."""
+    frames = lengths // math.prod(enc.up_ratios)
+    if enc.lstm is not None:
+        lat = res_lstm(lat, enc.lstm, valid=_frame_valid(frames, lat.shape[-1]))
+    lat = edge_mask(lat, frames)  # the tail conv reads past each sample's last frame
+    lat = MaskedAA(enc.antialias, frames)(lat, enc.snake_out)
+    return _wn_conv(lat, enc.conv_out, padding=1, causal=enc.causal)
+
+
+def masked_decode(dec: BigCodecDecoder, z, frames):
+    """``bigcodec_decode`` of a ragged batch: z (B, C, L) with (B,) frame
+    counts -> (B, 1, L · hop), each sample's tail re-zeroed after every
+    spatial op."""
+    x = edge_mask(_wn_conv(z, dec.conv_in, padding=3, causal=dec.causal), frames)
+    if dec.lstm is not None:
+        x = res_lstm(x, dec.lstm, valid=_frame_valid(frames, x.shape[-1]))
+        x = edge_mask(x, frames)
+    S = 1
+    for block, stride in zip(dec.blocks, dec.up_ratios):
+        x = MaskedAA(dec.antialias, frames * S)(x, block.snake)
+        if stride != 1:
+            x = _wn_tconv(x, block.up, stride=stride, padding=stride // 2 + stride % 2,
+                          output_padding=stride % 2, causal=dec.causal)
+        else:
+            x = _wn_tconv(x, block.up)
+        S *= stride
+        x = edge_mask(x, frames * S)
+        aa = MaskedAA(dec.antialias, frames * S)
+        for unit, d in zip(block.units, dec.dilations):
+            x = edge_mask(residual_unit(x, unit, dilation=d, aa=aa), frames * S)
+    x = MaskedAA(dec.antialias, frames * S)(x, dec.snake_out)
+    x = _wn_conv(x, dec.conv_out, padding=3, causal=dec.causal)
+    return torch.tanh(x)

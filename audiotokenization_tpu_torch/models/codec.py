@@ -1,7 +1,9 @@
 """Codec facade: encoder + quantizer + decoder.
 
-Counterpart of ``audiotokenization_tpu/models/codec.py`` for the BigCodec
-encoder/decoder and the factorized-VQ quantizer. The serving path is
+Counterpart of ``audiotokenization_tpu/models/codec.py`` for the two codec
+families, BigCodec (``models/bigcodec.py``) and the Conformer STFT/ISTFT
+codec (``models/conformer.py``), each side built from its ``type``, with
+the factorized-VQ quantizer. The serving path is
 ``tokenize`` (wav -> codes (Nq, B, Tf)) and ``codes_to_emb`` ->
 ``apply_fc_post_a`` -> ``decode`` (codes -> wav); training runs
 ``forward`` (wav -> regenerated wav, commitment losses and codes).
@@ -26,7 +28,7 @@ from torch import nn
 
 from ..config import Config, resolve_remat
 from ..ops.params import cast_parameters, parameters_as
-from . import bigcodec
+from . import bigcodec, conformer
 from .quantizers import factorized_vq as fvq
 
 
@@ -71,34 +73,47 @@ def precision_scope(cfg: Config):
     return full_fp32() if p == "fp32_strict" else allow_tf32()
 
 
+# each side's families by config ``type``: ``from_config`` builds one; its
+# ``forward`` takes ragged ``lengths`` (encoder) or ``frames`` (decoder) and
+# ``remat``; an encoder's ``stages`` is its (front, tail) split and ``modes``
+# its tokenize modes
+ENCODERS = {"bigcodec": bigcodec.BigCodecEncoder, "conformer_stft": conformer.ConformerEncoder}
+DECODERS = {"bigcodec": bigcodec.BigCodecDecoder, "conformer_istft": conformer.ConformerDecoder}
+
+
+def check_config(cfg: Config):
+    """Raise for what the port does not build: an unknown family
+    (``ValueError``), the Conformer's MoE feed-forward, a quantizer other
+    than the factorized VQ, the semantic branch (``NotImplementedError``
+    citing the ROADMAP item)."""
+    e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
+    for part, name, family in ((e, "encoder", ENCODERS), (d, "decoder", DECODERS)):
+        if part.type not in family:
+            raise ValueError(f"unknown {name} type {part.type!r}")
+        if part.type != "bigcodec" and part.ffn_type != "dense":
+            raise NotImplementedError(f"the Conformer's ffn_type {part.ffn_type!r} is not "
+                                      "ported yet (ROADMAP Queue 1 item 13)")
+    quantizer = "fsq" if d.fsq else d.quantizer
+    if quantizer != "fvq":
+        raise NotImplementedError(f"the {quantizer!r} quantizer is not ported yet "
+                                  "(ROADMAP Queue 1 item 14)")
+    if cfg.train.use_semantic:
+        raise NotImplementedError("the semantic branch is not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
+
+
 class Codec(nn.Module):
-    """BigCodec encoder, factorized residual VQ and BigCodec decoder, with
-    parameter names as in the JAX tree (``encoder``, ``quantizer``,
-    ``decoder``)."""
+    """Encoder (BigCodec or Conformer), factorized residual VQ and decoder
+    (BigCodec or Conformer), with parameter names as in the JAX tree
+    (``encoder``, ``quantizer``, ``decoder``)."""
 
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
+        check_config(cfg)
         e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
-        quantizer = "fsq" if d.fsq else d.quantizer
-        if (e.type, d.type, quantizer) != ("bigcodec", "bigcodec", "fvq"):
-            raise NotImplementedError(
-                f"only the BigCodec codec with the factorized VQ is ported, got "
-                f"{e.type}/{quantizer}/{d.type}")
-        if cfg.train.use_semantic:
-            raise NotImplementedError("the semantic branch is not ported yet "
-                                      "(ROADMAP Queue 1 item 15)")
         self.cfg = cfg
-        self.encoder = bigcodec.BigCodecEncoder(
-            ngf=e.ngf, up_ratios=e.up_ratios, dilations=e.dilations,
-            out_channels=e.out_channels, use_rnn=e.use_rnn,
-            rnn_num_layers=e.rnn_num_layers, rnn_bidirectional=e.rnn_bidirectional,
-            causal=e.causal, antialias=e.antialias, generator=generator)
-        self.decoder = bigcodec.BigCodecDecoder(
-            in_channels=d.in_channels,
-            upsample_initial_channel=d.upsample_initial_channel,
-            up_ratios=d.up_ratios, dilations=d.dilations, use_rnn=d.use_rnn,
-            rnn_num_layers=d.rnn_num_layers, rnn_bidirectional=d.rnn_bidirectional,
-            causal=d.causal, antialias=d.antialias, generator=generator)
+        self.encoder = ENCODERS[e.type].from_config(e, generator=generator)
+        self.decoder = DECODERS[d.type].from_config(d, generator=generator)
         self.quantizer = fvq.ResidualVQ(
             num_quantizers=d.vq_num_quantizers, dim=d.in_channels,
             codebook_size=d.codebook_size, codebook_dim=d.codebook_dim,
@@ -121,8 +136,9 @@ def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Cod
 
 
 def encode(codec: Codec, wav, *, remat: bool = False):
-    """wav (B, T) -> latents (B, C, Tf)."""
-    return bigcodec.bigcodec_encode(codec.encoder, wav[:, None, :], remat=remat)
+    """wav (B, T) -> latents (B, C, Tf). ``remat`` recomputes BigCodec's
+    blocks in the backward; the Conformer keeps its activations."""
+    return codec.encoder(wav[:, None, :], remat=remat)
 
 
 def quantize(codec: Codec, latents, *, training: bool = False):
@@ -137,8 +153,9 @@ def quantize(codec: Codec, latents, *, training: bool = False):
 
 
 def decode(codec: Codec, quantized, *, remat: bool = False):
-    """quantized latents (B, C, Tf) -> waveform (B, 1, Tf · hop)."""
-    return bigcodec.bigcodec_decode(codec.decoder, quantized, remat=remat)
+    """quantized latents (B, C, Tf) -> waveform (B, 1, Tf · hop); ``remat``
+    as in ``encode``."""
+    return codec.decoder(quantized, remat=remat)
 
 
 def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
@@ -179,32 +196,59 @@ def apply_fc_post_a(codec: Codec, emb):
 MODES = ("conformant", "high", "balanced", "fast")
 
 
-def encode_in_mode(encoder: bigcodec.BigCodecEncoder, x, mode: str, *, front, tail):
-    """``tail(front(x))`` at the precision of a tokenize ``mode``, without
-    gradients: ``front`` is the encoder's conv stack (conv_in and the
-    blocks), ``tail`` the ResLSTM, snake_out and conv_out. Returns fp32
-    latents.
+def check_mode(encoder_cls, mode: str):
+    """``ValueError`` unless ``mode`` is a tokenize mode of ``encoder_cls``
+    (``balanced`` splits BigCodec's conv front from its tail; the Conformer
+    has no such split and no such mode, as in the JAX package)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown tokenize mode {mode!r}")
+    if mode not in encoder_cls.modes:
+        raise ValueError(f"the {encoder_cls.__name__} has no {mode!r} tokenize mode "
+                         f"(it has {', '.join(encoder_cls.modes)})")
+
+
+def bf16_copies(module: nn.Module, prefixes=None) -> dict:
+    """bf16 copies of ``module``'s parameters (those whose names start with
+    one of ``prefixes``; all with None), made once and kept on the module
+    until a parameter changes (its version counter or storage; a write
+    through ``.data`` bumps neither), so that serving does not recast the
+    encoder every call."""
+    named = [(n, p) for n, p in module.named_parameters()
+             if prefixes is None or n.startswith(prefixes)]
+    stamp = tuple((p.data_ptr(), p._version) for _, p in named)
+    cache = module.__dict__.setdefault("_bf16_copies", {})
+    if prefixes not in cache or cache[prefixes][0] != stamp:
+        cache[prefixes] = (stamp, {n: p.detach().to(torch.bfloat16) for n, p in named})
+    return cache[prefixes][1]
+
+
+def encode_in_mode(encoder: nn.Module, x, mode: str, *, lengths=None):
+    """The encoder's latents of x (B, 1, T) at the precision of a tokenize
+    ``mode``, without gradients; ``lengths``: (B,) samples of a ragged
+    batch. Returns fp32 latents. The encoder's ``stages`` split it into a
+    front and a tail (BigCodec: the conv stack, then the ResLSTM,
+    snake_out and conv_out; the Conformer: all of it, then nothing).
 
     - ``conformant``: fp32, TF32 off for cuDNN and cuBLAS;
     - ``high``: fp32 tensors, cuDNN convs and LSTM and cuBLAS in TF32;
-    - ``balanced``: the front on bf16 copies of its parameters, the tail in
-      fp32 with TF32 off;
-    - ``fast``: the whole encoder on bf16 copies.
+    - ``balanced`` (BigCodec only, ``check_mode``): the front on bf16
+      copies of its parameters, the tail in fp32 with TF32 off;
+    - ``fast``: the whole encoder on bf16 copies, from the input rounded
+      to bf16 (the Conformer's STFT then runs in fp32 on it).
 
-    K2 has no TF32 or bf16 form (the JAX package's Pallas K2 takes fp32
-    only): in every mode each fused unit is the fp32-grade kernel, and in
+    The bf16 copies are made once per encoder (``bf16_copies``). K2 has no
+    TF32 or bf16 form (the JAX package's Pallas K2 takes fp32 only): in
+    every mode each fused unit is the fp32-grade kernel, and in
     ``balanced`` and ``fast`` ``ResidualUnitFn`` runs it on fp32 copies of
     the bf16 inputs and casts its output back to bf16.
     """
-    if mode not in MODES:
-        raise ValueError(f"unknown tokenize mode {mode!r}")
+    check_mode(type(encoder), mode)
+    front, tail = encoder.stages(lengths)
     with torch.no_grad():
         if mode in ("conformant", "high"):
             with allow_tf32() if mode == "high" else full_fp32():
                 return tail(front(x)).float()
-        head = None if mode == "fast" else ("conv_in.", "blocks.")
-        bf16 = {n: p.detach().to(torch.bfloat16) for n, p in encoder.named_parameters()
-                if head is None or n.startswith(head)}
+        bf16 = bf16_copies(encoder, None if mode == "fast" else ("conv_in.", "blocks."))
         with full_fp32():
             with parameters_as(encoder, bf16):
                 y = front(x.to(torch.bfloat16))
@@ -217,15 +261,15 @@ def tokenize(codec: Codec, wav, *, mode: str = "conformant"):
     """wav (B, T) -> token indices (Nq, B, Tf) int32, on the codec's device.
 
     ``mode`` sets the encoder's precision (``encode_in_mode``): conformant
-    (fp32, the mode held to the JAX package's tokens), high, balanced or
-    fast. The VQ (K1) runs fp32 with TF32 off in every mode.
+    (fp32, the mode held to the JAX package's tokens), high, balanced
+    (BigCodec only) or fast. The VQ (K1) runs fp32 with TF32 off in every
+    mode. On the Conformer at 32 x 1 s the card waits on the host's kernel
+    launches in every mode, so ``fast`` is no faster than ``high`` there
+    and flips more tokens (PERF.md).
     """
     device = codec.quantizer.layers[0].codebook.device
     wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
-    enc = codec.encoder
-    lat = encode_in_mode(enc, wav[:, None, :], mode,
-                         front=lambda x: bigcodec.encode_front(enc, x),
-                         tail=lambda y: bigcodec.encode_tail(enc, y))
+    lat = encode_in_mode(codec.encoder, wav[:, None, :], mode)
     with full_fp32(), torch.no_grad():
         _, codes, _ = quantize(codec, lat)
     return codes

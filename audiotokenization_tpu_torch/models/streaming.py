@@ -1,8 +1,10 @@
-"""Streaming tokenization and synthesis for causal BigCodec configs.
+"""Streaming tokenization and synthesis for causal codecs.
 
-Counterpart of ``audiotokenization_tpu/models/streaming.py`` (the BigCodec
-half: ``StreamingTokenizer``, ``StreamingSynthesizer``, ``stream_decode``).
-A ``step`` takes one chunk and emits its tokens (or samples) with the same
+Counterpart of ``audiotokenization_tpu/models/streaming.py``: for causal
+BigCodec configs ``StreamingTokenizer`` and ``StreamingSynthesizer``, for
+causal Conformer configs ``StreamingConformerTokenizer`` and
+``StreamingConformerSynthesizer``, and ``stream_decode`` for either. A
+``step`` takes one chunk and emits its tokens (or samples) with the same
 values as the offline ``tokenize`` (or ``decode``) of the whole stream.
 
 The tokenizer carries between steps:
@@ -24,10 +26,26 @@ with the stream's true end, where the filters replicate-pad as offline.
 The window's true edges go through ``parallel/sp.py::_SPAA``. A stream is
 at most 2**28 samples (``_NO_END``, the "no right edge yet" bound).
 
+The Conformer is incremental but in two places, both carried: causal
+attention keeps per-layer K/V caches (``max_seq_len + delay_frames``
+rows), and the conv module's causal depthwise conv a (k - 1)-frame ring of
+GLU outputs. Its STFT front looks (win - P - hop) samples ahead (P = (win
+- hop) / 2), so the tokenizer runs ``delay_frames`` = ceil((win - P -
+hop) / hop) frames behind (2 at configs/conformer.yaml) and ``flush``
+drains them; the synthesizer carries the overlap-add numerator and the
+window envelope and runs P samples behind. Attention reads only the cache
+rows written so far (the JAX package attends all rows, the later ones
+masked). A query whose rows are all masked (the tokenizer's warm-up
+frames) averages the values (``ops/transformer.py``), so every state
+stays finite. The caches are written in place (copying them would move
+0.8 GB a step at 8 streams of configs/conformer.yaml), so a Conformer
+state is single-use: a step from a state that was already stepped raises
+``ValueError`` (``KVCaches.pos``) instead of reading a later step's rows.
+
 Every step runs in fp32 with TF32 off and without gradients, and makes one
 launch of K1 (the VQ) on the card. A causal unit is not K2's
-(``models/bigcodec.py``), so the streaming paths launch no K2. The
-Conformer's streaming classes are ROADMAP Queue 1 item 13.
+(``models/bigcodec.py``), and the Conformer has none, so the streaming
+paths launch no K2.
 """
 from __future__ import annotations
 
@@ -36,21 +54,18 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..ops.conv import conv1d, get_weight, linear, pointwise
 from ..ops.lstm import res_lstm_streaming
+from ..ops.stft import hann_window, overlap_add, stft
+from ..ops.transformer import attend, conv_module, feed_forward, masked_bias, qkv_heads, rms_norm
 from ..parallel.sp import _AA_REACH, _SPAA
 from . import bigcodec
 from .codec import (Codec, apply_fc_post_a, codes_to_emb, full_fp32, quantize,
                     resolve_device)
+from .conformer import encode_features, encode_output, head_spectrum
 
 _NO_END = 2 ** 28    # mid-stream bound in samples: the right edge is not here yet
 _NO_END_F = 2 ** 20  # the same in frames, for the synthesizer
-
-
-def _refuse_conformer(part):
-    if part.type != "bigcodec":
-        raise NotImplementedError(
-            f"no streaming path for the {part.type!r} family yet: the Conformer's "
-            "streaming classes come with ROADMAP Queue 1 item 13")
 
 
 class StreamState(NamedTuple):
@@ -101,10 +116,10 @@ class StreamingTokenizer:
     def __init__(self, codec: Codec, *, chunk_samples: int, device="cuda"):
         self.device = resolve_device(device)
         e = codec.cfg.model.codec_encoder
-        _refuse_conformer(e)
-        if not e.causal or e.rnn_bidirectional:
+        if e.type != "bigcodec" or not e.causal or e.rnn_bidirectional:
             raise ValueError("streaming requires a causal unidirectional bigcodec "
-                             "encoder config")
+                             "encoder config (a causal Conformer streams through "
+                             "StreamingConformerTokenizer)")
         self.codec, self.cfg = codec, codec.cfg
         self.hop = math.prod(e.up_ratios)
         if chunk_samples % self.hop != 0:
@@ -230,15 +245,17 @@ class StreamingSynthesizer:
     reverse of ``StreamingTokenizer``, equal to offline ``decode`` to fp32
     rounding. It carries the conv_in lookback latents, the ResLSTM's (h, c)
     and the last ``post`` post-LSTM frames, ``post`` covering the upsampling
-    stack's left receptive field (accumulated per block below)."""
+    stack's left receptive field (accumulated per block below). Any step
+    may take another frame count than ``chunk_frames`` (the size of
+    ``flush``'s steps)."""
 
     def __init__(self, codec: Codec, *, chunk_frames: int, device="cuda"):
         self.device = resolve_device(device)
         d = codec.cfg.model.codec_decoder
-        _refuse_conformer(d)
-        if not d.causal or d.rnn_bidirectional:
+        if d.type != "bigcodec" or not d.causal or d.rnn_bidirectional:
             raise ValueError("streaming synthesis requires a causal unidirectional "
-                             "bigcodec decoder config")
+                             "bigcodec decoder config (a causal Conformer streams through "
+                             "StreamingConformerSynthesizer)")
         self.codec, self.cfg = codec, codec.cfg
         self.chunk_frames = chunk_frames
         self.hop = math.prod(d.up_ratios)
@@ -264,6 +281,7 @@ class StreamingSynthesizer:
             self.delay_frames = rf + 1
         else:
             self.delay_frames = 0
+        self.delay_samples = self.delay_frames * self.hop
 
     def init_state(self, batch_size: int = 1) -> SynthState:
         d = self.cfg.model.codec_decoder
@@ -278,17 +296,17 @@ class StreamingSynthesizer:
             front_tail=zeros(batch_size, ch, self.delay_frames))
 
     def step(self, state: SynthState, codes, end: int = _NO_END_F):
-        """codes (Nq, B, chunk_frames) int -> (wav (B, chunk_frames · hop),
-        new state). Anti-aliased, the samples are those of the span
-        ``delay_frames`` earlier; ``end``: the stream's true length in
-        frames once known (``flush``)."""
+        """codes (Nq, B, n) int -> (wav (B, n · hop), new state).
+        Anti-aliased, the samples are those of the span ``delay_frames``
+        earlier; ``end``: the stream's true length in frames once known
+        (``flush``)."""
         codes = torch.as_tensor(codes, device=self.device)
         with torch.no_grad(), full_fp32():
             return self._step(state, codes, end)
 
     def _step(self, state: SynthState, codes, end: int):
         dec = self.codec.decoder
-        F_ = self.chunk_frames
+        F_ = codes.shape[-1]
         D = self.delay_frames
         emb = apply_fc_post_a(self.codec, codes_to_emb(self.codec, codes.permute(1, 2, 0)))
         window = torch.cat([state.latent_tail, emb], dim=2)
@@ -359,29 +377,294 @@ class StreamingSynthesizer:
         return torch.cat(outs, dim=1)[:, :self.delay_frames * self.hop], state
 
 
+def _conformer_layer_step(p, x, kv, carry, *, n_head: int, pos_row: int, cos, sin, bias,
+                          keep, conv_first: bool):
+    """One causal Conformer layer over a chunk x (B, n, C) of frames whose
+    first sits at cache row ``pos_row``. ``kv``: the layer's (k, v) caches
+    (B, L, H, D), written in place at rows [pos_row, pos_row + n);
+    attention reads rows [0, pos_row + n) under ``bias`` (``_cache_bias``).
+    ``carry``: the (B, C, k - 1) ring of earlier GLU outputs. ``keep``: (B, n) False on
+    warm-up frames, zeroed before the ring so that the depthwise conv reads
+    the offline zero padding (None: all kept). ``conv_first``: the
+    encoder's order (conv, ffn1, attn, ffn2), else the decoder's (attn,
+    ffn1, conv, ffn2). Returns (x, new carry)."""
+    B, n, C = x.shape
+    hi = pos_row + n
+    w, b = get_weight(p.conv.dw), p.conv.dw.b
+    rings = []
+
+    def depthwise(y):  # causal through the ring: no padding
+        window = torch.cat([carry, y], dim=2)
+        rings.append(window[:, :, -carry.shape[2]:])
+        return conv1d(window, w, b, groups=C)
+
+    def conv(x):
+        return x + conv_module(rms_norm(x, p.conv_norm), p.conv, depthwise, keep)
+
+    def attn(x):
+        q, k, v = qkv_heads(rms_norm(x, p.attn_norm), p.attn, cos, sin, n_head)
+        kv[0][:, pos_row:pos_row + n] = k
+        kv[1][:, pos_row:pos_row + n] = v
+        out = attend(q, kv[0][:, :hi], kv[1][:, :hi], bias)
+        return x + linear(out.reshape(B, n, C), p.attn.out)
+
+    x = conv(x) if conv_first else attn(x)
+    x = x + feed_forward(rms_norm(x, p.ffn1_norm), p.ffn1)
+    x = attn(x) if conv_first else conv(x)
+    return x + feed_forward(rms_norm(x, p.ffn2_norm), p.ffn2), rings[0]
+
+
+def _cache_bias(n: int, *, pos_row: int, min_row: int, device):
+    """(n, pos_row + n) additive mask: query j (cache row pos_row + j) sees
+    rows [min_row, pos_row + j]."""
+    rows = torch.arange(pos_row + n, device=device)
+    qrow = pos_row + torch.arange(n, device=device)
+    return masked_bias((rows[None, :] >= min_row) & (rows[None, :] <= qrow[:, None]),
+                       torch.float32)
+
+
+def _conformer_streaming_part(part, name: str, chunk_attr: str):
+    if part.type != f"conformer_{name}" or not part.causal:
+        raise ValueError(f"streaming the Conformer requires a causal conformer_{name} "
+                         f"{chunk_attr} config")
+    if part.ffn_type != "dense":
+        raise NotImplementedError(f"no streaming path for the Conformer's ffn_type "
+                                  f"{part.ffn_type!r}: its routing is chunk-global "
+                                  "(ROADMAP Queue 1 item 13)")
+    if part.n_fft != part.window_size:
+        raise NotImplementedError("streaming the Conformer assumes n_fft == window_size "
+                                  "(every reference Conformer config)")
+
+
+class KVCaches(list):
+    """Per-layer (k, v) caches of one stream, each (B, L, H, D), written in
+    place by every step; ``pos`` is the ``pos`` of the one state that may
+    step them next."""
+
+    def __init__(self, layers):
+        super().__init__(layers)
+        self.pos = 0
+
+    def claim(self, pos: int, new_pos: int):
+        """Hand the caches from the state at ``pos`` to the one at
+        ``new_pos``; ``ValueError`` if that state was already stepped."""
+        if pos != self.pos:
+            raise ValueError(f"this stream state (at {pos}) was already stepped: its K/V "
+                             f"caches hold the step to {self.pos}; a Conformer stream state "
+                             "is single-use (step from the newest state, or init_state)")
+        self.pos = new_pos
+
+
+def _init_caches(part, batch_size: int, rows: int, device):
+    H, D = part.n_head, part.dim // part.n_head
+    zeros = lambda *s: torch.zeros(*s, device=device)  # noqa: E731
+    return (KVCaches((zeros(batch_size, rows, H, D), zeros(batch_size, rows, H, D))
+                     for _ in range(part.n_layers)),
+            [zeros(batch_size, part.dim, part.conv_kernel_size - 1) for _ in range(part.n_layers)])
+
+
+class ConformerStreamState(NamedTuple):
+    sample_tail: torch.Tensor   # (B, tail) raw samples before the next chunk
+    kv_cache: KVCaches          # per layer (k, v), each (B, L, H, D)
+    conv_carry: Any             # per layer (B, dim, k - 1) GLU outputs
+    pos: int = 0                # samples consumed so far
+
+
+class StreamingConformerTokenizer:
+    """Chunk-by-chunk tokenizer for a ``causal: true`` Conformer ``codec`` on
+    ``device`` (the card unless ``device="cpu"``; raises without one). Each
+    step emits the tokens of the chunk's frames ``delay_frames`` earlier
+    (the stream's first ``delay_frames`` tokens are warm-up to discard);
+    ``flush`` drains the last ``delay_frames`` with the stream's end, where
+    the windows read the offline zero padding. A stream holds at most
+    ``max_seq_len`` frames (the RoPE table); a step past them raises. A
+    state is single-use (module docstring): step from the newest."""
+
+    def __init__(self, codec: Codec, *, chunk_samples: int, device="cuda"):
+        self.device = resolve_device(device)
+        e = codec.cfg.model.codec_encoder
+        _conformer_streaming_part(e, "stft", "encoder")
+        self.codec, self.cfg = codec, codec.cfg
+        self.hop, self.win = e.hop_length, e.window_size
+        if chunk_samples % self.hop != 0:
+            raise ValueError(f"chunk_samples must be a multiple of hop {self.hop}")
+        self.chunk = chunk_samples
+        P = (self.win - self.hop) // 2
+        self.delay_frames = max(0, -(-(self.win - P - self.hop) // self.hop))
+        # the oldest emitted frame's window starts inside the kept samples
+        self.tail = self.delay_frames * self.hop + P
+        self.rows = e.max_seq_len + self.delay_frames  # cache row = frame + delay_frames
+
+    def init_state(self, batch_size: int = 1) -> ConformerStreamState:
+        kv, carry = _init_caches(self.cfg.model.codec_encoder, batch_size, self.rows,
+                                 self.device)
+        return ConformerStreamState(
+            sample_tail=torch.zeros(batch_size, self.tail, device=self.device),
+            kv_cache=kv, conv_carry=carry, pos=0)
+
+    def step(self, state: ConformerStreamState, chunk):
+        """chunk (B, S), S a multiple of hop -> (codes (Nq, B, S / hop), new
+        state): the tokens of the frames ``delay_frames`` before the chunk's."""
+        chunk = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
+        max_frames = self.cfg.model.codec_encoder.max_seq_len
+        if (state.pos + chunk.shape[1]) // self.hop > max_frames:
+            raise ValueError(f"stream exceeds max_seq_len={max_frames} frames (the RoPE "
+                             "table); restart with init_state or raise max_seq_len")
+        with torch.no_grad(), full_fp32():
+            return self._step(state, chunk)
+
+    def _step(self, state: ConformerStreamState, chunk):
+        enc = self.codec.encoder
+        bb = enc.backbone
+        B, S = chunk.shape
+        n = S // self.hop
+        buf = torch.cat([state.sample_tail, chunk], dim=1)
+        # frame f0 + j's window starts at buf[j · hop]
+        spec = stft(buf, n_fft=enc.n_fft, hop_length=self.hop, win_length=self.win,
+                    center=False)[:, :, :n]
+        h = encode_features(enc, spec)
+        pos_row = state.pos // self.hop
+        f0 = pos_row - self.delay_frames
+        ar = torch.arange(n, device=self.device)
+        keep = (ar >= -f0)[None, :].expand(B, n)
+        cos, sin = bb.rope(self.device)
+        fpos = (f0 + ar).clamp(0, bb.max_seq_len - 1)  # warm-up frames: any row
+        cos, sin = cos[fpos], sin[fpos]
+        bias = _cache_bias(n, pos_row=pos_row, min_row=self.delay_frames, device=self.device)
+        state.kv_cache.claim(state.pos, state.pos + S)
+        carry = []
+        for layer, kv, c in zip(bb.layers, state.kv_cache, state.conv_carry):
+            h, c = _conformer_layer_step(layer, h, kv, c, n_head=bb.n_head, pos_row=pos_row,
+                                         cos=cos, sin=sin, bias=bias, keep=keep,
+                                         conv_first=True)
+            carry.append(c)
+        _, codes, _ = quantize(self.codec, encode_output(enc, h))
+        return codes, ConformerStreamState(sample_tail=buf[:, -self.tail:],
+                                           kv_cache=state.kv_cache, conv_carry=carry,
+                                           pos=state.pos + S)
+
+    def flush(self, state: ConformerStreamState):
+        """Drain the last ``delay_frames`` tokens, the stream having ended:
+        (codes (Nq, B, delay_frames), new state)."""
+        B = state.sample_tail.shape[0]
+        zeros = torch.zeros(B, self.delay_frames * self.hop, device=self.device)
+        with torch.no_grad(), full_fp32():
+            return self._step(state, zeros)
+
+
+class ConformerSynthState(NamedTuple):
+    kv_cache: KVCaches          # per layer (k, v), each (B, L, H, D)
+    conv_carry: Any             # per layer (B, dim, k - 1)
+    ola_tail: torch.Tensor      # (B, win - hop) overlap-add numerator carried
+    env_tail: torch.Tensor      # (win - hop,) window envelope carried
+    pos: int = 0                # frames decoded so far
+
+
+class StreamingConformerSynthesizer:
+    """Chunk-by-chunk decoder for a ``causal: true`` Conformer ``codec`` on
+    ``device`` (the card unless ``device="cpu"``; raises without one),
+    equal to offline ``decode`` to fp32 rounding. Frames map one to one to
+    tokens; only the ISTFT looks ahead, P = (win - hop) / 2 samples, so a
+    step emits the ``chunk_frames`` · hop samples that end
+    ``delay_samples`` = P before its frames' end (the stream's first P
+    samples are the region offline trims), and ``flush`` drains the last
+    P with the stream's final envelope. Any step may take another frame
+    count. Feed it tokens without the tokenizer's warm-up: it is causal,
+    and warm-up frames would reach every later frame. A state is
+    single-use (module docstring): step from the newest."""
+
+    def __init__(self, codec: Codec, *, chunk_frames: int, device="cuda"):
+        self.device = resolve_device(device)
+        d = codec.cfg.model.codec_decoder
+        _conformer_streaming_part(d, "istft", "decoder")
+        self.codec, self.cfg = codec, codec.cfg
+        self.hop, self.win = d.hop_length, d.window_size
+        self.chunk_frames = chunk_frames
+        self.delay_samples = (self.win - self.hop) // 2
+        self.rows = d.max_seq_len
+
+    def init_state(self, batch_size: int = 1) -> ConformerSynthState:
+        kv, carry = _init_caches(self.cfg.model.codec_decoder, batch_size, self.rows,
+                                 self.device)
+        return ConformerSynthState(
+            kv_cache=kv, conv_carry=carry,
+            ola_tail=torch.zeros(batch_size, self.win - self.hop, device=self.device),
+            env_tail=torch.zeros(self.win - self.hop, device=self.device), pos=0)
+
+    def step(self, state: ConformerSynthState, codes):
+        """codes (Nq, B, n) -> (wav (B, n · hop), new state): the samples
+        ``delay_samples`` before the end of these frames."""
+        codes = torch.as_tensor(codes, device=self.device)
+        if state.pos + codes.shape[-1] > self.rows:
+            raise ValueError(f"stream exceeds max_seq_len={self.rows} frames (the RoPE "
+                             "table); restart with init_state or raise max_seq_len")
+        with torch.no_grad(), full_fp32():
+            return self._step(state, codes)
+
+    def _step(self, state: ConformerSynthState, codes):
+        dec = self.codec.decoder
+        bb = dec.backbone
+        n = codes.shape[-1]
+        hop, win = self.hop, self.win
+        h = apply_fc_post_a(self.codec, codes_to_emb(self.codec, codes.permute(1, 2, 0)))
+        h = h.transpose(1, 2)
+        if hasattr(dec, "input_proj"):
+            h = pointwise(h, dec.input_proj)
+        f0 = state.pos
+        cos, sin = (t[f0:f0 + n] for t in bb.rope(self.device))
+        bias = _cache_bias(n, pos_row=f0, min_row=0, device=self.device)
+        state.kv_cache.claim(f0, f0 + n)
+        carry = []
+        for layer, kv, c in zip(bb.layers, state.kv_cache, state.conv_carry):
+            h, c = _conformer_layer_step(layer, h, kv, c, n_head=bb.n_head, pos_row=f0,
+                                         cos=cos, sin=sin, bias=bias,
+                                         keep=None, conv_first=False)
+            carry.append(c)
+        spec = head_spectrum(dec, rms_norm(h, dec.norm))  # (B, n, F)
+        window = hann_window(win, device=self.device)
+        frames = torch.fft.irfft(spec, n=win, dim=2) * window
+        buf = overlap_add(frames, hop)  # (B, n · hop + win - hop)
+        buf[:, :win - hop] += state.ola_tail
+        env = overlap_add((window * window).expand(1, n, -1), hop)[0]
+        env[:win - hop] += state.env_tail
+        # samples [0, n · hop) have every frame they take
+        wav = buf[:, :n * hop] / env[:n * hop].clamp_min(torch.finfo(torch.float32).tiny)
+        return wav, ConformerSynthState(kv_cache=state.kv_cache, conv_carry=carry,
+                                        ola_tail=buf[:, n * hop:], env_tail=env[n * hop:],
+                                        pos=state.pos + n)
+
+    def flush(self, state: ConformerSynthState):
+        """Drain the ``delay_samples`` still in the latency window, the code
+        stream having ended: its envelope is now the offline end-of-signal
+        one. (wav (B, delay_samples), state)."""
+        tiny = torch.finfo(torch.float32).tiny
+        P = self.delay_samples
+        return state.ola_tail[:, :P] / state.env_tail[None, :P].clamp_min(tiny), state
+
+
 def stream_decode(codec: Codec, codes, *, chunk_frames: int, device="cuda"):
     """A whole code stream (Nq, B, T_frames) decoded chunk by chunk through
-    ``StreamingSynthesizer`` -> (B, T_frames · hop) on ``device``, equal to
-    offline ``decode`` to fp32 rounding. It discards the leading latency
-    samples and drains the tail with ``flush``; a trailing partial chunk
-    gets a synthesizer of its own size, to which the state carries over.
-    What ``cli/synthesize.py --streaming`` runs, and the template of a live
-    loop (feed chunks as they arrive)."""
-    _refuse_conformer(codec.cfg.model.codec_decoder)
-    syn = StreamingSynthesizer(codec, chunk_frames=chunk_frames, device=device)
+    the streaming synthesizer of the codec's family -> (B, T_frames · hop)
+    on ``device``, equal to offline ``decode`` to fp32 rounding. It
+    discards the leading latency samples and drains the tail with
+    ``flush``; a trailing partial chunk is one shorter step. What
+    ``cli/synthesize.py --streaming`` runs, and the template of a live loop
+    (feed chunks as they arrive)."""
+    syn = SYNTHESIZERS[codec.cfg.model.codec_decoder.type](codec, chunk_frames=chunk_frames,
+                                                          device=device)
     codes = torch.as_tensor(codes, device=syn.device)
     T, B = codes.shape[-1], codes.shape[1]
     state = syn.init_state(batch_size=B)
-    pieces, t = [], 0
-    while t + chunk_frames <= T:
+    pieces = []
+    for t in range(0, T, chunk_frames):
         wav, state = syn.step(state, codes[:, :, t:t + chunk_frames])
-        pieces.append(wav)
-        t += chunk_frames
-    if t < T:
-        syn = StreamingSynthesizer(codec, chunk_frames=T - t, device=device)
-        wav, state = syn.step(state, codes[:, :, t:])
         pieces.append(wav)
     tail, _ = syn.flush(state)
     pieces.append(tail)
-    skip = syn.delay_frames * syn.hop
+    skip = syn.delay_samples
     return torch.cat(pieces, dim=1)[:, skip:skip + T * syn.hop]
+
+
+# the streaming synthesizer of each decoder ``type``
+SYNTHESIZERS = {"bigcodec": StreamingSynthesizer,
+                "conformer_istft": StreamingConformerSynthesizer}

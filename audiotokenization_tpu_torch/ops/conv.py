@@ -100,6 +100,17 @@ class WeightNormed(nn.Module):
         return get_weight(self)
 
 
+class Weights(nn.Module):
+    """The parameters of one conv or linear layer without weight norm: ``w``
+    and, with a bias, ``b``, named as in the JAX tree."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor | None = None):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        if b is not None:
+            self.b = nn.Parameter(b)
+
+
 def fold_weight_norm(params):
     """Fold every ``{v, g}`` pair into one weight ``w``.
 
@@ -128,6 +139,12 @@ def fold_weight_norm(params):
 def linear(x, p):
     """F.linear with the effective weight of ``p``: x @ w.T + b, w (out, in)."""
     return F.linear(x, get_weight(p), _tensors(p).get("b"))
+
+
+def pointwise(x, p):
+    """A k=1 conv (weight (out, in, 1)) over time-major x (..., in): the
+    linear layer it is."""
+    return F.linear(x, get_weight(p)[..., 0], _tensors(p).get("b"))
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +187,21 @@ def init_wn_conv2d(in_ch: int, out_ch: int, kernel: tuple[int, int], *,
     w = kaiming_uniform_fan_in((out_ch, in_ch, *kernel), generator=generator)
     b = uniform_fan_in_bias((out_ch,), in_ch * kernel[0] * kernel[1], generator=generator)
     return WeightNormed(w, b)
+
+
+def init_conv1d(in_ch: int, out_ch: int, k: int, *, groups: int = 1,
+                generator: torch.Generator) -> Weights:
+    """torch's default Conv1d: kaiming-uniform w (out, in / groups, k) and
+    bias, fan-in (in / groups)·k."""
+    w = kaiming_uniform_fan_in((out_ch, in_ch // groups, k), generator=generator)
+    return Weights(w, uniform_fan_in_bias((out_ch,), in_ch // groups * k, generator=generator))
+
+
+def init_linear(in_f: int, out_f: int, *, bias: bool = True,
+                generator: torch.Generator) -> Weights:
+    """torch's default Linear: kaiming-uniform w (out, in), bias fan-in in."""
+    w = kaiming_uniform_fan_in((out_f, in_f), generator=generator)
+    return Weights(w, uniform_fan_in_bias((out_f,), in_f, generator=generator) if bias else None)
 
 
 def init_wn_linear(in_f: int, out_f: int, *,

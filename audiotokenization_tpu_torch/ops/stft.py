@@ -9,7 +9,14 @@ spectrogram discriminator use).
 - ``mel_filterbank``: slaney scale and slaney area norm (torchaudio's
   ``melscale_fbanks(norm='slaney', mel_scale='slaney')``), built in numpy.
 - ``mel_spectrogram``: the magnitude mel of ``torchaudio.transforms.
-  MelSpectrogram(center=True, norm/scale slaney)``, for the eval images.
+  MelSpectrogram(center=True, norm/scale slaney)``, for the eval images;
+- ``stft_same_constant_pad``: the Conformer encoder's front, center=False
+  after (win - hop) / 2 zeros on both sides;
+- ``istft_same``: the Conformer decoder's "same"-padded inverse: irfft,
+  window, overlap-add, division by the overlap-added squared window (the
+  NOLA envelope) and a (win - hop) / 2 trim on both sides. ``torch.istft``
+  cannot trim this way nor take a per-sample envelope, so the overlap-add
+  is written out (``overlap_add``).
 
 The spectral math runs in fp32 whatever the input dtype.
 """
@@ -120,3 +127,54 @@ def mel_spectrogram(x, *, sample_rate: int, n_fft: int, hop_length: int, n_mels:
     if power != 1.0:
         mag = mag ** power
     return torch.einsum("mf,...ft->...mt", fb, mag)
+
+
+def stft_same_constant_pad(x, *, n_fft: int, hop_length: int, win_length: int, window=None):
+    """x (B, T) -> complex64 (B, n_fft // 2 + 1, frames): (win - hop) / 2
+    zeros on both sides, then center=False, so T / hop frames for T a
+    multiple of hop."""
+    pad = (win_length - hop_length) // 2
+    return stft(F.pad(x.float(), (pad, pad)), n_fft=n_fft, hop_length=hop_length,
+                win_length=win_length, window=window, center=False)
+
+
+def overlap_add(frames, hop: int):
+    """frames (B, T, W) -> (B, (T - 1) · hop + W): out[t · hop + j] +=
+    frames[t, j]. Each frame splits into ceil(W / hop) hop-long strips;
+    strip s of frame t lands on hop block t + s, added strip by strip in
+    the JAX package's order."""
+    B, T, W = frames.shape
+    n = -(-W // hop)
+    strips = F.pad(frames, (0, n * hop - W)).reshape(B, T, n, hop)
+    out = frames.new_zeros(B, T + n - 1, hop)
+    for s in range(n):
+        out[:, s:s + T] += strips[:, :, s]
+    return out.reshape(B, -1)[:, :(T - 1) * hop + W]
+
+
+def istft_same(spec, *, n_fft: int, hop_length: int, win_length: int, window=None,
+               valid=None):
+    """complex (B, F, T) -> (B, T · hop): the "same"-padded ISTFT.
+
+    ``valid``: optional (B,) frame counts of a ragged batch. Each sample's
+    frames past its count add nothing, and its envelope sums its own
+    frames only, clamped at float32's smallest normal where it is 0; so
+    each sample equals its own ISTFT, and positions past its end are
+    meaningless."""
+    if window is None:
+        window = hann_window(win_length, device=spec.device)
+    pad = (win_length - hop_length) // 2
+    T = spec.shape[-1]
+    frames = (torch.fft.irfft(spec, n=n_fft, dim=1) * window[None, :, None]).transpose(1, 2)
+    w2 = window * window
+    if valid is None:
+        out = overlap_add(frames, hop_length)
+        env = overlap_add(w2.expand(1, T, -1), hop_length)
+    else:
+        keep = (torch.arange(T, device=spec.device)[None, :]
+                < valid[:, None]).to(frames.dtype)[:, :, None]
+        out = overlap_add(frames * keep, hop_length)
+        env = overlap_add(w2 * keep, hop_length).clamp_min(torch.finfo(frames.dtype).tiny)
+    if pad > 0:
+        out, env = out[:, pad:-pad], env[:, pad:-pad]
+    return out / env

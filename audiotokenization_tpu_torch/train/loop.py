@@ -19,7 +19,6 @@ in the JAX loop, a resumed run restarts the loader at its first epoch.
 from __future__ import annotations
 
 import contextlib
-import math
 import time
 from pathlib import Path
 from typing import Optional
@@ -27,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, codec_hop
 from ..models import codec as C
 from ..utils.logging import MetricsLogger
 from . import metrics as M
@@ -188,7 +187,7 @@ def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None
     from ..utils.ragged import make_ragged_codec
 
     sr = cfg.dataset.sample_rate
-    hop = math.prod(cfg.model.codec_decoder.up_ratios)
+    hop = codec_hop(cfg)
     quantum = max(sr // hop * hop, hop)
     ragged = make_ragged_codec(cfg, device=_device_of(gen))
     agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": []}

@@ -110,6 +110,32 @@ Phases, each fatal on failure:
     under 1e-5, away from the file's edges (the first ceil(RF / hop) frames
     and the last, where the windows' zero context reaches the ResLSTM's
     start state and conv_out; counted apart) (the antialias_chunked line).
+14. configs/conformer.yaml (the Conformer STFT/ISTFT codec) at full width
+    and depth, random weights from seed 0 (conformer_path): (a) conformant
+    tokenize of 32 x 1 s and codes_to_emb -> decode, K1 1 / K2 0 a tokenize
+    and no launch a decode, the first 2 requests against the CPU as in phase
+    5 (waveform errors in the first and last 300 samples reported apart),
+    audio-s/s and a torch.profiler split (attention, GEMMs, FFTs, K1, idle);
+    (b) one long input, 4 x 30 s (2400 frames), against the CPU on its
+    first request, timed; the first attention's output at (32, 80) and
+    (4, 2400) frames (the latter on six inputs, seeds 2-7) against the
+    same attention in float64, fatal unless the conformant one (plain fp32
+    ops, no SDPA) is within 4x the CPU fp32 one's error, the high and fast
+    modes' errors and SDPA backends printed; (c) the high and fast modes over 4 batches: launches,
+    audio-s/s, flips and codes used against conformant, latent error fatal
+    over 1e-2 (high) / 5e-2 (fast); balanced must raise; (d)
+    make_ragged_tokenizer on 8 files of 0.7-6.3 s against each file's own
+    tokenize, make_ragged_codec (fp32_strict) on 4 of them against each
+    file's decode of its tokens, K1 1 / K2 0 a call; (e) cli.extract_indices
+    at batch 16 on 32 files from a Conformer run dir: ceil(len / 200)
+    frames, K1 1 / K2 0 per device batch, 4 files against the CPU; then
+    cli.synthesize of 4 x 1 s against the CPU; (f) causal on both sides:
+    8 streams x 10 s through StreamingConformerTokenizer in 3200-sample
+    steps (K1 1 / K2 0 a step, tokens equal to the offline causal tokens
+    but at top-2 gaps under 1e-5, p50/p99 step latency and the real-time
+    factor); stream_decode at 16 frames against the offline decode, the
+    synthesizer's step latency; cli.synthesize --streaming 16 on
+    a causal run dir (the conformer line).
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -148,6 +174,7 @@ TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 LOOP_STEPS, LOOP_RESUME_STEPS = 8, 10  # the loop's first run, then its resume
 LOOP_TEST_SECONDS = (1.3, 1.8, 2.2, 2.7)
 HOP = 200                  # Config()'s samples per frame
+EDGE = 300                 # samples at each end of a waveform reported apart (ISTFT's trim)
 EXTRACT_FILES, EXTRACT_BATCH, EXACT_FILES = 64, 16, 4  # the extraction phase's corpus
 
 
@@ -447,7 +474,9 @@ def hold_against_cpu(name, codec, wav_np, codes, out, n_ref: int = 2):
     flips = (tok_gpu != codes_cpu).reshape(-1)
     near = gap < GAP
     lat_err = (lat_gpu - lat_cpu).abs().max().item()
-    wav_err = (out[:n_ref].cpu() - wav_cpu).abs().max().item()
+    wav_d = (out[:n_ref].cpu() - wav_cpu).abs()
+    wav_err = wav_d.max().item()
+    edge_err = max(wav_d[..., :EDGE].max().item(), wav_d[..., -EDGE:].max().item())
     print(f"{name} vs CPU ({n_ref} requests): {int(flips.sum())} of {flips.numel()} "
           f"tokens differ, {int(near.sum())} frames under the {GAP:g} top-2 gap; "
           f"max |dlatent| = {lat_err:.3g}, max |dwav| = {wav_err:.3g}")
@@ -458,6 +487,7 @@ def hold_against_cpu(name, codec, wav_np, codes, out, n_ref: int = 2):
     if not torch.allclose(out[:n_ref].cpu(), wav_cpu, rtol=WAV_RTOL, atol=WAV_ATOL):
         fail(f"{name}: waveforms outside rtol 1e-3 / atol 2e-5 of the CPU")
     return {"max_abs_err_latent": lat_err, "max_abs_err_wav": wav_err,
+            "max_abs_err_wav_edges": edge_err,
             "token_flips": int(flips.sum()), "near_ties": int(near.sum())}
 
 
@@ -1190,8 +1220,8 @@ def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def write_extract_corpus(root: Path):
-    """EXTRACT_FILES seeded WAVs in the LibriSpeech layout under
+def write_extract_corpus(root: Path, count: int = EXTRACT_FILES):
+    """``count`` seeded WAVs in the LibriSpeech layout under
     ``root/LibriSpeech/test-clean/<spk>/<chap>/<spk>-<chap>-<nnnn>.wav``, of
     0.7-6.3 s, none a whole number of hops long (also after resampling),
     every eighth at 24 kHz; the first EXACT_FILES of them again under
@@ -1203,7 +1233,7 @@ def write_extract_corpus(root: Path):
     from audiotokenization_tpu_torch.data.audio_io import write_wav
 
     rng = np.random.RandomState(7)
-    seconds = rng.permutation(np.linspace(0.7, 6.3, EXTRACT_FILES))
+    seconds = rng.permutation(np.linspace(0.7, 6.3, count))
     files = []
     for i, sec in enumerate(seconds):
         rate = 24000 if i % 8 == 3 else SR
@@ -1469,6 +1499,18 @@ REPO_CONFIGS = {
                               "rnn_num_layers": 2, "up_ratios": [5, 5, 4, 2],
                               "codebook_size": 8192, "codebook_dim": 8, "antialias": True}},
         "train": {"max_steps": 1200000, "precision": "bf16"}},
+    "conformer.yaml": {
+        "name": "conformer-stft-istft-vq8192-80hz",
+        "model": {
+            "codec_encoder": {"type": "conformer_stft", "hop_length": 200, "n_fft": 800,
+                              "window_size": 800, "dim": 256, "n_layers": 6, "n_head": 8,
+                              "rope_theta": 500, "out_channels": 256},
+            "codec_decoder": {"type": "conformer_istft", "in_channels": 256, "hop_length": 200,
+                              "n_fft": 800, "window_size": 800, "dim": 256, "n_layers": 6,
+                              "n_head": 8, "rope_theta": 500, "codebook_size": 8192,
+                              "codebook_dim": 8}},
+        "train": {"max_steps": 180000, "precision": "bf16"},
+        "dataset": {"sample_rate": 16000, "pad_to_multiple_of": 200}},
 }
 # the tests' tiny codec (hop 10, 64 codes), causal and anti-aliased
 TINY_CAUSAL_AA = {"model": {
@@ -1593,7 +1635,6 @@ def modes_path(cfg, codec, card):
     latents' max |d| / max |latent|."""
     import numpy as np
     import torch
-    from audiotokenization_tpu_torch.models import bigcodec
     from audiotokenization_tpu_torch.models import codec as C
     from audiotokenization_tpu_torch.ops.lstm import res_lstm
     from audiotokenization_tpu_torch.ops.params import parameters_as
@@ -1605,9 +1646,7 @@ def modes_path(cfg, codec, card):
             .cuda() for i in range(MODE_BATCHES)]
 
     def latents(wav, mode):
-        return C.encode_in_mode(enc, wav[:, None, :], mode,
-                                front=lambda x: bigcodec.encode_front(enc, x),
-                                tail=lambda y: bigcodec.encode_tail(enc, y))
+        return C.encode_in_mode(enc, wav[:, None, :], mode)
 
     lstm_in = torch.randn(B, enc.conv_out.weight().shape[1], SR // HOP).cuda()
 
@@ -1666,8 +1705,10 @@ def offline_vs_cpu(name, cfg, codec):
     import torch
     from audiotokenization_tpu_torch.models import codec as C
 
+    from audiotokenization_tpu_torch.config import codec_hop
+
     nq = cfg.model.codec_decoder.vq_num_quantizers
-    hop = int(np.prod(cfg.model.codec_encoder.up_ratios))
+    hop = codec_hop(cfg)
     wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
     wav = torch.from_numpy(wav_np).cuda()
     codes, tok_launches = counted(lambda: C.tokenize(codec, wav))
@@ -1686,16 +1727,17 @@ def offline_vs_cpu(name, cfg, codec):
                                       "residual_unit": tok_launches[1]}, **cmp}
 
 
-def stream_tokens(codec, streams, chunk, *, timed: bool):
-    """``streams`` (S, T) through a StreamingTokenizer in ``chunk``-sample
-    steps, flushed: (codes (Nq, S, T / hop) with the latency's warm-up
-    dropped, per-step (K1, K2) launches, per-step latencies or None)."""
+def stream_tokens(codec, streams, chunk, *, timed: bool, tok=None):
+    """``streams`` (S, T) through a StreamingTokenizer (or ``tok``) in
+    ``chunk``-sample steps, flushed: (codes (Nq, S, T / hop) with the
+    latency's warm-up dropped, per-step (K1, K2) launches, per-step
+    latencies or None)."""
     import torch
     from audiotokenization_tpu_torch.models.streaming import StreamingTokenizer
     from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
     from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
 
-    tok = StreamingTokenizer(codec, chunk_samples=chunk)
+    tok = tok or StreamingTokenizer(codec, chunk_samples=chunk)
     state = [tok.init_state(batch_size=streams.shape[0])]
     launches = []
 
@@ -1715,12 +1757,12 @@ def stream_tokens(codec, streams, chunk, *, timed: bool):
     return codes, launches, times
 
 
-def synth_steps(codec, codes, chunk_frames):
-    """Per-step latencies of a StreamingSynthesizer over whole chunks of
-    ``codes`` (Nq, S, T)."""
+def synth_steps(codec, codes, chunk_frames, syn=None):
+    """Per-step latencies of a StreamingSynthesizer (or ``syn``) over whole
+    chunks of ``codes`` (Nq, S, T)."""
     from audiotokenization_tpu_torch.models.streaming import StreamingSynthesizer
 
-    syn = StreamingSynthesizer(codec, chunk_frames=chunk_frames)
+    syn = syn or StreamingSynthesizer(codec, chunk_frames=chunk_frames)
     state = [syn.init_state(batch_size=codes.shape[1])]
 
     def one(c):
@@ -1903,6 +1945,483 @@ def aa_chunked_path(cfg, codec, card):
     return result
 
 
+
+# ---------------------------------------------------------------------------
+# 14: the Conformer STFT/ISTFT codec (configs/conformer.yaml)
+# ---------------------------------------------------------------------------
+
+LONG_REQUESTS, LONG_SECONDS = 4, 30   # one long input: 2400 frames a request
+LONG_ATTENTION_SEEDS = (3, 4, 5, 6, 7)  # further inputs of the long attention check (it: seed 2)
+CONFORMER_RAGGED_FILES, CONFORMER_CODEC_FILES, CONFORMER_EXTRACT_FILES = 8, 4, 32
+CONFORMER_MODE_LAT_REL = {"high": 1e-2, "fast": 5e-2}  # max |dlatent| / max |latent|
+
+
+def sdpa_dispatched(q, k, v) -> str:
+    """The route ``attend`` takes for q, k, v (B, T, H, D) under the current
+    TF32 flag: ``plain_fp32`` (no SDPA), or the backend SDPA's dispatcher
+    picks."""
+    import torch
+    from audiotokenization_tpu_torch.ops.transformer import plain_fp32
+    from torch.nn.attention import SDPBackend
+
+    if plain_fp32(q.dtype):
+        return "plain_fp32"
+    names = {int(b): name.lower() for name, b in SDPBackend.__members__.items()}
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    return names[int(torch._fused_sdp_choice(q, k, v))]
+
+
+def sdpa_backend(kernels) -> str:
+    """The attention route a call's device kernel names show (``plain``:
+    softmax and GEMM kernels, no fused attention)."""
+    names = " ".join(kernels).lower()
+    for key, backend in (("flash_fwd", "flash"), ("fmha", "efficient"), ("cudnn", "cudnn"),
+                         ("softmax", "plain")):
+        if key in names:
+            return backend
+    return "unknown"
+
+
+def conformer_split(fn):
+    """torch.profiler split of one call of ``fn``: device ms of the
+    attention (SDPA, or the plain path's bmm and softmax ops), of every
+    GEMM kernel (attention's matmuls included), of the FFTs and of K1; the
+    device's busy time, the idle share of the call's wall time, the kernel
+    count and the attention route seen."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    captures = []
+    for _ in range(3):  # the profiler has dropped kernel records on that card: keep the fullest
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        captures.append(([(e.name, e.time_range.start, e.time_range.end) for e in events
+                          if e.device_type == DeviceType.CUDA], events, ms))
+    dev, events, wall_ms = max(captures, key=lambda c: len(c[0]))
+
+    def busy(*keys):
+        return _busy_ms([e for e in dev if any(k in e[0].lower() for k in keys)
+                         and "fmha" not in e[0].lower()])
+
+    # SDPA, or the plain path's attention GEMMs (bmm: the linears are mm) and softmax
+    attn_us = sum(e.device_time_total for e in events if e.device_type == DeviceType.CPU
+                  and e.name in ("aten::scaled_dot_product_attention", "aten::bmm",
+                                 "aten::softmax"))
+    total = _busy_ms(dev)
+    return {"wall_ms": wall_ms, "device_busy_ms": total, "attention_ms": attn_us / 1e3,
+            "gemm_ms": busy("gemm", "gemv", "xmma"), "fft_ms": busy("fft"),
+            "k1_ms": busy("vq_argmin"), "idle_share": 1 - total / wall_ms,
+            "device_kernels": len(dev), "attention_route": sdpa_backend(n for n, _, _ in dev)}
+
+
+def conformer_attention_inputs(codec, wav):
+    """q, k, v (B, T, H, D) of the encoder's first attention over ``wav``
+    (B, samples) on the card: its STFT features, RMS-normed, projected and
+    rotated."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.conformer import encode_features
+    from audiotokenization_tpu_torch.ops.stft import stft_same_constant_pad
+    from audiotokenization_tpu_torch.ops.transformer import qkv_heads, rms_norm
+
+    enc = codec.encoder
+    bb, layer = enc.backbone, enc.backbone.layers[0]
+    with C.full_fp32(), torch.no_grad():
+        spec = stft_same_constant_pad(wav, n_fft=enc.n_fft, hop_length=enc.hop_length,
+                                      win_length=enc.window_size)
+        h = encode_features(enc, spec)
+        cos, sin = (t[:h.shape[1]] for t in bb.rope(h.device))
+        return qkv_heads(rms_norm(h, layer.attn_norm), layer.attn, cos, sin, bb.n_head)
+
+
+def hold_attention(name, q, k, v, *, modes: bool = True):
+    """The conformant attention (fp32, TF32 off) on the card against the same
+    attention in float64: fatal unless its error is at most F64_RATIO x the
+    CPU fp32 one's. Reports beside it the error of one fp32 GEMM over the
+    whole key axis (SDPA's math backend, which the conformant path ran
+    before its value sum was blocked) and, with ``modes``, the high mode's
+    (TF32 allowed) and fast mode's (bf16) errors, the route each takes
+    (``sdpa_dispatched``) and the kernels each runs (the profiler's,
+    captured again while it reports none)."""
+    import torch
+    import torch.nn.functional as F
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.transformer import attend
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def run(scope, dtype=torch.float32):
+        with scope(), torch.no_grad():
+            return attend(q.to(dtype), k.to(dtype), v.to(dtype))
+
+    with torch.no_grad():
+        ref64 = attend(q.double(), k.double(), v.double())
+        with C.full_fp32():
+            plain = attend(q.cpu(), k.cpu(), v.cpu())
+        with C.full_fp32(), sdpa_kernel(SDPBackend.MATH):
+            chain = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+    err_plain = (plain.double() - ref64.cpu()).abs().max().item()
+    err_chain = (chain.transpose(1, 2).double() - ref64).abs().max().item()
+    out = {"shape": list(q.shape), "plain_fp32_cpu_err_vs_f64": err_plain,
+           "one_gemm_chain": {"err_vs_f64": err_chain, "ratio_to_plain": err_chain / err_plain}}
+    for mode, scope, dtype in (("conformant", C.full_fp32, torch.float32),
+                               ("high", C.allow_tf32, torch.float32),
+                               ("fast", C.full_fp32, torch.bfloat16))[:3 if modes else 1]:
+        err = (run(scope, dtype).double() - ref64).abs().max().item()
+        with scope():
+            backend = sdpa_dispatched(q.to(dtype), k.to(dtype), v.to(dtype))
+        out[mode] = {"err_vs_f64": err, "ratio_to_plain": err / err_plain, "backend": backend}
+        if modes:
+            kernels = sorted({n for n, _, _ in complete_events(lambda: run(scope, dtype), 1)[0]})
+            out[mode].update(kernels_show=sdpa_backend(kernels),
+                             kernels=[n[:80] for n in kernels])
+    others = "".join(f", {m} {out[m]['err_vs_f64']:.3g} ({out[m]['backend']})"
+                     for m in ("high", "fast") if m in out)
+    print(f"{name}: attention {tuple(q.shape)} vs float64: conformant "
+          f"{out['conformant']['err_vs_f64']:.3g} ({out['conformant']['ratio_to_plain']:.3g}x, "
+          f"{out['conformant']['backend']}), CPU fp32 {err_plain:.3g}, one GEMM chain "
+          f"{err_chain:.3g} ({err_chain / err_plain:.3g}x){others}")
+    if not out["conformant"]["err_vs_f64"] <= F64_RATIO * err_plain:
+        fail(f"{name}: the conformant attention is {out['conformant']['ratio_to_plain']:.3g}x "
+             f"as far from float64 as the CPU's fp32 one (limit {F64_RATIO:g}x)")
+    return out
+
+
+def conformer_modes(codec, wavs, ref_codes, ref_lat):
+    """high and fast on B x 1 s (the offline batches): launches, audio-s/s,
+    flips and codes used against conformant, latent error (fatal over
+    CONFORMER_MODE_LAT_REL), the SDPA backend; balanced must raise."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    rows = {}
+    for mode, limit in CONFORMER_MODE_LAT_REL.items():
+        codes, launches = counted(lambda: C.tokenize(codec, wavs[0], mode=mode))
+        expect_launches(f"conformer tokenize mode {mode}", launches, (1, 0))
+        all_codes = [codes] + [C.tokenize(codec, w, mode=mode) for w in wavs[1:]]
+        flips = sum(int((c != r).sum()) for c, r in zip(all_codes, ref_codes))
+        used = int(torch.unique(torch.cat([c.reshape(-1) for c in all_codes])).numel())
+        lat_rel = max(((C.encode_in_mode(codec.encoder, w[:, None], mode) - r).abs().max()
+                       / r.abs().max()).item() for w, r in zip(wavs, ref_lat))
+        if not lat_rel <= limit:
+            fail(f"conformer tokenize mode {mode}: max |dlatent| / max |latent| = {lat_rel:.3g} "
+                 f"against conformant, over {limit:g}")
+        ms = cuda_ms(lambda: C.tokenize(codec, wavs[0], mode=mode), iters=5)
+        tokens = sum(c.numel() for c in all_codes)
+        rows[mode] = {"ms": ms, "audio_s_per_s": B / (ms / 1e3),
+                      "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]},
+                      "token_flips": flips, "tokens": tokens, "flip_rate": flips / tokens,
+                      "codes_used": used, "max_abs_dlatent_over_max_latent": lat_rel,
+                      "profile": conformer_split(lambda: C.tokenize(codec, wavs[0], mode=mode))}
+    try:
+        C.tokenize(codec, wavs[0], mode="balanced")
+    except ValueError as e:
+        rows["balanced"] = f"raises ValueError: {e}"
+    else:
+        fail("conformer tokenize mode balanced did not raise")
+    return rows
+
+
+def conformer_ragged(cfg, codec):
+    """make_ragged_tokenizer on CONFORMER_RAGGED_FILES files of 0.7-6.3 s in
+    one call against each file's own tokenize, and make_ragged_codec
+    (fp32_strict) on the first CONFORMER_CODEC_FILES against each file's
+    own decode of its tokens."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.config import codec_hop
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.utils.ragged import make_ragged_codec, make_ragged_tokenizer
+
+    hop = codec_hop(cfg)
+    lens = [int(sec * SR) // hop * hop for sec in np.linspace(0.7, 6.3, CONFORMER_RAGGED_FILES)]
+    rng = np.random.RandomState(6)
+    batch = np.zeros((len(lens), max(lens)), np.float32)
+    for i, n in enumerate(lens):
+        batch[i, :n] = rng.randn(n) * 0.1
+    batch, lengths = torch.from_numpy(batch).cuda(), torch.tensor(lens).cuda()
+    run = make_ragged_tokenizer(cfg)
+    codes, launches = counted(lambda: run(codec, batch, lengths))
+    expect_launches("conformer ragged tokenizer", launches, (1, 0))
+    own, gaps = [], []
+    differ = near = 0
+    for i, n in enumerate(lens):
+        with C.full_fp32(), torch.no_grad():
+            lat = C.encode(codec, batch[i:i + 1, :n])
+            own.append(C.quantize(codec, lat)[1])
+        gaps.append(frame_gaps(codec, lat))
+        f, m = hold_codes(f"conformer ragged row {i} vs its own tokenize",
+                          codes[:, i:i + 1, :n // hop], own[i], gaps[i])
+        differ, near = differ + f, near + m
+    ms = cuda_ms(lambda: run(codec, batch, lengths), iters=5)
+    audio_s = sum(lens) / SR
+    out = {"tokenizer": {"files": len(lens), "audio_seconds": audio_s, "ms": ms,
+                         "audio_s_per_s": audio_s / (ms / 1e3),
+                         "launches_per_call": {"vq_argmin": launches[0],
+                                               "residual_unit": launches[1]},
+                         "tokens_differ": differ, "near_ties": near}}
+
+    strict = copy.deepcopy(cfg)
+    strict.train.precision = "fp32_strict"
+    rc = make_ragged_codec(strict)
+    k = CONFORMER_CODEC_FILES
+    (recon, rcodes), launches = counted(lambda: rc(codec, batch[:k], lengths[:k]))
+    expect_launches("conformer ragged codec", launches, (1, 0))
+    err = 0.0
+    for i, n in enumerate(lens[:k]):
+        hold_codes(f"conformer ragged codec row {i} vs its own tokenize",
+                   rcodes[:, i:i + 1, :n // hop], own[i], gaps[i])
+        want = offline_decode(codec, rcodes[:, i:i + 1, :n // hop])[:, 0]
+        err = max(err, hold_wav(f"conformer ragged codec row {i} vs its own decode",
+                                recon[i:i + 1, :n], want))
+    out["codec"] = {"files": k, "launches_per_call": {"vq_argmin": launches[0],
+                                                      "residual_unit": launches[1]},
+                    "max_abs_err_wav_vs_per_file": err}
+    return out
+
+
+def conformer_extract(cfg):
+    """cli.extract_indices at batch EXTRACT_BATCH on CONFORMER_EXTRACT_FILES
+    files from a Conformer run dir (ceil(len / hop) int16 frames, K1 once
+    and K2 never per device batch, 4 files against the CPU's tokens), then
+    cli.synthesize of 4 x 1 s against the CPU's decode of its tokens."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices, synthesize
+    from audiotokenization_tpu_torch.config import codec_hop, save_config
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.utils import ragged
+
+    hop = codec_hop(cfg)
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_conformer_", dir=build_dir))
+    ledger = None
+    try:
+        files = write_extract_corpus(root, CONFORMER_EXTRACT_FILES)
+        run = root / "run"  # a generator-only port run dir (scripts/jax_run_to_torch.py's form)
+        (run / "ckpt" / "0").mkdir(parents=True)
+        save_config(cfg, run / "config.json")
+        gen = C.init_codec(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        torch.save({"step": 0, "gen": gen.state_dict()}, run / "ckpt" / "0" / "state.pt")
+        codec_cpu = extract_indices.load_model(run, device="cpu")[1]
+        frames_of = {p.stem: ceil_div(ceil_div(n * SR, rate), hop) for p, rate, n in files}
+        ledger = LaunchLedger({"batch": (ragged, "make_ragged_tokenizer")})
+        counts, launches = counted(lambda: extract_indices.main(
+            ["--dataset_root", str(root), "--save_path", str(run), "--dataset_path",
+             "LibriSpeech", "--ext_audio", ".wav", "--subsets", "test-clean",
+             "--batch_size", str(EXTRACT_BATCH)]))
+        ledger.close()
+        calls = ledger.calls["batch"]
+        if counts["saved"] != CONFORMER_EXTRACT_FILES or counts["errors"]:
+            fail(f"conformer extraction saved {counts['saved']} files with "
+                 f"{counts['errors']} errors")
+        if len(calls) != counts["device_batches"] or set(calls) != {(1, 0)} \
+                or tuple(launches) != (len(calls), 0):
+            fail(f"conformer extraction launches {launches} over batches {calls}: expected "
+                 "K1 1 and K2 0 per device batch and nowhere else")
+        npys = {p.stem: p for p in (run / "extracted_indices").rglob("*.npy")}
+        for stem, p in npys.items():
+            a = np.load(p)
+            if a.dtype != np.int16 or a.shape != (frames_of[stem],):
+                fail(f"conformer extraction {p.name}: {a.dtype} {a.shape}, expected int16 "
+                     f"({frames_of[stem]},) = ceil(len / {hop})")
+        if len(npys) != CONFORMER_EXTRACT_FILES:
+            fail(f"conformer extraction wrote {len(npys)} .npy files")
+        by_len = sorted(files, key=lambda f: f[2] * SR // f[1])
+        at24 = [f for f in files if f[1] != SR][:1]
+        flips = near = 0
+        for path, _, _ in dict.fromkeys([by_len[0], by_len[-1], *at24, files[5]]):
+            want, gap = cpu_tokens(codec_cpu, path, hop_pad=True)
+            f, m = hold_tokens(f"conformer extraction of {path.name}", np.load(npys[path.stem]),
+                               want, gap)
+            flips, near = flips + f, near + m
+
+        wav, launches = counted(lambda: synthesize.main(
+            ["--codec_ckpt", str(run), "--random", "--seconds", "1", "--num_samples", "4",
+             "--out_dir", str(root / "synth")]))
+        expect_launches("conformer synthesize", launches, (0, 0))
+        tokens = torch.from_numpy(np.load(root / "synth" / "tokens.npy").astype(np.int64))
+        want = synthesize.decode_tokens(codec_cpu, tokens).numpy()
+        wav_err = float(np.abs(wav - want).max())
+        if wav.shape != (4, SR) or not np.allclose(wav, want, rtol=WAV_RTOL, atol=WAV_ATOL):
+            fail(f"conformer synthesize: waveform {wav.shape} outside rtol 1e-3 / atol 2e-5 of "
+                 f"the CPU's decode (max |d| {wav_err:.3g})")
+        return {"files": CONFORMER_EXTRACT_FILES, "batch_size": EXTRACT_BATCH,
+                **{k: counts[k] for k in ("audio_seconds", "audio_s_per_s", "wall_seconds",
+                                          "device_batches", "read_s", "resample_s", "device_s",
+                                          "save_s")},
+                "launches_per_batch": {"vq_argmin": calls[0][0], "residual_unit": calls[0][1]},
+                "tokens_differ_vs_cpu": flips, "near_ties": near,
+                "synthesize_max_abs_err_wav_vs_cpu": wav_err}
+    finally:
+        if ledger is not None:
+            ledger.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def conformer_streaming(cfg):
+    """configs/conformer.yaml with causal on both sides (module docstring,
+    phase 14 f)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices, synthesize
+    from audiotokenization_tpu_torch.config import codec_hop, save_config
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.streaming import (StreamingConformerSynthesizer,
+                                                              StreamingConformerTokenizer,
+                                                              stream_decode)
+
+    causal = copy.deepcopy(cfg)
+    causal.model.codec_encoder.causal = causal.model.codec_decoder.causal = True
+    codec = seeded_codec(causal)
+    hop = codec_hop(causal)
+    streams = torch.from_numpy((np.random.RandomState(1).randn(STREAMS, STREAM_SECONDS * SR)
+                                * 0.1).astype(np.float32)).cuda()
+    with C.full_fp32(), torch.no_grad():
+        lat = C.encode(codec, streams)
+        _, off_codes, _ = C.quantize(codec, lat)
+    gap = frame_gaps(codec, lat)
+    tok = StreamingConformerTokenizer(codec, chunk_samples=STREAM_CHUNK)
+    stream_tokens(codec, streams[:, :2 * STREAM_CHUNK], STREAM_CHUNK, timed=False, tok=tok)
+    codes, launches, times = stream_tokens(codec, streams, STREAM_CHUNK, timed=True, tok=tok)
+    if set(launches) != {(1, 0)}:
+        fail(f"conformer streaming tokenizer: per-step launches {sorted(set(launches))}, "
+             "expected K1 1 and K2 0 each step")
+    differ, near = hold_codes("conformer streaming tokenizer vs offline", codes, off_codes, gap)
+    lat_s = percentiles(times)
+    out = {"stream_tokenize": {
+        "streams": STREAMS, "seconds": STREAM_SECONDS, "chunk_samples": STREAM_CHUNK,
+        "delay_frames": tok.delay_frames, **lat_s,
+        "real_time_factor": STREAM_CHUNK / SR / (lat_s["p50_ms"] / 1e3),
+        "launches_per_step": {"vq_argmin": launches[0][0], "residual_unit": launches[0][1]},
+        "tokens_differ": differ, "near_ties": near}}
+
+    want = offline_decode(codec, off_codes)[:, 0]
+    got, launches = counted(lambda: stream_decode(codec, off_codes,
+                                                  chunk_frames=SYNTH_CHUNK_FRAMES))
+    expect_launches("conformer stream_decode", launches, (0, 0))
+    err = hold_wav("conformer stream_decode vs offline decode", got, want)
+    syn = StreamingConformerSynthesizer(codec, chunk_frames=SYNTH_CHUNK_FRAMES)
+    lat_d = percentiles(synth_steps(codec, off_codes, SYNTH_CHUNK_FRAMES, syn=syn))
+    out["stream_decode"] = {
+        "chunk_frames": SYNTH_CHUNK_FRAMES, **lat_d,
+        "real_time_factor": SYNTH_CHUNK_FRAMES * hop / SR / (lat_d["p50_ms"] / 1e3)}
+    out["stream_decode_max_abs_err_wav_vs_offline"] = err
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_conformer_causal_", dir=build_dir))
+    try:
+        (root / "run" / "ckpt" / "0").mkdir(parents=True)
+        save_config(causal, root / "run" / "config.json")
+        gen = C.init_codec(causal, generator=torch.Generator().manual_seed(0), device="cpu")
+        torch.save({"step": 0, "gen": gen.state_dict()}, root / "run" / "ckpt" / "0" / "state.pt")
+        wav, launches = counted(lambda: synthesize.main(
+            ["--codec_ckpt", str(root / "run"), "--random", "--seconds", "1", "--num_samples",
+             "4", "--streaming", str(SYNTH_CHUNK_FRAMES), "--out_dir", str(root / "synth")]))
+        expect_launches("conformer synthesize --streaming", launches, (0, 0))
+        tokens = torch.from_numpy(np.load(root / "synth" / "tokens.npy").astype(np.int64)).cuda()
+        loaded = extract_indices.load_model(root / "run")[1]
+        out["synthesize_streaming_max_abs_err_wav_vs_decode"] = hold_wav(
+            "conformer synthesize --streaming vs decode", torch.from_numpy(wav).cuda(),
+            synthesize.decode_tokens(loaded, tokens))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def conformer_path(card):
+    """14. configs/conformer.yaml at full width and depth, random weights from
+    seed 0 (module docstring). Prints the conformer line."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.conformer import conformer_encode
+
+    cfg = repo_config("conformer.yaml")
+    codec = seeded_codec(cfg)
+    result = {"offline": offline_vs_cpu("conformer", cfg, codec)}
+    wavs = [torch.from_numpy((np.random.RandomState(i).randn(B, SR) * 0.1).astype(np.float32))
+            .cuda() for i in range(MODE_BATCHES)]
+    ref_codes = [C.tokenize(codec, w) for w in wavs]
+    codes = ref_codes[0]
+    result["profile"] = {"tokenize": conformer_split(lambda: C.tokenize(codec, wavs[0])),
+                         "decode": conformer_split(lambda: offline_decode(codec, codes))}
+    print(json.dumps({"conformer_profile": result["profile"]}))
+
+    # one long input against the CPU, and the attention against float64
+    long_np = (np.random.RandomState(2).randn(LONG_REQUESTS, LONG_SECONDS * SR) * 0.1
+               ).astype(np.float32)
+    long = torch.from_numpy(long_np).cuda()
+    long_codes, launches = counted(lambda: C.tokenize(codec, long))
+    expect_launches("conformer long tokenize", launches, (1, 0))
+    long_out = offline_decode(codec, long_codes)
+    if not torch.isfinite(long_out).all() or tuple(long_out.shape) != (
+            LONG_REQUESTS, 1, LONG_SECONDS * SR):
+        fail(f"conformer long decode: {tuple(long_out.shape)}, finite "
+             f"{bool(torch.isfinite(long_out).all())}")
+    cmp = hold_against_cpu("conformer long input", codec, long_np, long_codes, long_out, n_ref=1)
+    tok_ms = cuda_ms(lambda: C.tokenize(codec, long), iters=3, warmup=1)
+    dec_ms = cuda_ms(lambda: offline_decode(codec, long_codes), iters=3, warmup=1)
+    audio_s = LONG_REQUESTS * LONG_SECONDS
+    result["long"] = {"requests": LONG_REQUESTS, "seconds": LONG_SECONDS,
+                      "frames": int(long_codes.shape[-1]), "tokenize_ms": tok_ms,
+                      "tokenize_audio_s_per_s": audio_s / (tok_ms / 1e3), "decode_ms": dec_ms,
+                      "decode_audio_s_per_s": audio_s / (dec_ms / 1e3),
+                      "launches_per_tokenize": {"vq_argmin": launches[0],
+                                                "residual_unit": launches[1]}, **cmp}
+    result["attention_vs_float64"] = {
+        "main": hold_attention("conformer main path", *conformer_attention_inputs(codec, wavs[0])),
+        "long": hold_attention("conformer long input", *conformer_attention_inputs(codec, long))}
+    del long, long_out
+    for seed in LONG_ATTENTION_SEEDS:  # more inputs at the long shape: the margin to the rule
+        other = torch.from_numpy((np.random.RandomState(seed).randn(
+            LONG_REQUESTS, LONG_SECONDS * SR) * 0.1).astype(np.float32)).cuda()
+        result["attention_vs_float64"][f"long_seed{seed}"] = hold_attention(
+            f"conformer long input, seed {seed}", *conformer_attention_inputs(codec, other),
+            modes=False)
+
+    with C.full_fp32(), torch.no_grad():
+        ref_lat = [conformer_encode(codec.encoder, w[:, None]) for w in wavs]
+    result["modes"] = conformer_modes(codec, wavs, ref_codes, ref_lat)
+    result["ragged"] = conformer_ragged(cfg, codec)
+    result["extract"] = conformer_extract(cfg)
+    del codec
+    result.update(conformer_streaming(cfg))
+    off = result["offline"]
+    line = {
+        "tokenize_audio_s_per_s": off["tokenize_audio_s_per_s"],
+        "decode_audio_s_per_s": off["decode_audio_s_per_s"],
+        "attention_route": {m: result["attention_vs_float64"]["main"][m]["backend"]
+                         for m in ("conformant", "high", "fast")},
+        "stream_p50_ms": result["stream_tokenize"]["p50_ms"],
+        "stream_p99_ms": result["stream_tokenize"]["p99_ms"],
+        "launches": {
+            "tokenize": off["launches_per_tokenize"],
+            "long_tokenize": result["long"]["launches_per_tokenize"],
+            "modes_per_call": {m: result["modes"][m]["launches"] for m in CONFORMER_MODE_LAT_REL},
+            "ragged_per_call": result["ragged"]["tokenizer"]["launches_per_call"],
+            "ragged_codec_per_call": result["ragged"]["codec"]["launches_per_call"],
+            "extract_per_batch": result["extract"]["launches_per_batch"],
+            "stream_per_step": result["stream_tokenize"]["launches_per_step"]},
+        **result}
+    print(json.dumps({"conformer": line, "card": card}))
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1960,6 +2479,7 @@ def main() -> int:
     causal = causal_path(card)
     aa = aa_chunked_path(cfg, flagship, card)
     del flagship
+    conformer = conformer_path(card)
 
     def path_launches(kernel):
         """A kernel's launches per call on the paths of phases 10-13."""
@@ -1970,7 +2490,11 @@ def main() -> int:
             "stream_per_step": causal["stream_tokenize"]["launches_per_step"][kernel],
             "antialias_per_tokenize": aa["antialias_offline"]["launches_per_tokenize"][kernel],
             "antialias_ragged_per_call": aa["antialias_ragged"]["launches_per_call"][kernel],
-            "chunked_per_window": aa["chunked"]["launches_per_window"][kernel]}
+            "chunked_per_window": aa["chunked"]["launches_per_window"][kernel],
+            "conformer": {
+                path: ({m: r[kernel] for m, r in got.items()} if path == "modes_per_call"
+                       else got[kernel])
+                for path, got in conformer["launches"].items()}}
 
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
     # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
@@ -2026,7 +2550,9 @@ def main() -> int:
                               "batch); path_launches: per call of each tokenize mode, per "
                               "device batch of --mode fast extraction, per causal or "
                               "anti-aliased tokenize and ragged call, per streaming step, per "
-                              "chunked window"}))
+                              "chunked window; conformer: per Conformer tokenize (32 x 1 s and "
+                              "4 x 30 s), tokenize mode call, ragged tokenizer and codec call, "
+                              "extraction device batch and streaming step"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

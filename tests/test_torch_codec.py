@@ -138,7 +138,8 @@ def test_tokenize_modes_not_ported_raise():
 
 def test_variants_not_ported_raise():
     """Causal and anti-aliased codecs build now, their units off K2 (the
-    route is fixed by the config); other codec families still raise."""
+    route is fixed by the config); the Conformer builds, but not with its
+    MoE feed-forward."""
     cfg = PC.Config()
     cfg.model.codec_encoder.causal = True
     cfg.model.codec_decoder.antialias = True
@@ -147,7 +148,8 @@ def test_variants_not_ported_raise():
     assert not any(u.fused for b in codec.decoder.blocks for u in b.units)
     cfg = PC.Config()
     cfg.model.codec_encoder.type = "conformer_stft"
-    with pytest.raises(NotImplementedError):
+    cfg.model.codec_encoder.ffn_type = "moe"
+    with pytest.raises(NotImplementedError, match="item 13"):
         TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
 
 

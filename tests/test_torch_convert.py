@@ -223,7 +223,10 @@ def test_reference_config_to_config_matches_jax():
 def test_unported_reference_checkpoints_raise(jax_tree):
     jcfg, tree = jax_tree
     sd = reference_state_dict(tree, jcfg)
-    for edit, item in ((lambda c: setattr(c.model.codec_encoder, "type", "conformer_stft"), "13"),
+    def moe_conformer(c):
+        c.model.codec_encoder.type, c.model.codec_encoder.ffn_type = "conformer_stft", "moe"
+
+    for edit, item in ((moe_conformer, "13"),
                        (lambda c: setattr(c.model.codec_decoder, "fsq", True), "14"),
                        (lambda c: setattr(c.train, "use_semantic", True), "15")):
         cfg = PC.from_dict(dataclasses.asdict(jcfg))

@@ -41,4 +41,5 @@ def test_scan_sees_the_port():
             "checkpoint.py", "dataset.py", "audio_io.py", "flac.py", "resample.py",
             "logging.py", "ragged.py", "train.py", "pesq_p862.py", "pesq_tables.py",
             "convert.py", "extract_indices.py", "inference_full.py", "synthesize.py",
-            "streaming.py", "alias_free.py", "chunked.py", "sp.py"} <= names
+            "streaming.py", "alias_free.py", "chunked.py", "sp.py", "transformer.py",
+            "conformer.py"} <= names

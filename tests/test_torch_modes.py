@@ -26,7 +26,6 @@ from audiotokenization_tpu_torch import config as PC
 from audiotokenization_tpu_torch.cli import extract_indices
 from audiotokenization_tpu_torch.convert import params_from_jax
 from audiotokenization_tpu_torch.data.audio_io import read_audio, write_wav
-from audiotokenization_tpu_torch.models import bigcodec
 from audiotokenization_tpu_torch.models import codec as TC
 from audiotokenization_tpu_torch.train.checkpoint import CheckpointManager
 from audiotokenization_tpu_torch.train.state import init_train_state
@@ -74,9 +73,7 @@ def _jax_latents(params, jcfg, wav, mode):
 
 def _port_latents(codec, wav, mode):
     enc = codec.encoder
-    return TC.encode_in_mode(enc, torch.from_numpy(wav)[:, None, :], mode,
-                             front=lambda x: bigcodec.encode_front(enc, x),
-                             tail=lambda y: bigcodec.encode_tail(enc, y)).numpy()
+    return TC.encode_in_mode(enc, torch.from_numpy(wav)[:, None, :], mode).numpy()
 
 
 def _hold_tokens(got, want, mode):

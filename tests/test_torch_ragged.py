@@ -117,13 +117,16 @@ def test_ragged_codec_zero_length_row_and_int16(tiny_codec):
 
 
 @pytest.mark.parametrize("change", [
-    ("codec_encoder", "type", "conformer_stft"), ("codec_decoder", "type", "conformer_istft"),
-    ("codec_decoder", "quantizer", "ema_vq"), ("codec_decoder", "quantizer", "lfq"),
-    ("codec_decoder", "quantizer", "fsq"), ("train", "use_semantic", True)],
-    ids=lambda c: f"{c[1]}={c[2]}")
+    # the Conformer's MoE feed-forward: expert capacity is batch-global
+    (("codec_encoder", "type", "conformer_stft"), ("codec_encoder", "ffn_type", "moe")),
+    (("codec_decoder", "type", "conformer_istft"), ("codec_decoder", "ffn_type", "moe")),
+    (("codec_decoder", "quantizer", "ema_vq"),), (("codec_decoder", "quantizer", "lfq"),),
+    (("codec_decoder", "quantizer", "fsq"),), (("train", "use_semantic", True),)],
+    ids=["encoder.ffn_type=moe", "decoder.ffn_type=moe", "quantizer=ema_vq", "quantizer=lfq",
+         "quantizer=fsq", "use_semantic=True"])
 def test_ragged_codec_refuses_unported_families(change):
     cfg = PC.Config()
-    group, field, value = change
-    setattr(cfg.train if group == "train" else getattr(cfg.model, group), field, value)
+    for group, field, value in change:
+        setattr(cfg.train if group == "train" else getattr(cfg.model, group), field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_ragged_codec(cfg, device="cpu")

@@ -10,7 +10,8 @@ the BigCodec cases of tests/test_streaming.py):
 - ``StreamingSynthesizer`` / ``stream_decode`` (a partial last chunk
   included) and the live round trip: waveforms against JAX's offline
   ``decode`` within rtol 1e-3 / atol 2e-5 (the repo's waveform tolerance);
-- non-causal configs raise; the Conformer raises ``NotImplementedError``;
+- non-causal configs raise, and the Conformer's streaming classes a
+  non-causal or MoE Conformer;
   ``flush`` is empty without anti-aliasing; the entry points default to
   the card;
 - ``tokenize_chunked`` equals JAX's, and the offline tokens away from the
@@ -37,7 +38,9 @@ from audiotokenization_tpu_torch import config as PC
 from audiotokenization_tpu_torch.cli import synthesize
 from audiotokenization_tpu_torch.convert import params_from_jax
 from audiotokenization_tpu_torch.models import codec as TC
-from audiotokenization_tpu_torch.models.streaming import (StreamingSynthesizer,
+from audiotokenization_tpu_torch.models.streaming import (StreamingConformerSynthesizer,
+                                                          StreamingConformerTokenizer,
+                                                          StreamingSynthesizer,
                                                           StreamingTokenizer, stream_decode)
 from audiotokenization_tpu_torch.ops import lstm as TL
 from audiotokenization_tpu_torch.train.checkpoint import CheckpointManager
@@ -206,6 +209,9 @@ def test_streaming_roundtrip_causal(plain):
 
 
 def test_streaming_rejects_noncausal_and_conformer(plain):
+    """Non-causal configs raise; the BigCodec classes refuse a Conformer,
+    and the Conformer's classes a non-causal Conformer (``ValueError``) and
+    its MoE feed-forward (``NotImplementedError``, item 13)."""
     _, _, codec = plain
     noncausal = TC.init_codec(PC.from_dict(dataclasses.asdict(tiny(causal=False))),
                               generator=torch.Generator().manual_seed(0), device="cpu")
@@ -219,8 +225,21 @@ def test_streaming_rejects_noncausal_and_conformer(plain):
     cfg.model.codec_encoder.type = "conformer_stft"
     cfg.model.codec_decoder.type = "conformer_istft"
     conformer = types.SimpleNamespace(cfg=cfg)
-    for make in (lambda: StreamingTokenizer(conformer, chunk_samples=200, device="cpu"),
-                 lambda: StreamingSynthesizer(conformer, chunk_frames=20, device="cpu"),
+    with pytest.raises(ValueError, match="StreamingConformerTokenizer"):
+        StreamingTokenizer(conformer, chunk_samples=200, device="cpu")
+    with pytest.raises(ValueError, match="StreamingConformerSynthesizer"):
+        StreamingSynthesizer(conformer, chunk_frames=20, device="cpu")
+    for part in (cfg.model.codec_encoder, cfg.model.codec_decoder):
+        part.causal = False
+    for make in (lambda: StreamingConformerTokenizer(conformer, chunk_samples=200, device="cpu"),
+                 lambda: StreamingConformerSynthesizer(conformer, chunk_frames=20, device="cpu"),
+                 lambda: stream_decode(conformer, np.zeros((1, 1, 4)), chunk_frames=2,
+                                       device="cpu")):
+        with pytest.raises(ValueError, match="causal"):
+            make()
+    for part in (cfg.model.codec_encoder, cfg.model.codec_decoder):
+        part.causal, part.ffn_type = True, "moe"
+    for make in (lambda: StreamingConformerTokenizer(conformer, chunk_samples=200, device="cpu"),
                  lambda: stream_decode(conformer, np.zeros((1, 1, 4)), chunk_frames=2,
                                        device="cpu")):
         with pytest.raises(NotImplementedError, match="item 13"):
