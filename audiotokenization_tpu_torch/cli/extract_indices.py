@@ -19,16 +19,19 @@ state.pt``; a JAX run dir converts into one with
 folded for inference.
 
 By default each file is zero-padded to a whole number of hops and goes
-through the ragged tokenizer (``utils/ragged.py``) in buckets of
-ceil(length / 1 s) seconds, ``--batch_size`` rows a device call; each
-file's tokens equal its own per-file ``tokenize``. PCM16-exact audio ships
-to the device as int16. ``--exact`` tokenizes each file alone at its raw
-length. ``--mode`` (conformant, high, balanced, fast; ``models/codec.py::
-encode_in_mode``) sets the encoder's precision on both paths; a mode the
-encoder lacks (the Conformer's ``balanced``) raises ``ValueError`` before
-any file is read. The frame count is the Conformer's ``hop_length`` or
-BigCodec's stride product (``config.codec_hop``). Sequence and tensor
-parallelism and the semantic targets raise ``NotImplementedError``.
+through the ragged tokenizer (``utils/ragged.py``) in buckets of ceil(length
+/ 1 s) seconds, ``--batch_size`` rows a device call; each file's tokens
+equal its own per-file ``tokenize``. PCM16-exact audio ships to the device
+as int16. ``--exact`` tokenizes each file alone at its raw length. A
+Conformer with ``ffn_type: moe`` takes the per-file route (each hop-padded
+file alone): its expert capacity is batch-global, so it has no exact ragged
+path (``utils/ragged.py``). ``--mode`` (conformant, high, balanced, fast;
+``models/codec.py::encode_in_mode``) sets the encoder's precision on both
+paths; a mode the encoder lacks (the Conformer's ``balanced``) raises
+``ValueError`` before any file is read. The frame count is the Conformer's
+``hop_length`` or BigCodec's stride product (``config.codec_hop``). Sequence
+and tensor parallelism and the semantic targets raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -155,7 +158,8 @@ def main(argv=None):
     # int16 is the reference's contract; larger codebooks would overflow it
     dtype = np.int16 if cfg.model.codec_decoder.codebook_size <= 32767 else np.int32
     C.check_mode(type(codec.encoder), args.mode)
-    ragged = None if args.exact else make_ragged_tokenizer(cfg, mode=args.mode, device=device)
+    per_file = args.exact or C.uses_moe(cfg)
+    ragged = None if per_file else make_ragged_tokenizer(cfg, mode=args.mode, device=device)
     quantum = max(args.sample_rate // hop * hop, hop)
     split = {"read_s": 0.0, "resample_s": 0.0, "device_s": 0.0, "save_s": 0.0}
     stats = {"saved": 0, "errors": 0, "device_batches": 0}

@@ -14,13 +14,15 @@ each, and ``codebook_usage.png``. The images need matplotlib and are
 skipped without it.
 
 ``--duration > 0`` crops every file to that many seconds and evaluates
-fixed-size batches through the training loop's eval step. ``--duration <= 0``
-evaluates whole files: with ``--batch_size`` above 1 they go through the
+fixed-size batches through the training loop's eval step. ``--duration <=
+0`` evaluates whole files: with ``--batch_size`` above 1 they go through the
 ragged codec (``utils/ragged.py``) in buckets of ceil(length / 1 s) seconds,
 SI-SNR and SI-SDR per file in one device call (``train/metrics.py::
-masked_si``); else one file a batch. STOI and PESQ run on the host, on the
-first 2 files of each batch. Semantic checkpoints (``--w2v_bert_path``) are
-not ported and raise ``NotImplementedError``.
+masked_si``); else, and for a Conformer with ``ffn_type: moe`` (no exact
+ragged path, ``utils/ragged.py``; a note says so), one file a batch. STOI
+and PESQ run on the host, on the first 2 files of each batch. Semantic
+checkpoints (``--w2v_bert_path``) are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -129,8 +131,14 @@ def _evaluate(args, out_dir: Path):
     loader = DataLoader(ds, batch_size=split.batch_size, shuffle=False, drop_last=False,
                         num_workers=8)
     # whole files in bucketed ragged batches: each file's tokens equal its own
-    # forward, waveforms to fp32 rounding
-    ragged = make_ragged_codec(cfg, device=device) if dur is None and args.batch_size > 1 else None
+    # forward, waveforms to fp32 rounding; a config without an exact ragged
+    # path (the MoE feed-forward) is evaluated one file a batch
+    ragged = None
+    if dur is None and args.batch_size > 1:
+        try:
+            ragged = make_ragged_codec(cfg, device=device)
+        except NotImplementedError as exc:
+            print(f"note: ragged full-length batching unavailable ({exc}); running batch-1")
 
     usage = Counter()
     agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": []}

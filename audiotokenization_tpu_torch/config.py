@@ -248,6 +248,19 @@ def codec_hop(cfg) -> int:
     return e.hop_length if e.type == "conformer_stft" else math.prod(e.up_ratios)
 
 
+def quantizer_kind(cfg) -> str:
+    """The codec's quantizer: ``fsq`` when ``fsq: true`` (the reference's
+    switch), else ``quantizer``."""
+    d = cfg.model.codec_decoder
+    return "fsq" if d.fsq else d.quantizer
+
+
+def num_codebooks(cfg) -> int:
+    """Codes per frame (the Nq of codes (Nq, B, Tf)): the factorized VQ's
+    ``vq_num_quantizers``, 1 for the single-codebook quantizers (FSQ)."""
+    return cfg.model.codec_decoder.vq_num_quantizers if quantizer_kind(cfg) == "fvq" else 1
+
+
 def _merge(obj, overlay: dict):
     """Recursively apply a dict overlay onto a dataclass instance."""
     for k, v in overlay.items():

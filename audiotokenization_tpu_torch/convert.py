@@ -22,8 +22,11 @@ state dict (``encoder.*``, ``decoder.*`` with the quantizer under
 for tensor, tolerant of the causal convs' inner ``.conv.``;
 ``load_reference_checkpoint`` finds and reads a reference run dir. Both
 codec families (BigCodec, and the Conformer STFT/ISTFT codec of the
-reference's config1) with the factorized VQ are ported: FSQ and semantic
-checkpoints raise ``NotImplementedError``.
+reference's config1) with the factorized VQ or FSQ are ported: the other
+quantizers and semantic checkpoints raise ``NotImplementedError``, and so
+does an MoE Conformer config, which the reference does not have (its JAX
+run dirs convert through ``params_from_jax``: the stacked (E, ...) expert
+leaves map key for key).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from .config import Config
+from .config import Config, quantizer_kind
 from .models.codec import Codec, resolve_device
 from .models.discriminators import Discriminator
 from .train.state import train_state
@@ -254,6 +257,17 @@ def convert_residual_vq(sd: Mapping[str, Any], *, num_quantizers: int = 1,
     return out
 
 
+def convert_fsq(sd: Mapping[str, Any], *, prefix: str = "quantizer.") -> Dict[str, torch.Tensor]:
+    """The reference's FSQ (lucidrains ``FiniteScalarQuantize``) -> the port's
+    ``FSQ`` keys: its Linear ``project_in`` / ``project_out``, or nothing
+    when the latent width equals the number of levels."""
+    v = _View(sd, prefix)
+    if not v.has("project_in.weight"):
+        return {}
+    return {**_under("project_in", _conv(v.sub("project_in"))),
+            **_under("project_out", _conv(v.sub("project_out")))}
+
+
 def split_lightning_state_dict(sd: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
     """A CodecLightningModule state dict split by its first name:
     ``encoder``, ``decoder``, ``discriminator``, ``fc_prior``, ..."""
@@ -270,13 +284,15 @@ def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, to
     groups = split_lightning_state_dict(sd)
     e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
     for part, name in ((e, "encoder"), (d, "decoder")):
-        if part.type != "bigcodec" and part.ffn_type != "dense":
-            raise NotImplementedError(f"converting the Conformer {name}'s ffn_type "
-                                      f"{part.ffn_type!r} is not ported yet "
-                                      "(ROADMAP Queue 1 item 13)")
-    if d.fsq or d.quantizer != "fvq":
-        raise NotImplementedError(f"converting the {'fsq' if d.fsq else d.quantizer!r} quantizer "
-                                  "is not ported yet (ROADMAP Queue 1 item 14)")
+        if part.type != "bigcodec" and part.ffn_type == "moe":
+            raise NotImplementedError(f"the reference's Conformer has dense FFNs only: a "
+                                      f"reference checkpoint has no {name} ffn_type 'moe' "
+                                      "(a JAX run dir of an MoE config converts through "
+                                      "params_from_jax)")
+    quantizer = quantizer_kind(cfg)
+    if quantizer not in ("fvq", "fsq"):
+        raise NotImplementedError(f"converting the {quantizer!r} quantizer is not ported yet "
+                                  "(ROADMAP Queue 1 item 14)")
     if "fc_prior" in groups or cfg.train.use_semantic:
         raise NotImplementedError("converting the semantic heads is not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
@@ -293,8 +309,11 @@ def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, to
             rnn_num_layers=d.rnn_num_layers, rnn_bidirectional=d.rnn_bidirectional)
     else:
         dec = convert_conformer_decoder(dec_sd, n_layers=d.n_layers)
-    return {**_under("encoder", enc), **_under("decoder", dec),
-            **_under("quantizer", convert_residual_vq(dec_sd, num_quantizers=d.vq_num_quantizers))}
+    if quantizer == "fsq":
+        quant = convert_fsq(dec_sd)
+    else:
+        quant = convert_residual_vq(dec_sd, num_quantizers=d.vq_num_quantizers)
+    return {**_under("encoder", enc), **_under("decoder", dec), **_under("quantizer", quant)}
 
 
 def reference_config_to_config(ref_cfg: Mapping[str, Any]) -> Config:

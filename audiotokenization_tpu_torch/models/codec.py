@@ -3,7 +3,8 @@
 Counterpart of ``audiotokenization_tpu/models/codec.py`` for the two codec
 families, BigCodec (``models/bigcodec.py``) and the Conformer STFT/ISTFT
 codec (``models/conformer.py``), each side built from its ``type``, with
-the factorized-VQ quantizer. The serving path is
+the factorized VQ (``quantizers/factorized_vq.py``) or FSQ
+(``quantizers/fsq.py``; ``fsq: true``) as its quantizer. The serving path is
 ``tokenize`` (wav -> codes (Nq, B, Tf)) and ``codes_to_emb`` ->
 ``apply_fc_post_a`` -> ``decode`` (codes -> wav); training runs
 ``forward`` (wav -> regenerated wav, commitment losses and codes).
@@ -16,7 +17,11 @@ runs inside it (the other modes: ``encode_in_mode``), and so should
 ``forward`` follows ``train.precision``: ``fp32_strict`` inside
 ``full_fp32()``, ``fp32`` with TF32 allowed (``allow_tf32()``), ``bf16``
 (training) on bf16 copies of every generator parameter but the
-quantizer's. The VQ is always fp32.
+quantizer's. The quantizer is always fp32.
+
+A Conformer encoder with ``ffn_type: moe`` adds the router's aux losses to
+``forward``'s output (``moe_aux_loss``: [load balance, router z, dropped
+share], means over the MoE layers); tokenize and decode discard them.
 """
 from __future__ import annotations
 
@@ -26,10 +31,12 @@ from typing import Any, Dict, NamedTuple
 import torch
 from torch import nn
 
-from ..config import Config, resolve_remat
+from ..config import Config, quantizer_kind, resolve_remat
+from ..ops.moe import MoEFeedForward
 from ..ops.params import cast_parameters, parameters_as
 from . import bigcodec, conformer
 from .quantizers import factorized_vq as fvq
+from .quantizers import fsq
 
 
 def resolve_device(device) -> torch.device:
@@ -83,18 +90,14 @@ DECODERS = {"bigcodec": bigcodec.BigCodecDecoder, "conformer_istft": conformer.C
 
 def check_config(cfg: Config):
     """Raise for what the port does not build: an unknown family
-    (``ValueError``), the Conformer's MoE feed-forward, a quantizer other
-    than the factorized VQ, the semantic branch (``NotImplementedError``
-    citing the ROADMAP item)."""
+    (``ValueError``), a quantizer other than the factorized VQ and FSQ, the
+    semantic branch (``NotImplementedError`` citing the ROADMAP item)."""
     e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
     for part, name, family in ((e, "encoder", ENCODERS), (d, "decoder", DECODERS)):
         if part.type not in family:
             raise ValueError(f"unknown {name} type {part.type!r}")
-        if part.type != "bigcodec" and part.ffn_type != "dense":
-            raise NotImplementedError(f"the Conformer's ffn_type {part.ffn_type!r} is not "
-                                      "ported yet (ROADMAP Queue 1 item 13)")
-    quantizer = "fsq" if d.fsq else d.quantizer
-    if quantizer != "fvq":
+    quantizer = quantizer_kind(cfg)
+    if quantizer not in ("fvq", "fsq"):
         raise NotImplementedError(f"the {quantizer!r} quantizer is not ported yet "
                                   "(ROADMAP Queue 1 item 14)")
     if cfg.train.use_semantic:
@@ -102,10 +105,17 @@ def check_config(cfg: Config):
                                   "(ROADMAP Queue 1 item 15)")
 
 
+def uses_moe(cfg: Config) -> bool:
+    """Whether a side's config asks for the MoE feed-forward (as the JAX
+    package's ``uses_moe``; only the Conformer encoder builds one,
+    ``models/conformer.py``)."""
+    return "moe" in (cfg.model.codec_encoder.ffn_type, cfg.model.codec_decoder.ffn_type)
+
+
 class Codec(nn.Module):
-    """Encoder (BigCodec or Conformer), factorized residual VQ and decoder
-    (BigCodec or Conformer), with parameter names as in the JAX tree
-    (``encoder``, ``quantizer``, ``decoder``)."""
+    """Encoder (BigCodec or Conformer), quantizer (factorized residual VQ or
+    FSQ) and decoder (BigCodec or Conformer), with parameter names as in
+    the JAX tree (``encoder``, ``quantizer``, ``decoder``)."""
 
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
@@ -114,10 +124,15 @@ class Codec(nn.Module):
         self.cfg = cfg
         self.encoder = ENCODERS[e.type].from_config(e, generator=generator)
         self.decoder = DECODERS[d.type].from_config(d, generator=generator)
-        self.quantizer = fvq.ResidualVQ(
-            num_quantizers=d.vq_num_quantizers, dim=d.in_channels,
-            codebook_size=d.codebook_size, codebook_dim=d.codebook_dim,
-            generator=generator)
+        if quantizer_kind(cfg) == "fsq":
+            self.quantizer = fsq.FSQ(dim=d.in_channels, levels=d.fsq_levels, generator=generator)
+        else:
+            self.quantizer = fvq.ResidualVQ(
+                num_quantizers=d.vq_num_quantizers, dim=d.in_channels,
+                codebook_size=d.codebook_size, codebook_dim=d.codebook_dim,
+                generator=generator)
+        # whether encode() collects MoE aux losses (an MoE layer in the encoder)
+        self.encoder_moe = any(isinstance(m, MoEFeedForward) for m in self.encoder.modules())
 
 
 class CodecOutput(NamedTuple):
@@ -125,6 +140,9 @@ class CodecOutput(NamedTuple):
     gen_wav: torch.Tensor   # (B, 1, T)
     vq_loss: torch.Tensor   # (Nq,) fp32
     vq_code: torch.Tensor   # (Nq, B, Tf) int32
+    # (3,) fp32 [load balance, router z, dropped share (no gradient)], means
+    # over the MoE layers; None without one
+    moe_aux_loss: torch.Tensor | None = None
 
 
 def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Codec:
@@ -135,20 +153,30 @@ def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Cod
     return Codec(cfg, generator=generator).to(device).eval()
 
 
-def encode(codec: Codec, wav, *, remat: bool = False):
+def encode(codec: Codec, wav, *, remat: bool = False, aux=None):
     """wav (B, T) -> latents (B, C, Tf). ``remat`` recomputes BigCodec's
-    blocks in the backward; the Conformer keeps its activations."""
-    return codec.encoder(wav[:, None, :], remat=remat)
+    blocks in the backward; the Conformer keeps its activations. ``aux``: a
+    list the encoder's MoE layers append their aux losses to (an encoder
+    without one takes none)."""
+    if aux is None or not codec.encoder_moe:
+        return codec.encoder(wav[:, None, :], remat=remat)
+    return codec.encoder(wav[:, None, :], remat=remat, aux=aux)
 
 
 def quantize(codec: Codec, latents, *, training: bool = False):
     """latents (B, C, Tf) -> (quantized (B, C, Tf), codes (Nq, B, Tf), loss (Nq,)).
     An fp32 island: bf16 latents go up to fp32, and the quantized latents
-    come back in the latents' dtype; the loss stays fp32."""
+    come back in the latents' dtype; the VQ's loss stays fp32, FSQ's is a
+    zero of the latents' dtype (it has no commitment loss)."""
     d = codec.cfg.model.codec_decoder
-    zq, codes, loss = fvq.residual_vq_apply(codec.quantizer, latents.float(),
-                                            num_quantizers=d.vq_num_quantizers,
-                                            commitment=d.vq_commit_weight, training=training)
+    if quantizer_kind(codec.cfg) == "fsq":
+        zq, codes = fsq.fsq_apply(codec.quantizer, latents)
+        codes = codes[None]
+        loss = torch.zeros((1,), dtype=latents.dtype, device=latents.device)
+    else:
+        zq, codes, loss = fvq.residual_vq_apply(codec.quantizer, latents.float(),
+                                                num_quantizers=d.vq_num_quantizers,
+                                                commitment=d.vq_commit_weight, training=training)
     return zq.to(latents.dtype), codes, loss
 
 
@@ -166,7 +194,9 @@ def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
     gradients reach the fp32 masters through the casts. ``training`` also
     turns on the commitment losses and, per ``resolve_remat``, per-block
     recomputation. ``step`` salts the EMA quantizers in the JAX package; the
-    factorized VQ draws nothing and ignores it."""
+    factorized VQ and FSQ draw nothing and ignore it. The encoder's MoE
+    layers' aux losses are averaged into ``moe_aux_loss`` (JAX
+    ``codec.py:221-229``)."""
     cfg = codec.cfg
     wav = batch["wav"]
     remat = training and resolve_remat(cfg)
@@ -174,15 +204,24 @@ def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
     if training and cfg.train.precision == "bf16":
         cast = cast_parameters(codec, torch.bfloat16, skip="quantizer")
         wav = wav.to(torch.bfloat16)
+    aux = []
     with precision_scope(cfg), parameters_as(codec, cast):
-        zq, codes, vq_loss = quantize(codec, encode(codec, wav, remat=remat),
+        zq, codes, vq_loss = quantize(codec, encode(codec, wav, remat=remat, aux=aux),
                                       training=training)
         gen = decode(codec, zq, remat=remat)
-    return CodecOutput(gt_wav=wav[:, None, :], gen_wav=gen, vq_loss=vq_loss, vq_code=codes)
+    moe = None
+    if aux:
+        moe = torch.stack([sum(a[k] for a in aux) / len(aux)
+                           for k in ("load_balance_loss", "router_z_loss", "dropped_frac")])
+    return CodecOutput(gt_wav=wav[:, None, :], gen_wav=gen, vq_loss=vq_loss, vq_code=codes,
+                       moe_aux_loss=moe)
 
 
 def codes_to_emb(codec: Codec, codes, *, proj: bool = True):
-    """codes (B, Tf, Nq) -> decoder-input embeddings (B, C, Tf)."""
+    """codes (B, Tf, Nq) -> decoder-input embeddings (B, C, Tf); FSQ reads
+    the one codebook's codes[..., 0] (``proj`` is the VQ's)."""
+    if quantizer_kind(codec.cfg) == "fsq":
+        return fsq.fsq_codes_to_emb(codec.quantizer, codes[..., 0]).transpose(1, 2)
     return fvq.residual_vq_codes_to_emb(codec.quantizer, codes, proj=proj).transpose(1, 2)
 
 
@@ -258,17 +297,17 @@ def encode_in_mode(encoder: nn.Module, x, mode: str, *, lengths=None):
 
 
 def tokenize(codec: Codec, wav, *, mode: str = "conformant"):
-    """wav (B, T) -> token indices (Nq, B, Tf) int32, on the codec's device.
+    """wav (B, T) -> token indices (Nq, B, Tf) int32, on the codec's device
+    (Nq: ``config.num_codebooks``).
 
     ``mode`` sets the encoder's precision (``encode_in_mode``): conformant
     (fp32, the mode held to the JAX package's tokens), high, balanced
     (BigCodec only) or fast. The VQ (K1) runs fp32 with TF32 off in every
-    mode. On the Conformer at 32 x 1 s the card waits on the host's kernel
-    launches in every mode, so ``fast`` is no faster than ``high`` there
-    and flips more tokens (PERF.md).
+    mode (FSQ, which has no K1, is fp32 too). On the Conformer at 32 x 1 s
+    the card waits on the host's kernel launches in every mode, so ``fast``
+    is no faster than ``high`` there and flips more tokens (PERF.md).
     """
-    device = codec.quantizer.layers[0].codebook.device
-    wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
+    wav = torch.as_tensor(wav, dtype=torch.float32, device=next(codec.parameters()).device)
     lat = encode_in_mode(codec.encoder, wav[:, None, :], mode)
     with full_fp32(), torch.no_grad():
         _, codes, _ = quantize(codec, lat)

@@ -18,6 +18,13 @@ Parameter names are the JAX tree's paths (``backbone.layers.0.attn.qkv.w``,
 mask (its zero padding is the batch's zero tail), the backbone masks, the
 ISTFT takes each sample's own envelope. The FFTs run in fp32 whatever the
 parameters' dtype; the backbone runs in the parameters' dtype.
+
+``ffn_type: moe`` (configs/conformer_moe.yaml) makes the encoder's FFNs
+MoE layers (``ops/moe.py``); the encoder's ``forward`` then appends their
+aux losses to its ``aux`` list. The decoder's FFNs are dense whatever its
+``ffn_type`` says: the JAX package's ``init_codec`` passes ``ffn_type`` to
+the encoder only, so its MoE run dirs hold a dense decoder, and the port
+builds the same tree.
 """
 from __future__ import annotations
 
@@ -37,10 +44,12 @@ def _wn_pointwise(in_ch: int, out_ch: int, *, generator: torch.Generator) -> Wei
     return WeightNormed(w, uniform_fan_in_bias((out_ch,), in_ch, generator=generator))
 
 
-def _backbone(c, *, conv_first: bool, generator):
+def _backbone(c, *, conv_first: bool, ffn_type: str, generator):
     return ConformerBackbone(c.dim, c.n_layers, n_head=c.n_head, ffn_mult=c.ffn_mult,
                              conv_kernel_size=c.conv_kernel_size, rope_theta=c.rope_theta,
                              max_seq_len=c.max_seq_len, conv_first=conv_first, causal=c.causal,
+                             ffn_type=ffn_type, moe_experts=c.moe_experts,
+                             moe_top_k=c.moe_top_k, moe_capacity_factor=c.moe_capacity_factor,
                              generator=generator)
 
 
@@ -61,22 +70,24 @@ class ConformerEncoder(nn.Module):
         self.causal = e.causal
         self.input_proj = init_conv1d(2 * (e.n_fft // 2 + 1), e.dim, 1, generator=generator)
         self.input_norm = nn.Parameter(torch.ones(e.dim))
-        self.backbone = _backbone(e, conv_first=True, generator=generator)
+        self.backbone = _backbone(e, conv_first=True, ffn_type=e.ffn_type, generator=generator)
         self.norm = nn.Parameter(torch.ones(e.dim))
         if e.out_channels != e.dim:
             self.output_proj = _wn_pointwise(e.dim, e.out_channels, generator=generator)
 
-    def stages(self, lengths=None, *, remat: bool = False):
+    def stages(self, lengths=None, *, remat: bool = False, aux=None):
         """(front, tail) of ``forward``: the whole encoder and the identity.
         ``lengths``: (B,) samples of a zero-padded ragged batch. ``remat``
-        is ignored: the Conformer keeps its activations."""
+        is ignored: the Conformer keeps its activations. ``aux``: the list
+        the MoE layers append their aux losses to."""
         valid = None if lengths is None else lengths // self.hop_length
-        return (lambda x: conformer_encode(self, x, valid=valid)), (lambda y: y)
+        return (lambda x: conformer_encode(self, x, valid=valid, aux=aux)), (lambda y: y)
 
-    def forward(self, x, *, lengths=None, remat: bool = False):
+    def forward(self, x, *, lengths=None, remat: bool = False, aux=None):
         """``lengths``: (B,) samples of a ragged batch (latents past
-        lengths // hop are meaningless); ``remat`` is ignored."""
-        return self.stages(lengths)[0](x)
+        lengths // hop are meaningless); ``remat`` is ignored; ``aux`` as in
+        ``stages``."""
+        return self.stages(lengths, aux=aux)[0](x)
 
 
 def encode_features(p: ConformerEncoder, spec):
@@ -95,12 +106,13 @@ def encode_output(p: ConformerEncoder, h):
     return h.transpose(1, 2)
 
 
-def conformer_encode(p: ConformerEncoder, x, *, valid=None):
+def conformer_encode(p: ConformerEncoder, x, *, valid=None, aux=None):
     """x (B, 1, T) -> latents (B, out_channels, T / hop); ``valid``: (B,)
-    frame counts of a ragged batch (latents past them are meaningless)."""
+    frame counts of a ragged batch (latents past them are meaningless);
+    ``aux``: the list the MoE layers append their aux losses to."""
     spec = stft_same_constant_pad(x[:, 0], n_fft=p.n_fft, hop_length=p.hop_length,
                                   win_length=p.window_size)
-    h = conformer_backbone(encode_features(p, spec), p.backbone, valid=valid)
+    h = conformer_backbone(encode_features(p, spec), p.backbone, valid=valid, aux=aux)
     return encode_output(p, h)
 
 
@@ -116,7 +128,8 @@ class ConformerDecoder(nn.Module):
         super().__init__()
         self.hop_length, self.n_fft = d.hop_length, d.n_fft
         self.causal = d.causal
-        self.backbone = _backbone(d, conv_first=False, generator=generator)
+        self.backbone = _backbone(d, conv_first=False, ffn_type="dense",  # module docstring
+                                  generator=generator)
         self.norm = nn.Parameter(torch.ones(d.dim))
         self.head_out = init_linear(d.dim, d.n_fft + 2, generator=generator)
         if d.in_channels != d.dim:

@@ -1,1 +1,1 @@
-"""Quantizers: the factorized VQ."""
+"""Quantizers: the factorized VQ and FSQ."""

@@ -43,7 +43,8 @@ state is single-use: a step from a state that was already stepped raises
 ``ValueError`` (``KVCaches.pos``) instead of reading a later step's rows.
 
 Every step runs in fp32 with TF32 off and without gradients, and makes one
-launch of K1 (the VQ) on the card. A causal unit is not K2's
+launch of K1 (the VQ) on the card; an FSQ codec (codes (1, B, T)) makes
+none. A causal unit is not K2's
 (``models/bigcodec.py``), and the Conformer has none, so the streaming
 paths launch no K2.
 """
@@ -54,6 +55,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..config import num_codebooks
 from ..ops.conv import conv1d, get_weight, linear, pointwise
 from ..ops.lstm import res_lstm_streaming
 from ..ops.stft import hann_window, overlap_add, stft
@@ -210,7 +212,7 @@ class StreamingTokenizer:
         delay_frames), new state). 0 frames without anti-aliasing."""
         B = state.sample_tail.shape[0]
         if self.delay_frames == 0:
-            nq = self.cfg.model.codec_decoder.vq_num_quantizers
+            nq = num_codebooks(self.cfg)
             return torch.zeros(nq, B, 0, dtype=torch.int32, device=self.device), state
         end = state.pos
         zeros = torch.zeros(B, self.chunk, device=self.device)
@@ -367,7 +369,7 @@ class StreamingSynthesizer:
         if self.delay_frames == 0:
             return torch.zeros(B, 0, device=self.device), state
         end = state.pos
-        nq = self.cfg.model.codec_decoder.vq_num_quantizers
+        nq = num_codebooks(self.cfg)
         zeros = torch.zeros(nq, B, self.chunk_frames, dtype=torch.long, device=self.device)
         outs, got = [], 0
         while got < self.delay_frames:
@@ -427,10 +429,9 @@ def _conformer_streaming_part(part, name: str, chunk_attr: str):
     if part.type != f"conformer_{name}" or not part.causal:
         raise ValueError(f"streaming the Conformer requires a causal conformer_{name} "
                          f"{chunk_attr} config")
-    if part.ffn_type != "dense":
-        raise NotImplementedError(f"no streaming path for the Conformer's ffn_type "
-                                  f"{part.ffn_type!r}: its routing is chunk-global "
-                                  "(ROADMAP Queue 1 item 13)")
+    if part.ffn_type == "moe":
+        raise NotImplementedError("streaming the Conformer covers dense-FFN configs; MoE "
+                                  "capacity routing is batch/chunk-global (ops/moe.py)")
     if part.n_fft != part.window_size:
         raise NotImplementedError("streaming the Conformer assumes n_fft == window_size "
                                   "(every reference Conformer config)")

@@ -37,8 +37,13 @@ logit is -0.7 x the dtype's max, as in ``jax.nn.dot_product_attention``:
 a query that sees no key gets the mean of the values, finite, where a
 boolean SDPA mask gives NaN.
 
-The MoE feed-forward (``ffn_type: moe``), remat and the tensor/pipeline
-parallel hooks are not ported.
+An FFN built as ``ops/moe.py::MoEFeedForward`` (``ffn_type: moe``) runs
+as a GShard MoE with the backbone's (``moe_top_k``,
+``moe_capacity_factor``), pad frames under ``valid`` claiming no expert
+slot; ``conformer_layer`` / ``conformer_backbone`` append each MoE layer's
+aux losses to the ``aux`` list a caller passes (the JAX package collects
+them through a thread-local context instead). Remat and the
+tensor/pipeline parallel hooks are not ported.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .conv import causal_conv1d, conv1d, get_weight, init_conv1d, init_linear, linear, pointwise
+from .moe import MoEFeedForward, moe_ffn
 
 _MASKED = -0.7  # x finfo(dtype).max: a masked logit, as jax.nn.dot_product_attention's
 KEY_BLOCK = 128  # keys per partial value sum of the fp32 attention
@@ -223,11 +229,22 @@ def conformer_conv_module(x, p: ConformerConvModule, *, causal: bool = False, va
 
 
 class ConformerLayer(nn.Module):
+    """``ffn_type``: ``dense`` (SwiGLU) or ``moe`` (``moe_experts`` experts)."""
+
     def __init__(self, dim: int, *, n_head: int, ffn_mult: int = 4, conv_kernel_size: int = 31,
-                 generator: torch.Generator):
+                 ffn_type: str = "dense", moe_experts: int = 4, generator: torch.Generator):
         super().__init__()
-        self.ffn1 = FeedForward(dim, ffn_mult, generator=generator)
-        self.ffn2 = FeedForward(dim, ffn_mult, generator=generator)
+        if ffn_type not in ("dense", "moe"):
+            raise ValueError(f"unknown ffn_type {ffn_type!r}")
+
+        def ffn():
+            if ffn_type == "moe":
+                return MoEFeedForward(dim, n_experts=moe_experts, ffn_mult=ffn_mult,
+                                      generator=generator)
+            return FeedForward(dim, ffn_mult, generator=generator)
+
+        self.ffn1 = ffn()
+        self.ffn2 = ffn()
         self.attn = Attention(dim, generator=generator)
         self.conv = ConformerConvModule(dim, conv_kernel_size, generator=generator)
         for name in ("attn_norm", "conv_norm", "ffn1_norm", "ffn2_norm"):
@@ -235,10 +252,12 @@ class ConformerLayer(nn.Module):
 
 
 def conformer_layer(x, p: ConformerLayer, cos, sin, *, n_head: int, conv_first: bool = False,
-                    causal: bool = False, valid=None, bias=None):
+                    causal: bool = False, valid=None, bias=None, moe_args=(2, 1.25), aux=None):
     """Pre-norm {conv | attn, ffn1, attn | conv, ffn2} over x (B, T, C), plain
     residual adds. ``bias``: ``attention_bias`` of ``valid`` and ``causal``
-    (computed here when not given)."""
+    (computed here when not given). An MoE FFN routes with ``moe_args`` =
+    (top_k, capacity_factor), ``valid``'s pad frames masked, and appends its
+    aux losses to ``aux`` when that is a list."""
     if bias is None and valid is not None:
         bias = attention_bias(x.shape[1], valid=valid, causal=causal, dtype=x.dtype,
                               device=x.device)
@@ -251,10 +270,22 @@ def conformer_layer(x, p: ConformerLayer, cos, sin, *, n_head: int, conv_first: 
         return x + conformer_conv_module(rms_norm(x, p.conv_norm), p.conv, causal=causal,
                                          valid=valid)
 
+    def ffn(x, fp, w):
+        y = rms_norm(x, w)
+        if not isinstance(fp, MoEFeedForward):
+            return x + feed_forward(y, fp)
+        mask = None if valid is None else frame_mask(valid, y.shape[1])
+        out, layer_aux = moe_ffn(y, fp, top_k=int(moe_args[0]),
+                                 capacity_factor=float(moe_args[1]), token_mask=mask,
+                                 losses=aux is not None)
+        if aux is not None:
+            aux.append(layer_aux)
+        return x + out
+
     x = conv(x) if conv_first else attn(x)
-    x = x + feed_forward(rms_norm(x, p.ffn1_norm), p.ffn1)
+    x = ffn(x, p.ffn1, p.ffn1_norm)
     x = attn(x) if conv_first else conv(x)
-    return x + feed_forward(rms_norm(x, p.ffn2_norm), p.ffn2)
+    return ffn(x, p.ffn2, p.ffn2_norm)
 
 
 class ConformerBackbone(nn.Module):
@@ -263,14 +294,17 @@ class ConformerBackbone(nn.Module):
     def __init__(self, dim: int, n_layers: int, *, n_head: int, ffn_mult: int = 4,
                  conv_kernel_size: int = 31, rope_theta: float = 10000.0,
                  max_seq_len: int = 8192, conv_first: bool = False, causal: bool = False,
-                 generator: torch.Generator):
+                 ffn_type: str = "dense", moe_experts: int = 4, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25, generator: torch.Generator):
         super().__init__()
         self.dim, self.n_head = dim, n_head
         self.rope_theta, self.max_seq_len = rope_theta, max_seq_len
         self.conv_first, self.causal = conv_first, causal
+        self.moe_args = (moe_top_k, moe_capacity_factor)
         self.layers = nn.ModuleList(
             ConformerLayer(dim, n_head=n_head, ffn_mult=ffn_mult,
-                           conv_kernel_size=conv_kernel_size, generator=generator)
+                           conv_kernel_size=conv_kernel_size, ffn_type=ffn_type,
+                           moe_experts=moe_experts, generator=generator)
             for _ in range(n_layers))
 
     def rope(self, device):
@@ -279,9 +313,10 @@ class ConformerBackbone(nn.Module):
                                torch.device(device))
 
 
-def conformer_backbone(x, p: ConformerBackbone, *, valid=None):
+def conformer_backbone(x, p: ConformerBackbone, *, valid=None, aux=None):
     """x (B, T, C) through every layer; T at most ``max_seq_len`` (the RoPE
-    table's length)."""
+    table's length). ``aux``: a list that each MoE FFN's aux losses are
+    appended to."""
     T = x.shape[1]
     if T > p.max_seq_len:
         raise ValueError(f"{T} frames exceed max_seq_len={p.max_seq_len} (the RoPE table)")
@@ -290,5 +325,6 @@ def conformer_backbone(x, p: ConformerBackbone, *, valid=None):
             attention_bias(T, valid=valid, causal=p.causal, dtype=x.dtype, device=x.device))
     for layer in p.layers:
         x = conformer_layer(x, layer, cos, sin, n_head=p.n_head, conv_first=p.conv_first,
-                            causal=p.causal, valid=valid, bias=bias)
+                            causal=p.causal, valid=valid, bias=bias, moe_args=p.moe_args,
+                            aux=aux)
     return x

@@ -7,8 +7,9 @@
      logits of every MPD and spectrogram sub-discriminator;
   3. the generator loss against the **updated** discriminator, with no
      gradient into it: mel x15 + adv + feature matching (real side
-     detached) + Σ vq; backward through the saved generator graph, then
-     the generator update.
+     detached) + Σ vq (+ the MoE router's load-balance and z losses,
+     logged with the dropped share as ``moe_*``); backward through the
+     saved generator graph, then the generator update.
 
 ``accumulate_grad_batches = N`` splits the batch into N micro-batches:
 phase 1 averages the discriminator's gradients at its pre-update weights
@@ -19,8 +20,9 @@ gradients is not finite (one host sync per side). In the JAX step the
 generator loss then sees the discriminator's poisoned update, and so skips
 too; here it sees the discriminator as it was.
 
-K1 runs once per generator forward and K2 once per ResidualUnit (30 in
-the flagship) on CUDA tensors; K2's backward recomputes each unit.
+K1 runs once per generator forward with the factorized VQ (FSQ has none)
+and K2 once per fused ResidualUnit (30 in the flagship, none in the
+Conformer) on CUDA tensors; K2's backward recomputes each unit.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Any, Dict
 
 import torch
 
-from ..config import Config, resolve_remat
+from ..config import Config, quantizer_kind, resolve_remat
 from ..losses.gan import disc_loss, feature_matching_loss, gen_adv_loss
 from ..losses.mel import MultiResolutionMelLoss
 from ..losses.stft_loss import multi_resolution_stft_loss
@@ -42,15 +44,13 @@ from .state import ClippedAdamW, TrainState
 
 
 def _check_supported(cfg: Config):
-    d, e = cfg.model.codec_decoder, cfg.model.codec_encoder
-    quantizer = "fsq" if d.fsq else d.quantizer
-    if quantizer != "fvq":
+    quantizer = quantizer_kind(cfg)
+    if quantizer not in ("fvq", "fsq"):
         raise NotImplementedError(f"training with the {quantizer!r} quantizer is not ported yet "
-                                  "(EMA, LFQ, FSQ and the zoo come later)")
+                                  "(ROADMAP Queue 1 item 14: EMA, LFQ and the zoo come later)")
     if cfg.train.use_semantic:
-        raise NotImplementedError("the semantic branch is not ported yet")
-    if "moe" in (e.ffn_type, d.ffn_type):
-        raise NotImplementedError("MoE feed-forward layers are not ported yet")
+        raise NotImplementedError("the semantic branch is not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
 
 
 def _finite(total, grads) -> bool:
@@ -123,6 +123,10 @@ def make_train_step(cfg: Config, *, device="cuda"):
             total = total + logs["fm_loss"] * lam.lambda_feat_match_loss
         logs["vq_loss"] = torch.sum(out.vq_loss)
         total = total + logs["vq_loss"]
+        if out.moe_aux_loss is not None:  # the router's Switch aux losses
+            lb, z, dropped = out.moe_aux_loss
+            total = total + lb * lam.lambda_moe_load_balance + z * lam.lambda_moe_router_z
+            logs.update(moe_load_balance=lb, moe_router_z=z, moe_dropped_frac=dropped)
         logs["gen_loss"] = total
         return total, logs
 

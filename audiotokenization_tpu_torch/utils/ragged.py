@@ -20,7 +20,12 @@ Ported: what ``Codec`` builds (``models/codec.py::check_config``), for the
 reconstruction (``make_ragged_codec``, the eval and test passes) and the
 tokenizer (``make_ragged_tokenizer``, corpus extraction) in each tokenize
 mode of the encoder (``balanced`` splits BigCodec at its ``stages``, as
-JAX does, and has no Conformer form).
+JAX does, and has no Conformer form). FSQ quantizes frame by frame, so it
+is exact here as the VQ is. A Conformer with ``ffn_type: moe`` on either
+side raises ``NotImplementedError``, as in the JAX package: expert
+capacity is a function of the batch's token count and tokens compete for
+slots across samples, so a batched result can never equal per-file
+processing (evaluate such a codec per file).
 """
 from __future__ import annotations
 
@@ -30,6 +35,15 @@ from ..config import Config, codec_hop
 from ..models.bigcodec import edge_mask
 from ..models.codec import (ENCODERS, check_config, check_mode, encode_in_mode, full_fp32,
                             precision_scope, quantize, resolve_device)
+
+
+def check_exactness(cfg: Config):
+    """``NotImplementedError`` for a config whose batched result is not the
+    per-file one (the MoE feed-forward, module docstring)."""
+    for part, name in ((cfg.model.codec_encoder, "encoder"), (cfg.model.codec_decoder, "decoder")):
+        if part.type != "bigcodec" and part.ffn_type == "moe":
+            raise NotImplementedError(f"ffn_type: moe {name}: capacity routing is batch-global; "
+                                      "no exact ragged path (evaluate per file)")
 
 
 def _maybe_pcm16(wavs):
@@ -43,14 +57,16 @@ def _maybe_pcm16(wavs):
 def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda"):
     """Batched variable-length tokenization: ``run(codec, wavs, lengths)``
     with wavs (B, L) float32 or int16 PCM, zero-padded, and lengths (B,) in
-    samples, returns codes (Nq, B, L // hop) on ``device`` (the codec's);
-    frames past lengths // hop are meaningless (trim per sample). Each row's
-    tokens equal the per-file ``tokenize`` of its own hop-padded samples,
-    in the same ``mode`` (``models/codec.py::encode_in_mode``; the VQ is
-    fp32 with TF32 off), without gradients. Raises without a card unless
+    samples, returns codes (Nq, B, L // hop) on ``device`` (the codec's;
+    Nq: ``config.num_codebooks``); frames past lengths // hop are
+    meaningless (trim per sample). Each row's tokens equal the per-file
+    ``tokenize`` of its own hop-padded samples, in the same ``mode``
+    (``models/codec.py::encode_in_mode``; the quantizer is fp32 with TF32
+    off), without gradients. Raises without a card unless
     ``device="cpu"``."""
     device = resolve_device(device)
     check_config(cfg)
+    check_exactness(cfg)
     check_mode(ENCODERS[cfg.model.codec_encoder.type], mode)
 
     def run(codec, wavs, lengths):
@@ -73,6 +89,7 @@ def make_ragged_codec(cfg: Config, *, device="cuda"):
     Raises without a card unless ``device="cpu"``."""
     device = resolve_device(device)
     check_config(cfg)
+    check_exactness(cfg)
     hop = codec_hop(cfg)
 
     def run(codec, wavs, lengths):

@@ -136,6 +136,36 @@ Phases, each fatal on failure:
     factor); stream_decode at 16 frames against the offline decode, the
     synthesizer's step latency; cli.synthesize --streaming 16 on
     a causal run dir (the conformer line).
+15. configs/conformer_moe.yaml (the Conformer with 8-expert top-2 MoE FFNs in
+    its encoder; the decoder dense, as the JAX package builds it) and
+    configs/bigcodec_fsq.yaml (the flagship BigCodec with FSQ), full width
+    and depth, random weights from seed 0: (a) MoE tokenize of 32 x 1 s and
+    codes_to_emb -> decode, K1 1 / K2 0 a tokenize and no launch a decode;
+    the whole batch encoded on the CPU too (capacity is batch-global), the
+    routing compared layer by layer (tokens whose expert choice or
+    kept/dropped status differs; fatal where a choice differs at a router
+    gap of 1e-5 or more in a request no earlier difference reached), the
+    first 2 requests' tokens and latents where no routing difference reached
+    them, their waveforms; audio-s/s, dropped_frac, a torch.profiler split
+    (router, dispatch, expert GEMMs, combine, attention, other GEMMs, K1,
+    idle); (b) 4 x 30 s against the CPU on its first request, timed, peak
+    memory; (c) high and fast over 4 batches (flips, codes used, latent
+    error over the requests no routing difference reached, fatal over 1e-2
+    / 5e-2), balanced raising; (d) from an MoE run dir, cli.extract_indices
+    at batch 16 on 16 files (the per-file route: K1 once a file, ceil(len /
+    200) int16 frames, 4 files against the card's own tokenize and the
+    CPU's), make_ragged_tokenizer raising, cli.inference_full on 4 whole
+    files (one forward a file); (e) one fp32_strict MoE step at 2 x 8000
+    against the CPU's (phase 8b's tolerances, moe_* metrics included), then
+    bf16 steps of conformer_moe.yaml and conformer.yaml at 32 x 1 s (2
+    warm-ups, 5 timed, K1 1 / K2 0 a step, finite, routers moved, audio-s/s,
+    peak memory) (the conformer_moe line); (f) the FSQ BigCodec: tokenize and
+    decode of 32 x 1 s (K1 0, K2 15 each), the first 2 requests against the
+    CPU (tokens but where a bounded value lies within 1e-5 of a rounding
+    boundary, counted), high and fast, make_ragged_tokenizer on 8 files
+    against each file's tokenize, cli.extract_indices on 16 files ((T,)
+    int16 < 512, K2 15 a device batch), one bf16 step timed (K1 0 / K2 30)
+    (the bigcodec_fsq line), and the phase's seconds (phase_15_s).
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -455,20 +485,17 @@ def hold_against_cpu(name, codec, wav_np, codes, out, n_ref: int = 2):
     """The card's tokens ``codes`` (Nq, B, Tf) and waveforms ``out`` of
     ``wav_np`` against the same weights on the CPU, where the wrappers take
     the plain versions, for the first ``n_ref`` requests: tokens except at
-    frames whose top-2 gap is under GAP, latents within LAT_RTOL / LAT_ATOL,
-    waveforms within WAV_RTOL / WAV_ATOL."""
+    frames whose margin (``frame_gaps``) is under GAP, latents within
+    LAT_RTOL / LAT_ATOL, waveforms within WAV_RTOL / WAV_ATOL."""
     import torch
     from audiotokenization_tpu_torch.models import codec as C
-    from audiotokenization_tpu_torch.ops.conv import linear
 
     cpu = copy.deepcopy(codec).cpu()
     with C.full_fp32(), torch.no_grad():
         lat_gpu = C.encode(codec, torch.from_numpy(wav_np[:n_ref]).cuda()).cpu()
         lat_cpu = C.encode(cpu, torch.from_numpy(wav_np[:n_ref]))
         _, codes_cpu, _ = C.quantize(cpu, lat_cpu)
-        layer = cpu.quantizer.layers[0]
-        z_e = linear(lat_cpu.transpose(1, 2), layer.in_proj)
-        gap = top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook))
+    gap = frame_gaps(cpu, lat_cpu).reshape(-1)
     wav_cpu = offline_decode(cpu, codes[:, :n_ref].cpu())
     tok_gpu = codes[:, :n_ref].cpu()
     flips = (tok_gpu != codes_cpu).reshape(-1)
@@ -478,10 +505,10 @@ def hold_against_cpu(name, codec, wav_np, codes, out, n_ref: int = 2):
     wav_err = wav_d.max().item()
     edge_err = max(wav_d[..., :EDGE].max().item(), wav_d[..., -EDGE:].max().item())
     print(f"{name} vs CPU ({n_ref} requests): {int(flips.sum())} of {flips.numel()} "
-          f"tokens differ, {int(near.sum())} frames under the {GAP:g} top-2 gap; "
+          f"tokens differ, {int(near.sum())} frames under the {GAP:g} margin; "
           f"max |dlatent| = {lat_err:.3g}, max |dwav| = {wav_err:.3g}")
     if (flips & ~near).any():
-        fail(f"{name}: tokens differ from the CPU at frames with a top-2 gap >= 1e-5")
+        fail(f"{name}: tokens differ from the CPU at frames with a margin >= 1e-5")
     if not torch.allclose(lat_gpu, lat_cpu, rtol=LAT_RTOL, atol=LAT_ATOL):
         fail(f"{name}: latents outside rtol 1e-3 / atol 2e-4 of the CPU")
     if not torch.allclose(out[:n_ref].cpu(), wav_cpu, rtol=WAV_RTOL, atol=WAV_ATOL):
@@ -731,9 +758,10 @@ def _leaves(state):
             **{"disc." + k: v.detach().cpu().clone() for k, v in state.disc.state_dict().items()}}
 
 
-def train_step_vs_cpu(cfg):
+def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu"):
     """(b) One fp32_strict step at full width on the card against the same
-    step on the CPU, from the same weights and batch."""
+    step on the CPU, from the same weights and batch; prints the ``line``
+    line."""
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.train.state import init_train_state, train_state
@@ -786,7 +814,7 @@ def train_step_vs_cpu(cfg):
     out = {"card_s": t1 - t0, "cpu_s": t2 - t1, "worst_metric_rel": worst_metric,
            "worst_update_rel": worst_update, "worst_update_leaf": worst_at,
            "hist_bins_differing": flips, "leaves": len(before)}
-    print(json.dumps({"train_step_vs_cpu": out}))
+    print(json.dumps({line: out}))
     return out
 
 
@@ -1260,12 +1288,11 @@ def write_extract_corpus(root: Path, count: int = EXTRACT_FILES):
 def cpu_tokens(codec_cpu, path, *, hop_pad: bool):
     """The CPU plain path's per-file tokens of one corpus file, as the CLI
     prepares it (resampled on the host, zero-padded to a whole hop unless
-    --exact), and each frame's top-2 distance gap."""
+    --exact), and each frame's margin (``frame_gaps``)."""
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.data.audio_io import read_audio
     from audiotokenization_tpu_torch.models import codec as C
-    from audiotokenization_tpu_torch.ops.conv import linear
     from audiotokenization_tpu_torch.ops.resample import resample
 
     wav, rate = read_audio(path)
@@ -1274,13 +1301,10 @@ def cpu_tokens(codec_cpu, path, *, hop_pad: bool):
         wav = resample(torch.from_numpy(wav), rate, SR).numpy()
     if hop_pad and len(wav) % HOP:
         wav = np.pad(wav, (0, HOP - len(wav) % HOP))
-    layer = codec_cpu.quantizer.layers[0]
     with torch.no_grad(), C.full_fp32():
         lat = C.encode(codec_cpu, torch.from_numpy(np.asarray(wav, np.float32))[None])
         _, codes, _ = C.quantize(codec_cpu, lat)
-        z_e = linear(lat.transpose(1, 2), layer.in_proj)
-        gap = top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook))
-    return codes[0, 0].numpy(), gap.numpy()
+    return codes[0, 0].numpy(), frame_gaps(codec_cpu, lat)[0].numpy()
 
 
 def hold_tokens(name, got, want, gap):
@@ -1511,6 +1535,26 @@ REPO_CONFIGS = {
                               "codebook_dim": 8}},
         "train": {"max_steps": 180000, "precision": "bf16"},
         "dataset": {"sample_rate": 16000, "pad_to_multiple_of": 200}},
+    "conformer_moe.yaml": {
+        "name": "conformer-moe8-vq8192-80hz",
+        "model": {
+            "codec_encoder": {"type": "conformer_stft", "hop_length": 200, "n_fft": 800,
+                              "window_size": 800, "dim": 256, "n_layers": 6, "n_head": 8,
+                              "rope_theta": 500, "out_channels": 256, "ffn_type": "moe",
+                              "moe_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 1.25},
+            "codec_decoder": {"type": "conformer_istft", "in_channels": 256, "hop_length": 200,
+                              "n_fft": 800, "window_size": 800, "dim": 256, "n_layers": 6,
+                              "n_head": 8, "rope_theta": 500, "codebook_size": 8192,
+                              "codebook_dim": 8, "ffn_type": "moe", "moe_experts": 8,
+                              "moe_top_k": 2, "moe_capacity_factor": 1.25}},
+        "train": {"max_steps": 180000, "precision": "bf16"},
+        "dataset": {"sample_rate": 16000, "pad_to_multiple_of": 200}},
+    "bigcodec_fsq.yaml": {
+        "name": "bigcodec-fsq",
+        "model": {
+            "codec_encoder": {"type": "bigcodec", "out_channels": 1024, "ngf": 48},
+            "codec_decoder": {"type": "bigcodec", "in_channels": 1024, "fsq": True,
+                              "fsq_levels": [4, 4, 4, 8], "codebook_size": 512}}},
 }
 # the tests' tiny codec (hop 10, 64 codes), causal and anti-aliased
 TINY_CAUSAL_AA = {"model": {
@@ -1561,12 +1605,23 @@ def expect_launches(name, got, want):
 
 
 def frame_gaps(codec, lat):
-    """The top-2 distance gap of each frame of latents (B, C, T) -> (B, T)."""
+    """Each frame's margin of latents (B, C, T) -> (B, T): the VQ's top-2
+    distance gap; FSQ's distance of its bounded values from the nearest .5
+    rounding boundary (the smallest over the dims), where a few ulps of
+    tanh may round the other way."""
     import torch
     from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.quantizers import fsq
     from audiotokenization_tpu_torch.ops.conv import linear
 
-    layer = codec.quantizer.layers[0]
+    q = codec.quantizer
+    if isinstance(q, fsq.FSQ):
+        with C.full_fp32(), torch.no_grad():
+            z = lat.float().transpose(1, 2)
+            z = linear(z, q.project_in) if hasattr(q, "project_in") else z
+            b = fsq.fsq_bounded(z, q.levels)
+            return ((b - torch.floor(b)) - 0.5).abs().amin(-1)
+    layer = q.layers[0]
     with C.full_fp32(), torch.no_grad():
         z_e = linear(lat.transpose(1, 2), layer.in_proj)
         return top2_gap(plain_dist(z_e.reshape(-1, z_e.shape[-1]), layer.codebook)).reshape(
@@ -2422,6 +2477,641 @@ def conformer_path(card):
     return line
 
 
+# -- 15. configs/conformer_moe.yaml and configs/bigcodec_fsq.yaml ---------------------
+
+MOE_EXTRACT_FILES, MOE_HOLD_FILES, MOE_EVAL_FILES = 16, 4, 4
+FSQ_RAGGED_FILES, FSQ_EXTRACT_FILES = 8, 16
+
+
+class RouteRecorder:
+    """While open, keeps the routing of every MoE layer call
+    (``ops.moe.route``), in call order (the encoder's layers, ffn1 then
+    ffn2 of each)."""
+
+    def __enter__(self):
+        from audiotokenization_tpu_torch.ops import moe
+
+        self.moe, self.orig, self.routes = moe, moe.route, []
+
+        def recorded(*args, **kwargs):
+            r = self.orig(*args, **kwargs)
+            self.routes.append(r)
+            return r
+
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def routing_differences(name, card_routes, cpu_routes, frames: int, *, strict: bool = True):
+    """Layer by layer, the tokens whose expert choice (or its order) or
+    kept/dropped status differs between two runs of one batch, with the
+    reference's smallest gap between neighbouring probabilities among the
+    first top_k + 1. With ``strict`` a choice that differs at a gap of GAP
+    or more, in a request (``frames`` tokens) no earlier difference reached,
+    is fatal; a kept-only difference always follows an earlier claim that
+    differs (capacity is claimed in order), and every difference reaches its
+    request for the later layers. Returns (rows, the requests reached)."""
+    import torch
+
+    reached, rows = set(), []
+    for layer, (g, c) in enumerate(zip(card_routes, cpu_routes)):
+        ge, gk = g.experts.cpu(), g.keep.cpu()
+        ce, ck, k = c.experts.cpu(), c.keep.cpu(), c.experts.shape[1]
+        p = torch.sort(c.probs.cpu(), dim=-1, descending=True).values[:, :k + 1]
+        gap = (p[:, :-1] - p[:, 1:]).amin(-1)
+        choice = (ge != ce).any(-1)
+        kept = (gk != ck).any(-1) & ~choice
+        req = torch.arange(len(ge)) // frames
+        fresh = torch.tensor([int(r) not in reached for r in req])
+        if strict and (choice & (gap >= GAP) & fresh).any():
+            fail(f"{name}: layer {layer}: {int((choice & (gap >= GAP) & fresh).sum())} tokens "
+                 f"route to other experts at a router gap >= {GAP:g}")
+        if strict and choice.any():
+            print(f"{name}: layer {layer}: {int(choice.sum())} tokens route differently "
+                  f"(router gap {float(gap[choice].min()):.3g} at the least), "
+                  f"{int(kept.sum())} more kept/dropped differently")
+        rows.append({"layer": layer, "choice_differs": int(choice.sum()),
+                     "kept_differs": int(kept.sum()), "min_router_gap": float(gap.min()),
+                     "tokens_under_gap": int((gap < GAP).sum()),
+                     "dropped_frac": float(1 - gk.float().mean()),
+                     "dropped_frac_ref": float(1 - ck.float().mean())})
+        reached |= {int(r) for r in req[choice | kept]}
+    return rows, reached
+
+
+def moe_vs_cpu(name, codec, wav_np, codes, out, n_ref: int = 2):
+    """The MoE Conformer's tokens ``codes`` and waveforms ``out`` of
+    ``wav_np`` against the CPU: the whole batch encoded on both (expert
+    capacity is batch-global), the routing compared layer by layer
+    (``routing_differences``), then the first ``n_ref`` requests' tokens
+    (but at top-2 gaps under GAP) and latents where no routing difference
+    reached the request, and their waveforms (the decoder is dense)."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    cpu = copy.deepcopy(codec).cpu()
+    frames = wav_np.shape[1] // HOP
+    t0 = time.perf_counter()
+    with C.full_fp32(), torch.no_grad():
+        with RouteRecorder() as on_card:
+            lat_gpu = C.encode(codec, torch.from_numpy(wav_np).cuda())[:n_ref].cpu()
+        with RouteRecorder() as on_cpu:
+            lat_cpu = C.encode(cpu, torch.from_numpy(wav_np))[:n_ref]
+        _, codes_cpu, _ = C.quantize(cpu, lat_cpu)
+    cpu_s = time.perf_counter() - t0
+    layers, reached = routing_differences(name, on_card.routes, on_cpu.routes, frames)
+    ref = [i for i in range(n_ref) if i not in reached]
+    flips = near = 0
+    lat_err = 0.0
+    if ref:
+        gap = frame_gaps(cpu, lat_cpu[ref])
+        flips, near = hold_codes(f"{name} tokens", codes[:, ref].cpu(), codes_cpu[:, ref], gap)
+        lat_err = (lat_gpu[ref] - lat_cpu[ref]).abs().max().item()
+        if not torch.allclose(lat_gpu[ref], lat_cpu[ref], rtol=LAT_RTOL, atol=LAT_ATOL):
+            fail(f"{name}: latents outside rtol 1e-3 / atol 2e-4 of the CPU")
+    wav_cpu = offline_decode(cpu, codes[:, :n_ref].cpu())
+    wav_err = (out[:n_ref].cpu() - wav_cpu).abs().max().item()
+    if not torch.allclose(out[:n_ref].cpu(), wav_cpu, rtol=WAV_RTOL, atol=WAV_ATOL):
+        fail(f"{name}: waveforms outside rtol 1e-3 / atol 2e-5 of the CPU's decode")
+    dropped = [r["dropped_frac"] for r in layers]
+    print(f"{name} vs CPU: {len(reached)} of {wav_np.shape[0]} requests reached by a routing "
+          f"difference; of the first {n_ref}, {len(ref)} compared: {flips} tokens differ, "
+          f"{near} frames under the {GAP:g} gap; max |dlatent| {lat_err:.3g}, "
+          f"max |dwav| {wav_err:.3g}")
+    return {"requests_reached_by_routing": len(reached), "requests_compared": len(ref),
+            "token_flips": flips, "near_ties": near, "max_abs_err_latent": lat_err,
+            "max_abs_err_wav": wav_err, "cpu_s": cpu_s,
+            "routing_differs": sum(r["choice_differs"] + r["kept_differs"] for r in layers),
+            "min_router_gap": min(r["min_router_gap"] for r in layers),
+            "dropped_frac_encoder": sum(dropped) / len(dropped),
+            "dropped_frac_per_layer": dropped, "dropped_frac_decoder": None}
+
+
+def annotated(patches):
+    """Context: each (module, function name) of ``patches`` wrapped in a
+    torch.profiler range of its name, restored after."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = [(m, n, getattr(m, n)) for m, n in patches]
+
+        def wrap(n, fn):
+            def inner(*args, **kwargs):
+                with torch.profiler.record_function(f"cs.{n}"):
+                    return fn(*args, **kwargs)
+            return inner
+
+        for m, n, fn in orig:
+            setattr(m, n, wrap(n, fn))
+        try:
+            yield
+        finally:
+            for m, n, fn in orig:
+                setattr(m, n, fn)
+
+    return ctx()
+
+
+def moe_split(fn):
+    """torch.profiler split of one call of ``fn`` on the MoE Conformer:
+    device ms of the router, dispatch, expert GEMMs and combine (the
+    ops.moe functions), of attention (ops.transformer.attend), of the other
+    GEMM kernels and of K1; busy time and the idle share of the call's
+    wall time."""
+    import torch
+    from audiotokenization_tpu_torch.ops import moe, transformer
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = ("route", "dispatch", "experts_apply", "combine", "attend")
+    with annotated([(moe, n) for n in parts[:4]] + [(transformer, "attend")]):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # the ranges' own spans on the device timeline are not kernels: left out
+    dev = [(e.name, e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == DeviceType.CUDA and not e.name.startswith("cs.")]
+
+    def kernels_under(e):
+        out = [(k.name, k.duration) for k in getattr(e, "kernels", [])]
+        for c in e.cpu_children:
+            out += kernels_under(c)
+        return out
+
+    split, ranged_gemm = {}, 0.0
+    for n in parts:
+        ks = [k for e in events if e.name == f"cs.{n}" for k in kernels_under(e)]
+        split[f"{n}_ms"] = sum(d for _, d in ks) / 1e3
+        ranged_gemm += sum(d for name, d in ks if "gemm" in name.lower() or "xmma" in name.lower())
+    gemm = _busy_ms([e for e in dev if "gemm" in e[0].lower() or "xmma" in e[0].lower()])
+    busy = _busy_ms(dev)
+    by_name: dict = {}
+    for n, start, stop in dev:
+        ms, count = by_name.get(n[:80], (0.0, 0))
+        by_name[n[:80]] = (ms + (stop - start) / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, **split,
+            "other_gemm_ms": max(gemm - ranged_gemm / 1e3, 0.0),
+            "k1_ms": _busy_ms([e for e in dev if "vq_argmin" in e[0]]),
+            "idle_share": 1 - busy / wall_ms, "device_kernels": len(dev),
+            "top_kernels": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in top]}
+
+
+def mode_rows(name, codec, wavs, limits, want, *, routed: bool = False):
+    """Each tokenize mode of ``limits`` on ``wavs`` (B x 1 s batches)
+    against conformant: launches of the first call (``want``), audio-s/s,
+    token flips and codes used over the batches, and the latents' max |d|
+    / max |latent|, fatal over the mode's limit. ``routed`` (an MoE
+    encoder): routing differences against conformant are counted, and the
+    latent error is taken over the requests no routing difference reached
+    (the rest counted); ``balanced``, which the Conformer lacks, must raise."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    def run(w, mode):
+        with RouteRecorder() as rec:
+            lat = C.encode_in_mode(codec.encoder, w[:, None], mode)
+        with C.full_fp32(), torch.no_grad():
+            codes = C.quantize(codec, lat)[1]
+        return lat, codes, rec.routes
+
+    refs = [run(w, "conformant") for w in wavs]
+    rows = {}
+    for mode, limit in limits.items():
+        _, launches = counted(lambda: C.tokenize(codec, wavs[0], mode=mode))
+        expect_launches(f"{name} tokenize mode {mode}", launches, want)
+        flips, used, lat_rel, lat_rel_all, reached_n = 0, set(), 0.0, 0.0, 0
+        for w, (ref_lat, ref_codes, ref_routes) in zip(wavs, refs):
+            lat, codes, routes = run(w, mode)
+            flips += int((codes != ref_codes).sum())
+            used |= set(torch.unique(codes).tolist())
+            lat_rel_all = max(lat_rel_all, ((lat - ref_lat).abs().max()
+                                            / ref_lat.abs().max()).item())
+            keep = list(range(w.shape[0]))
+            if routed:
+                _, reached = routing_differences(f"{name} {mode}", routes, ref_routes,
+                                                 w.shape[1] // HOP, strict=False)
+                keep = [i for i in keep if i not in reached]
+                reached_n += len(reached)
+            if keep:
+                lat_rel = max(lat_rel, ((lat[keep] - ref_lat[keep]).abs().max()
+                                        / ref_lat[keep].abs().max()).item())
+        if not lat_rel <= limit:
+            fail(f"{name} tokenize mode {mode}: max |dlatent| / max |latent| = {lat_rel:.3g} "
+                 f"against conformant, over {limit:g}")
+        ms = cuda_ms(lambda: C.tokenize(codec, wavs[0], mode=mode), iters=3)
+        tokens = sum(int(c.numel()) for _, c, _ in refs)
+        rows[mode] = {"ms": ms, "audio_s_per_s": wavs[0].shape[0] / (ms / 1e3),
+                      "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]},
+                      "token_flips": flips, "tokens": tokens, "flip_rate": flips / tokens,
+                      "codes_used": len(used), "max_abs_dlatent_over_max_latent": lat_rel,
+                      **({"requests_reached_by_routing": reached_n,
+                          "requests": len(wavs) * wavs[0].shape[0],
+                          "max_abs_dlatent_over_max_latent_all_requests": lat_rel_all}
+                         if routed else {})}
+        print(json.dumps({f"{name}_mode": {"mode": mode, **rows[mode]}}))
+    if routed:
+        try:
+            C.tokenize(codec, wavs[0], mode="balanced")
+        except ValueError as e:
+            rows["balanced"] = f"raises ValueError: {e}"
+        else:
+            fail(f"{name} tokenize mode balanced did not raise")
+    return rows
+
+
+def write_gen_run(run: Path, cfg):
+    """A generator-only port run dir of ``cfg``, random weights from seed 0
+    (scripts/jax_run_to_torch.py's form); returns its codec on the CPU."""
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices
+    from audiotokenization_tpu_torch.config import save_config
+    from audiotokenization_tpu_torch.models import codec as C
+
+    (run / "ckpt" / "0").mkdir(parents=True)
+    save_config(cfg, run / "config.json")
+    gen = C.init_codec(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    torch.save({"step": 0, "gen": gen.state_dict()}, run / "ckpt" / "0" / "state.pt")
+    return extract_indices.load_model(run, device="cpu")[1]
+
+
+def moe_offline(cfg):
+    """15d: from an MoE run dir, cli.extract_indices at batch EXTRACT_BATCH
+    (the per-file route: K1 once a file, ceil(len / hop) int16 frames, the
+    first MOE_HOLD_FILES files equal to the card's own tokenize of each and
+    to the CPU's where no routing difference reached them),
+    make_ragged_tokenizer refusing, cli.inference_full on whole files
+    (per file, K1 once a file)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices, inference_full
+    from audiotokenization_tpu_torch.data.audio_io import read_audio
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.resample import resample
+    from audiotokenization_tpu_torch.utils.ragged import make_ragged_tokenizer
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_", dir=build_dir))
+    try:
+        files = write_extract_corpus(root, MOE_EXTRACT_FILES)
+        run = root / "run"
+        codec_cpu = write_gen_run(run, cfg)
+        counts, launches = counted(lambda: extract_indices.main(
+            ["--dataset_root", str(root), "--save_path", str(run), "--dataset_path",
+             "LibriSpeech", "--ext_audio", ".wav", "--subsets", "test-clean",
+             "--batch_size", str(EXTRACT_BATCH)]))
+        if counts["saved"] != MOE_EXTRACT_FILES or counts["errors"] \
+                or counts["device_batches"] != MOE_EXTRACT_FILES:
+            fail(f"MoE extraction: {counts['saved']} saved, {counts['errors']} errors, "
+                 f"{counts['device_batches']} device calls for {MOE_EXTRACT_FILES} files")
+        expect_launches("MoE extraction (one tokenize a file)", launches,
+                        (MOE_EXTRACT_FILES, 0))
+        npys = {p.stem: p for p in (run / "extracted_indices").rglob("*.npy")}
+        for path, rate, n in files:
+            a = np.load(npys[path.stem])
+            if a.dtype != np.int16 or a.shape != (ceil_div(ceil_div(n * SR, rate), HOP),):
+                fail(f"MoE extraction {path.name}: {a.dtype} {a.shape}")
+        codec = extract_indices.load_model(run)[1]
+        flips = near = reached_n = 0
+        for path, rate, _ in files[:MOE_HOLD_FILES]:
+            wav, r = read_audio(path)
+            wav = wav[0] if r == SR else resample(torch.from_numpy(wav[0]), r, SR).numpy()
+            wav = np.pad(wav, (0, -len(wav) % HOP)).astype(np.float32)[None]
+            with C.full_fp32(), torch.no_grad():
+                with RouteRecorder() as on_card:
+                    lat = C.encode(codec, torch.from_numpy(wav).cuda())
+                    own = C.quantize(codec, lat)[1][0, 0].cpu().numpy()
+                with RouteRecorder() as on_cpu:
+                    lat_cpu = C.encode(codec_cpu, torch.from_numpy(wav))
+                    want = C.quantize(codec_cpu, lat_cpu)[1][0, 0].numpy()
+            if not np.array_equal(np.load(npys[path.stem]), own):
+                fail(f"MoE extraction {path.name}: the file differs from the card's tokenize")
+            _, reached = routing_differences(f"MoE extraction {path.name}", on_card.routes,
+                                             on_cpu.routes, wav.shape[1] // HOP)
+            if reached:
+                reached_n += 1
+                continue
+            f, m = hold_tokens(f"MoE extraction {path.name}", own, want,
+                               frame_gaps(codec_cpu, lat_cpu)[0].numpy())
+            flips, near = flips + f, near + m
+        try:
+            make_ragged_tokenizer(cfg)
+        except NotImplementedError as e:
+            ragged = f"raises NotImplementedError: {e}"
+        else:
+            fail("make_ragged_tokenizer took an MoE Conformer")
+        (root / "eval.txt").write_text("\n".join(str(p) for p, _, _ in files[:MOE_EVAL_FILES]))
+        summary, eval_launches = counted(lambda: inference_full.main(
+            ["--save_path", str(run), "--filelist", str(root / "eval.txt"), "--duration", "0",
+             "--batch_size", str(MOE_EVAL_FILES), "--num_examples", "0"]))
+        expect_launches("MoE inference_full (one forward a file)", eval_launches,
+                        (MOE_EVAL_FILES, 0))
+        if not (np.isfinite(summary["si_snr"]) and np.isfinite(summary["stoi"])):
+            fail(f"MoE inference_full: {summary}")
+        return {"files": MOE_EXTRACT_FILES, "batch_size": EXTRACT_BATCH,
+                **{k: counts[k] for k in ("audio_seconds", "audio_s_per_s", "device_batches",
+                                          "device_s")},
+                "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]},
+                "launches_per_file": {"vq_argmin": 1, "residual_unit": 0},
+                "tokens_differ_vs_cpu": flips, "near_ties": near,
+                "files_reached_by_routing": reached_n, "ragged_tokenizer": ragged,
+                "eval": {k: summary[k] for k in ("si_snr", "stoi", "frames", "audio_s_per_s")}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def timed_training(name, cfg, card, want):
+    """A bf16 training step of ``cfg`` at B x 1 s: 2 warm-ups, TRAIN_STEPS
+    timed (CUDA events) with K1 / K2 launches ``want`` a step, finite losses,
+    fp32 masters, every MoE router moved; audio-s/s and peak memory."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.ops.moe import MoEFeedForward
+    from audiotokenization_tpu_torch.train.state import init_train_state
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    state = init_train_state(cfg, generator=torch.Generator().manual_seed(0))
+    routers = {n: m.router.w.detach().clone() for n, m in state.gen.named_modules()
+               if isinstance(m, MoEFeedForward)}
+    step = make_train_step(cfg)
+    wav = torch.from_numpy((np.random.RandomState(2).randn(B, SR) * 0.1).astype(np.float32)).cuda()
+    for _ in range(TRAIN_WARMUP):
+        step(state, {"wav": wav})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (ms, metrics), launches = counted(lambda: timed_steps(step, state, wav))
+    per_step = (launches[0] / TRAIN_STEPS, launches[1] / TRAIN_STEPS)
+    expect_launches(f"{name} training step", per_step, want)
+    last = {k: float(v) for k, v in metrics.items() if k != "codebook_hist"}
+    bad = [k for k, v in last.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"{name} training: non-finite metrics {bad}")
+    if {p.dtype for p in state.gen.parameters()} != {torch.float32}:
+        fail(f"{name} training: the master parameters are not fp32")
+    modules = dict(state.gen.named_modules())
+    still = [n for n, w in routers.items() if torch.equal(modules[n].router.w.detach(), w)]
+    if still:
+        fail(f"{name} training: routers that did not move: {still}")
+    out = {"ms_per_step": ms, "audio_s_per_s": B / (ms / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": {"vq_argmin": per_step[0], "residual_unit": per_step[1]},
+           "routers_moved": len(routers), "precision": cfg.train.precision,
+           "steps_timed": TRAIN_STEPS, "metrics": last}
+    print(json.dumps({f"{name}_train_step": out, "card": card}))
+    return out
+
+
+def moe_path(card):
+    """15a-e. configs/conformer_moe.yaml at full width and depth, random
+    weights from seed 0 (module docstring). Prints the conformer_moe line."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    cfg = repo_config("conformer_moe.yaml")
+    codec = seeded_codec(cfg)
+    t0 = time.perf_counter()
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    wav = torch.from_numpy(wav_np).cuda()
+    codes, tok = counted(lambda: C.tokenize(codec, wav))
+    out, dec = counted(lambda: offline_decode(codec, codes))
+    expect_launches("MoE tokenize", tok, (1, 0))
+    expect_launches("MoE decode", dec, (0, 0))
+    if tuple(codes.shape) != (1, B, SR // HOP) or tuple(out.shape) != (B, 1, SR) \
+            or not torch.isfinite(out).all():
+        fail(f"MoE: codes {tuple(codes.shape)}, waveform {tuple(out.shape)}")
+    result = {"offline": moe_vs_cpu("MoE main path", codec, wav_np, codes, out)}
+    tok_ms = cuda_ms(lambda: C.tokenize(codec, wav), iters=5)
+    dec_ms = cuda_ms(lambda: offline_decode(codec, codes), iters=5)
+    result["offline"].update(
+        tokenize_ms=tok_ms, tokenize_audio_s_per_s=B / (tok_ms / 1e3), decode_ms=dec_ms,
+        decode_audio_s_per_s=B / (dec_ms / 1e3),
+        launches_per_tokenize={"vq_argmin": tok[0], "residual_unit": tok[1]})
+    result["profile"] = {"tokenize": moe_split(lambda: C.tokenize(codec, wav)),
+                         "decode": moe_split(lambda: offline_decode(codec, codes))}
+    print(json.dumps({"conformer_moe_profile": result["profile"]}))
+    result["phase_s"] = {"a": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()  # 15b: one long input
+    long_np = (np.random.RandomState(2).randn(LONG_REQUESTS, LONG_SECONDS * SR) * 0.1
+               ).astype(np.float32)
+    long = torch.from_numpy(long_np).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    long_codes, launches = counted(lambda: C.tokenize(codec, long))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    expect_launches("MoE long tokenize", launches, (1, 0))
+    long_out = offline_decode(codec, long_codes[:, :1])
+    cmp = moe_vs_cpu("MoE long input", codec, long_np, long_codes, long_out, n_ref=1)
+    ms = cuda_ms(lambda: C.tokenize(codec, long), iters=3, warmup=1)
+    result["long"] = {"requests": LONG_REQUESTS, "seconds": LONG_SECONDS,
+                      "frames": int(long_codes.shape[-1]), "tokenize_ms": ms,
+                      "tokenize_audio_s_per_s": LONG_REQUESTS * LONG_SECONDS / (ms / 1e3),
+                      "tokenize_peak_memory_gb_over_weights": peak,
+                      "launches_per_tokenize": {"vq_argmin": launches[0],
+                                                "residual_unit": launches[1]}, **cmp}
+    print(f"MoE long input: {ms:.1f} ms a tokenize, peak {peak:.2f} GB over the weights")
+    del long, long_out
+    result["phase_s"]["b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()  # 15c: the modes
+    wavs = [wav] + [torch.from_numpy((np.random.RandomState(i).randn(B, SR) * 0.1)
+                                     .astype(np.float32)).cuda() for i in range(1, MODE_BATCHES)]
+    result["modes"] = mode_rows("conformer_moe", codec, wavs, CONFORMER_MODE_LAT_REL, (1, 0),
+                                routed=True)
+    del codec
+    result["phase_s"]["c"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()  # 15d: offline from a run dir
+    result["offline_cli"] = moe_offline(cfg)
+    result["phase_s"]["d"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()  # 15e: training
+    result["step_vs_cpu"] = train_step_vs_cpu(cfg, line="moe_train_step_vs_cpu")
+    result["train"] = {"conformer_moe": timed_training("conformer_moe", cfg, card, (1, 0)),
+                       "conformer": timed_training("conformer", repo_config("conformer.yaml"),
+                                                   card, (1, 0))}
+    result["phase_s"]["e"] = time.perf_counter() - t0
+    off = result["offline"]
+    line = {"tokenize_audio_s_per_s": off["tokenize_audio_s_per_s"],
+            "decode_audio_s_per_s": off["decode_audio_s_per_s"],
+            "dropped_frac_encoder": off["dropped_frac_encoder"],
+            "launches": {
+                "tokenize": off["launches_per_tokenize"],
+                "long_tokenize": result["long"]["launches_per_tokenize"],
+                "modes_per_call": {m: result["modes"][m]["launches"]
+                                   for m in CONFORMER_MODE_LAT_REL},
+                "extract_per_file": result["offline_cli"]["launches_per_file"],
+                "train_per_step": result["train"]["conformer_moe"]["launches_per_step"]},
+            **result}
+    print(json.dumps({"conformer_moe": line, "card": card}))
+    return line
+
+
+def fsq_bounded_vs_cpu(codec, wav_np):
+    """The values FSQ rounds (project_in, then the shifted tanh) of
+    ``wav_np`` on the card against the CPU's: fatal outside the latents'
+    tolerance (LAT_RTOL / LAT_ATOL); with their spread, since on random
+    weights every frame may take one code and the tokens then say little."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.quantizers import fsq
+    from audiotokenization_tpu_torch.ops.conv import linear
+
+    def bounded(c, w):
+        with C.full_fp32(), torch.no_grad():
+            z = linear(C.encode(c, w).transpose(1, 2), c.quantizer.project_in)
+            return fsq.fsq_bounded(z, c.quantizer.levels).cpu()
+
+    got = bounded(codec, torch.from_numpy(wav_np).cuda())
+    want = bounded(copy.deepcopy(codec).cpu(), torch.from_numpy(wav_np))
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=LAT_RTOL, atol=LAT_ATOL):
+        fail(f"FSQ bounded values outside rtol 1e-3 / atol 2e-4 of the CPU (max |d| {err:.3g})")
+    out = {"max_abs_err": err, "min": want.amin((0, 1)).tolist(),
+           "max": want.amax((0, 1)).tolist(), "std": want.std((0, 1)).tolist()}
+    print(f"FSQ bounded values vs CPU: max |d| {err:.3g}; per dim min {out['min']}, "
+          f"max {out['max']}")
+    return out
+
+
+def fsq_path(card):
+    """15f. configs/bigcodec_fsq.yaml at full width, random weights from
+    seed 0 (module docstring). Prints the bigcodec_fsq line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.utils import ragged
+    from audiotokenization_tpu_torch.utils.ragged import make_ragged_tokenizer
+
+    t0 = time.perf_counter()
+    cfg = repo_config("bigcodec_fsq.yaml")
+    codec = seeded_codec(cfg)
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    wav = torch.from_numpy(wav_np).cuda()
+    codes, tok = counted(lambda: C.tokenize(codec, wav))
+    out, dec = counted(lambda: offline_decode(codec, codes))
+    expect_launches("FSQ tokenize", tok, (0, n_units))
+    expect_launches("FSQ decode", dec, (0, n_units))
+    if tuple(codes.shape) != (1, B, SR // HOP) or tuple(out.shape) != (B, 1, SR) \
+            or not torch.isfinite(out).all() or int(codes.max()) >= 512 or int(codes.min()) < 0:
+        fail(f"FSQ: codes {tuple(codes.shape)} in {int(codes.min())}..{int(codes.max())}, "
+             f"waveform {tuple(out.shape)}")
+    result = {"offline": hold_against_cpu("FSQ main path", codec, wav_np, codes, out)}
+    result["offline"]["bounded"] = fsq_bounded_vs_cpu(codec, wav_np[:2])
+    tok_ms = cuda_ms(lambda: C.tokenize(codec, wav), iters=5)
+    dec_ms = cuda_ms(lambda: offline_decode(codec, codes), iters=5)
+    result["offline"].update(
+        tokenize_ms=tok_ms, tokenize_audio_s_per_s=B / (tok_ms / 1e3), decode_ms=dec_ms,
+        decode_audio_s_per_s=B / (dec_ms / 1e3), codes_used=int(torch.unique(codes).numel()),
+        launches_per_tokenize={"vq_argmin": tok[0], "residual_unit": tok[1]},
+        launches_per_decode={"vq_argmin": dec[0], "residual_unit": dec[1]})
+    wavs = [wav] + [torch.from_numpy((np.random.RandomState(i).randn(B, SR) * 0.1)
+                                     .astype(np.float32)).cuda() for i in range(1, MODE_BATCHES)]
+    result["modes"] = mode_rows("bigcodec_fsq", codec, wavs,
+                                {m: MODE_LAT_REL[m] for m in ("high", "fast")}, (0, n_units))
+
+    lens = [int(sec * SR) // HOP * HOP for sec in np.linspace(0.7, 6.3, FSQ_RAGGED_FILES)]
+    rng = np.random.RandomState(6)
+    batch = np.zeros((len(lens), max(lens)), np.float32)
+    for i, n in enumerate(lens):
+        batch[i, :n] = rng.randn(n) * 0.1
+    batch_t = torch.from_numpy(batch).cuda()
+    rcodes, launches = counted(lambda: make_ragged_tokenizer(cfg)(
+        codec, batch_t, torch.tensor(lens).cuda()))
+    expect_launches("FSQ ragged tokenizer", launches, (0, n_units))
+    differ = near = 0
+    for i, n in enumerate(lens):
+        with C.full_fp32(), torch.no_grad():
+            lat = C.encode(codec, batch_t[i:i + 1, :n])
+            own = C.quantize(codec, lat)[1]
+        f, m = hold_codes(f"FSQ ragged row {i} vs its own tokenize",
+                          rcodes[:, i:i + 1, :n // HOP], own, frame_gaps(codec, lat))
+        differ, near = differ + f, near + m
+    result["ragged"] = {"files": len(lens), "tokens_differ": differ, "near_boundary": near,
+                        "launches_per_call": {"vq_argmin": launches[0],
+                                              "residual_unit": launches[1]}}
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fsq_", dir=build_dir))
+    ledger = None
+    try:
+        files = write_extract_corpus(root, FSQ_EXTRACT_FILES)
+        run = root / "run"
+        codec_cpu = write_gen_run(run, cfg)
+        ledger = LaunchLedger({"batch": (ragged, "make_ragged_tokenizer")})
+        counts, launches = counted(lambda: extract_indices.main(
+            ["--dataset_root", str(root), "--save_path", str(run), "--dataset_path",
+             "LibriSpeech", "--ext_audio", ".wav", "--subsets", "test-clean",
+             "--batch_size", str(EXTRACT_BATCH)]))
+        ledger.close()
+        calls = ledger.calls["batch"]
+        if counts["saved"] != FSQ_EXTRACT_FILES or counts["errors"] \
+                or set(calls) != {(0, n_units)} or tuple(launches) != (0, n_units * len(calls)):
+            fail(f"FSQ extraction: {counts['saved']} saved, {counts['errors']} errors, "
+                 f"launches {launches} over batches {calls}")
+        npys = {p.stem: p for p in (run / "extracted_indices").rglob("*.npy")}
+        for path, rate, n in files:
+            a = np.load(npys[path.stem])
+            if a.dtype != np.int16 or a.shape != (ceil_div(ceil_div(n * SR, rate), HOP),) \
+                    or a.min() < 0 or a.max() >= 512:
+                fail(f"FSQ extraction {path.name}: {a.dtype} {a.shape} "
+                     f"in {a.min()}..{a.max()}")
+        flips = near_x = 0
+        for path, _, _ in files[:4]:
+            want, gap = cpu_tokens(codec_cpu, path, hop_pad=True)
+            f, m = hold_tokens(f"FSQ extraction of {path.name}", np.load(npys[path.stem]),
+                               want, gap)
+            flips, near_x = flips + f, near_x + m
+        result["extract"] = {"files": FSQ_EXTRACT_FILES, "batch_size": EXTRACT_BATCH,
+                             **{k: counts[k] for k in ("audio_seconds", "audio_s_per_s",
+                                                       "device_batches", "device_s")},
+                             "launches_per_batch": {"vq_argmin": calls[0][0],
+                                                    "residual_unit": calls[0][1]},
+                             "tokens_differ_vs_cpu": flips, "near_boundary": near_x}
+    finally:
+        if ledger is not None:
+            ledger.close()
+        shutil.rmtree(root, ignore_errors=True)
+    del codec
+    result["train"] = timed_training("bigcodec_fsq", cfg, card, (0, 2 * n_units))
+    result["phase_s"] = time.perf_counter() - t0
+    off = result["offline"]
+    line = {"tokenize_audio_s_per_s": off["tokenize_audio_s_per_s"],
+            "decode_audio_s_per_s": off["decode_audio_s_per_s"],
+            "launches": {"tokenize": off["launches_per_tokenize"],
+                         "decode": off["launches_per_decode"],
+                         "modes_per_call": {m: r["launches"] for m, r in result["modes"].items()},
+                         "ragged_per_call": result["ragged"]["launches_per_call"],
+                         "extract_per_batch": result["extract"]["launches_per_batch"],
+                         "train_per_step": result["train"]["launches_per_step"]},
+            **result}
+    print(json.dumps({"bigcodec_fsq": line, "card": card}))
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -2480,9 +3170,13 @@ def main() -> int:
     aa = aa_chunked_path(cfg, flagship, card)
     del flagship
     conformer = conformer_path(card)
+    t0 = time.perf_counter()
+    moe = moe_path(card)
+    fsq = fsq_path(card)
+    print(json.dumps({"phase_15_s": time.perf_counter() - t0, "card": card}))
 
     def path_launches(kernel):
-        """A kernel's launches per call on the paths of phases 10-13."""
+        """A kernel's launches per call on the paths of phases 10-15."""
         return {
             "modes_per_call": {m: r["launches"][kernel] for m, r in modes.items()},
             "extract_fast": ext["extract_fast"]["launches"][kernel],
@@ -2491,10 +3185,11 @@ def main() -> int:
             "antialias_per_tokenize": aa["antialias_offline"]["launches_per_tokenize"][kernel],
             "antialias_ragged_per_call": aa["antialias_ragged"]["launches_per_call"][kernel],
             "chunked_per_window": aa["chunked"]["launches_per_window"][kernel],
-            "conformer": {
-                path: ({m: r[kernel] for m, r in got.items()} if path == "modes_per_call"
-                       else got[kernel])
-                for path, got in conformer["launches"].items()}}
+            **{name: {path: ({m: r[kernel] for m, r in got.items()}
+                             if path == "modes_per_call" else got[kernel])
+                      for path, got in line["launches"].items()}
+               for name, line in (("conformer", conformer), ("conformer_moe", moe),
+                                  ("bigcodec_fsq", fsq))}}
 
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
     # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
@@ -2552,7 +3247,11 @@ def main() -> int:
                               "anti-aliased tokenize and ragged call, per streaming step, per "
                               "chunked window; conformer: per Conformer tokenize (32 x 1 s and "
                               "4 x 30 s), tokenize mode call, ragged tokenizer and codec call, "
-                              "extraction device batch and streaming step"}))
+                              "extraction device batch and streaming step; conformer_moe: per "
+                              "MoE Conformer tokenize (32 x 1 s and 4 x 30 s), mode call, "
+                              "extracted file (per-file route) and bf16 training step; "
+                              "bigcodec_fsq: per FSQ BigCodec tokenize, decode, mode call, "
+                              "ragged call, extraction device batch and bf16 training step"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -138,8 +138,8 @@ def test_tokenize_modes_not_ported_raise():
 
 def test_variants_not_ported_raise():
     """Causal and anti-aliased codecs build now, their units off K2 (the
-    route is fixed by the config); the Conformer builds, but not with its
-    MoE feed-forward."""
+    route is fixed by the config); the Conformer builds with its MoE
+    feed-forward, and FSQ builds; the quantizers still to port (LFQ) raise."""
     cfg = PC.Config()
     cfg.model.codec_encoder.causal = True
     cfg.model.codec_decoder.antialias = True
@@ -149,7 +149,11 @@ def test_variants_not_ported_raise():
     cfg = PC.Config()
     cfg.model.codec_encoder.type = "conformer_stft"
     cfg.model.codec_encoder.ffn_type = "moe"
-    with pytest.raises(NotImplementedError, match="item 13"):
+    cfg.model.codec_decoder.fsq = True
+    codec = TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
+    assert codec.encoder_moe and type(codec.quantizer).__name__ == "FSQ"
+    cfg.model.codec_decoder.fsq, cfg.model.codec_decoder.quantizer = False, "lfq"
+    with pytest.raises(NotImplementedError, match="item 14"):
         TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
 
 

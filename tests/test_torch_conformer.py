@@ -17,7 +17,7 @@ same weights through params_from_jax, seeded inputs):
   ``load_reference_checkpoint`` on a reference run dir;
 - ``configs/conformer.yaml`` at full width, 1 x 1 s (tokens but at top-2
   gaps under 1e-5, latents, waveform);
-- what ``Codec`` still refuses (the MoE feed-forward).
+- the MoE feed-forward building, and the ragged path refusing it.
 """
 import dataclasses
 import pathlib
@@ -262,11 +262,16 @@ def test_fast_mode_casts_the_encoder_once(models):
 
 
 def test_codec_refuses_the_moe_feed_forward():
+    """The MoE feed-forward builds (the encoder's; the decoder's stays dense,
+    as JAX builds it), and the batched ragged path refuses it with JAX's
+    reason: expert capacity is batch-global."""
     for part in ("codec_encoder", "codec_decoder"):
         cfg = PC.from_dict(dataclasses.asdict(tiny()))
         getattr(cfg.model, part).ffn_type = "moe"
-        with pytest.raises(NotImplementedError, match="item 13"):
-            TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
+        codec = TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
+        assert codec.encoder_moe == (part == "codec_encoder")
+        with pytest.raises(NotImplementedError, match="capacity routing is batch-global"):
+            make_ragged_tokenizer(cfg, device="cpu")
 
 
 # -- reference checkpoints -------------------------------------------------------

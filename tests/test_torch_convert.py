@@ -226,12 +226,13 @@ def test_unported_reference_checkpoints_raise(jax_tree):
     def moe_conformer(c):
         c.model.codec_encoder.type, c.model.codec_encoder.ffn_type = "conformer_stft", "moe"
 
-    for edit, item in ((moe_conformer, "13"),
-                       (lambda c: setattr(c.model.codec_decoder, "fsq", True), "14"),
-                       (lambda c: setattr(c.train, "use_semantic", True), "15")):
+    for edit, reason in ((moe_conformer, "dense FFNs only"),
+                         (lambda c: setattr(c.model.codec_decoder, "quantizer", "lfq"),
+                          "item 14"),
+                         (lambda c: setattr(c.train, "use_semantic", True), "item 15")):
         cfg = PC.from_dict(dataclasses.asdict(jcfg))
         edit(cfg)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(NotImplementedError, match=reason):
             TV.convert_codec_state_dict(sd, cfg)
     with pytest.raises(NotImplementedError, match="item 15"):
         TV.convert_codec_state_dict({**sd, "fc_prior.weight": torch.zeros(1)},

@@ -3,8 +3,9 @@
 within 1e-5; ``make_ragged_codec`` on the tiny config against JAX's
 ``make_ragged_codec`` and the port's own per-file ``forward``: codes byte
 for byte, reconstructions within rtol 1e-5 / atol 1e-6 (as
-tests/test_ragged_batch.py holds JAX's); a zero-length row is harmless;
-unported families raise."""
+tests/test_ragged_batch.py holds JAX's), also with the FSQ quantizer; a
+zero-length row is harmless; unported families raise (the MoE Conformer
+with JAX's reason)."""
 import dataclasses
 
 import jax
@@ -116,17 +117,51 @@ def test_ragged_codec_zero_length_row_and_int16(tiny_codec):
                                rtol=WAV_RTOL, atol=WAV_ATOL)
 
 
+def test_ragged_codec_fsq_matches_jax_and_per_file():
+    """An FSQ codec (``quantizer: fsq``, levels (4, 4, 4, 8)) through the
+    ragged codec: codes byte for byte against JAX's ragged codec and the
+    port's per-file forward, reconstructions within rtol 1e-5 / atol 1e-6."""
+    from test_torch_conformer_train import jax_tree
+    from test_torch_fsq import spread
+
+    jcfg = GE._tiny_config()
+    jcfg.train.precision = "fp32"
+    d = jcfg.model.codec_decoder
+    d.quantizer, d.fsq_levels, d.codebook_size = "fsq", (4, 4, 4, 8), 512
+    cfg = PC.from_dict(dataclasses.asdict(jcfg))
+    codec = spread(TC.init_codec(cfg, generator=torch.Generator().manual_seed(6), device="cpu"))
+    params = jax_tree(codec.state_dict())
+    wavs, batch = _batch(LENGTHS, 1000, seed=6)
+    lens = np.asarray(LENGTHS, np.int32)
+    j_recon, j_codes = jax_make_ragged_codec(jcfg)(params, jnp.asarray(batch), jnp.asarray(lens))
+    recon, codes = make_ragged_codec(cfg, device="cpu")(codec, torch.from_numpy(batch),
+                                                        torch.from_numpy(lens))
+    assert codes.shape == (1, 3, 100) and len(torch.unique(codes)) > 20
+    for i, w in enumerate(wavs):
+        n = len(w) // 10
+        np.testing.assert_array_equal(codes[:, i, :n].numpy(), np.asarray(j_codes)[:, i, :n])
+        np.testing.assert_allclose(recon[i, :len(w)].numpy(), np.asarray(j_recon)[i, :len(w)],
+                                   rtol=WAV_RTOL, atol=WAV_ATOL)
+        with torch.no_grad():
+            out = TC.forward(codec, {"wav": torch.from_numpy(w)[None]})
+        np.testing.assert_array_equal(codes[:, i, :n].numpy(), out.vq_code[:, 0].numpy())
+        np.testing.assert_allclose(recon[i, :len(w)].numpy(), out.gen_wav[0, 0].numpy(),
+                                   rtol=WAV_RTOL, atol=WAV_ATOL)
+
+
 @pytest.mark.parametrize("change", [
     # the Conformer's MoE feed-forward: expert capacity is batch-global
     (("codec_encoder", "type", "conformer_stft"), ("codec_encoder", "ffn_type", "moe")),
     (("codec_decoder", "type", "conformer_istft"), ("codec_decoder", "ffn_type", "moe")),
     (("codec_decoder", "quantizer", "ema_vq"),), (("codec_decoder", "quantizer", "lfq"),),
-    (("codec_decoder", "quantizer", "fsq"),), (("train", "use_semantic", True),)],
+    (("train", "use_semantic", True),)],
     ids=["encoder.ffn_type=moe", "decoder.ffn_type=moe", "quantizer=ema_vq", "quantizer=lfq",
-         "quantizer=fsq", "use_semantic=True"])
+         "use_semantic=True"])
 def test_ragged_codec_refuses_unported_families(change):
     cfg = PC.Config()
     for group, field, value in change:
         setattr(cfg.train if group == "train" else getattr(cfg.model, group), field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    moe = any(v == "moe" for _, _, v in change)
+    with pytest.raises(NotImplementedError,
+                       match="capacity routing is batch-global" if moe else "ROADMAP"):
         make_ragged_codec(cfg, device="cpu")

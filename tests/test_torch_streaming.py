@@ -211,7 +211,7 @@ def test_streaming_roundtrip_causal(plain):
 def test_streaming_rejects_noncausal_and_conformer(plain):
     """Non-causal configs raise; the BigCodec classes refuse a Conformer,
     and the Conformer's classes a non-causal Conformer (``ValueError``) and
-    its MoE feed-forward (``NotImplementedError``, item 13)."""
+    its MoE feed-forward (``NotImplementedError``, with JAX's reason)."""
     _, _, codec = plain
     noncausal = TC.init_codec(PC.from_dict(dataclasses.asdict(tiny(causal=False))),
                               generator=torch.Generator().manual_seed(0), device="cpu")
@@ -242,7 +242,7 @@ def test_streaming_rejects_noncausal_and_conformer(plain):
     for make in (lambda: StreamingConformerTokenizer(conformer, chunk_samples=200, device="cpu"),
                  lambda: stream_decode(conformer, np.zeros((1, 1, 4)), chunk_frames=2,
                                        device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="batch/chunk-global"):
             make()
 
 

@@ -381,14 +381,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(jax_state):
         train_state_from_jax(jax.tree.map(np.asarray, state), cfg)
 
 
-@pytest.mark.parametrize("change", ["ema_vq", "semantic", "moe"])
+@pytest.mark.parametrize("change", ["ema_vq", "semantic", "lfq"])
 def test_unported_training_configurations_raise(change):
     cfg = port_cfg(tiny())
-    if change == "ema_vq":
-        cfg.model.codec_decoder.quantizer = "ema_vq"
-    elif change == "semantic":
+    if change == "semantic":
         cfg.train.use_semantic = True
     else:
-        cfg.model.codec_encoder.ffn_type = "moe"
+        cfg.model.codec_decoder.quantizer = change
     with pytest.raises(NotImplementedError):
         make_train_step(cfg, device="cpu")
