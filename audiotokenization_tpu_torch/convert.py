@@ -22,11 +22,15 @@ state dict (``encoder.*``, ``decoder.*`` with the quantizer under
 for tensor, tolerant of the causal convs' inner ``.conv.``;
 ``load_reference_checkpoint`` finds and reads a reference run dir. Both
 codec families (BigCodec, and the Conformer STFT/ISTFT codec of the
-reference's config1) with the factorized VQ or FSQ are ported: the other
-quantizers and semantic checkpoints raise ``NotImplementedError``, and so
-does an MoE Conformer config, which the reference does not have (its JAX
-run dirs convert through ``params_from_jax``: the stacked (E, ...) expert
-leaves map key for key).
+reference's config1) with the factorized VQ or FSQ convert: an EMA-VQ or
+LFQ reference checkpoint and semantic checkpoints raise
+``NotImplementedError`` (the JAX package's converter has no mapping for
+those quantizers either), and so does an MoE Conformer config, which the
+reference does not have. JAX run dirs of all of them convert through
+``params_from_jax``: the EMA quantizer's state leaves (``embed``,
+``embed_avg``, ``cluster_size``, the 0-d ``initted``) are the buffers of
+``quantizers/ema_vq.py::EmaVQ``, LFQ's quantizer tree is empty, and the
+MoE's stacked (E, ...) expert leaves map key for key.
 """
 from __future__ import annotations
 
@@ -291,8 +295,11 @@ def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, to
                                       "params_from_jax)")
     quantizer = quantizer_kind(cfg)
     if quantizer not in ("fvq", "fsq"):
-        raise NotImplementedError(f"converting the {quantizer!r} quantizer is not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
+        raise NotImplementedError(
+            f"a reference checkpoint of the {quantizer!r} quantizer has no mapping: the JAX "
+            "package's converter reads every quantizer but FSQ as a factorized residual VQ "
+            "(audiotokenization_tpu/convert.py:305-312); a JAX run dir converts through "
+            "params_from_jax")
     if "fc_prior" in groups or cfg.train.use_semantic:
         raise NotImplementedError("converting the semantic heads is not ported yet "
                                   "(ROADMAP Queue 1 item 15)")

@@ -3,8 +3,11 @@
 Counterpart of ``audiotokenization_tpu/models/codec.py`` for the two codec
 families, BigCodec (``models/bigcodec.py``) and the Conformer STFT/ISTFT
 codec (``models/conformer.py``), each side built from its ``type``, with
-the factorized VQ (``quantizers/factorized_vq.py``) or FSQ
-(``quantizers/fsq.py``; ``fsq: true``) as its quantizer. The serving path is
+the factorized VQ (``quantizers/factorized_vq.py``), FSQ
+(``quantizers/fsq.py``; ``fsq: true``), the EMA-codebook VQ
+(``quantizers/ema_vq.py``; ``quantizer: ema_vq``, ``vq_cosine_sim`` for
+its cosine codebook) or LFQ (``quantizers/lfq.py``; ``quantizer: lfq``,
+one bit per latent channel) as its quantizer. The serving path is
 ``tokenize`` (wav -> codes (Nq, B, Tf)) and ``codes_to_emb`` ->
 ``apply_fc_post_a`` -> ``decode`` (codes -> wav); training runs
 ``forward`` (wav -> regenerated wav, commitment losses and codes).
@@ -17,7 +20,14 @@ runs inside it (the other modes: ``encode_in_mode``), and so should
 ``forward`` follows ``train.precision``: ``fp32_strict`` inside
 ``full_fp32()``, ``fp32`` with TF32 allowed (``allow_tf32()``), ``bf16``
 (training) on bf16 copies of every generator parameter but the
-quantizer's. The quantizer is always fp32.
+quantizer's. The quantizer is always fp32 with TF32 off.
+
+The EMA quantizer's codebook is state, not a parameter: buffers of
+``codec.quantizer``. ``quantize`` and ``forward`` never write them; in
+training they return the updated state (``quantizer_state``), and the
+train step writes it back after the generator's update. Its draws (the
+rows that replace dead codes) come from ``draws(step, codes, vectors)``,
+by default ``ema_draws``: a CPU generator seeded by the step.
 
 A Conformer encoder with ``ffn_type: moe`` adds the router's aux losses to
 ``forward``'s output (``moe_aux_loss``: [load balance, router z, dropped
@@ -37,6 +47,10 @@ from ..ops.params import cast_parameters, parameters_as
 from . import bigcodec, conformer
 from .quantizers import factorized_vq as fvq
 from .quantizers import fsq
+from .quantizers.ema_vq import EmaVQ, ema_vq_apply
+from .quantizers.lfq import lfq_apply, lfq_indices_to_codes
+
+QUANTIZERS = ("fvq", "fsq", "ema_vq", "lfq")
 
 
 def resolve_device(device) -> torch.device:
@@ -89,17 +103,19 @@ DECODERS = {"bigcodec": bigcodec.BigCodecDecoder, "conformer_istft": conformer.C
 
 
 def check_config(cfg: Config):
-    """Raise for what the port does not build: an unknown family
-    (``ValueError``), a quantizer other than the factorized VQ and FSQ, the
-    semantic branch (``NotImplementedError`` citing the ROADMAP item)."""
+    """Raise for what the port does not build: an unknown family or
+    quantizer (``ValueError``, as the JAX package raises), the semantic
+    branch (``NotImplementedError`` citing the ROADMAP item)."""
     e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
     for part, name, family in ((e, "encoder", ENCODERS), (d, "decoder", DECODERS)):
         if part.type not in family:
             raise ValueError(f"unknown {name} type {part.type!r}")
     quantizer = quantizer_kind(cfg)
-    if quantizer not in ("fvq", "fsq"):
-        raise NotImplementedError(f"the {quantizer!r} quantizer is not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
+    if quantizer not in QUANTIZERS:
+        raise ValueError(f"unknown quantizer {quantizer}")
+    if quantizer == "lfq" and d.in_channels > 31:
+        raise ValueError(f"lfq: a code is in_channels = {d.in_channels} bits of an int32 index "
+                         "(at most 31)")
     if cfg.train.use_semantic:
         raise NotImplementedError("the semantic branch is not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
@@ -113,9 +129,10 @@ def uses_moe(cfg: Config) -> bool:
 
 
 class Codec(nn.Module):
-    """Encoder (BigCodec or Conformer), quantizer (factorized residual VQ or
-    FSQ) and decoder (BigCodec or Conformer), with parameter names as in
-    the JAX tree (``encoder``, ``quantizer``, ``decoder``)."""
+    """Encoder (BigCodec or Conformer), quantizer (factorized residual VQ,
+    FSQ, EMA VQ or LFQ, which has no parameters) and decoder (BigCodec or
+    Conformer), with parameter and buffer names as in the JAX tree
+    (``encoder``, ``quantizer``, ``decoder``)."""
 
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
@@ -124,8 +141,14 @@ class Codec(nn.Module):
         self.cfg = cfg
         self.encoder = ENCODERS[e.type].from_config(e, generator=generator)
         self.decoder = DECODERS[d.type].from_config(d, generator=generator)
-        if quantizer_kind(cfg) == "fsq":
+        kind = quantizer_kind(cfg)
+        if kind == "fsq":
             self.quantizer = fsq.FSQ(dim=d.in_channels, levels=d.fsq_levels, generator=generator)
+        elif kind == "ema_vq":
+            self.quantizer = EmaVQ(codebook_size=d.codebook_size, dim=d.in_channels,
+                                   use_cosine_sim=d.vq_cosine_sim, generator=generator)
+        elif kind == "lfq":
+            self.quantizer = nn.Module()  # lookup-free: the codes are the latents' sign bits
         else:
             self.quantizer = fvq.ResidualVQ(
                 num_quantizers=d.vq_num_quantizers, dim=d.in_channels,
@@ -143,6 +166,8 @@ class CodecOutput(NamedTuple):
     # (3,) fp32 [load balance, router z, dropped share (no gradient)], means
     # over the MoE layers; None without one
     moe_aux_loss: torch.Tensor | None = None
+    # the EMA quantizer's updated state (detached), None for the others
+    quantizer_state: dict | None = None
 
 
 def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Codec:
@@ -163,21 +188,64 @@ def encode(codec: Codec, wav, *, remat: bool = False, aux=None):
     return codec.encoder(wav[:, None, :], remat=remat, aux=aux)
 
 
-def quantize(codec: Codec, latents, *, training: bool = False):
-    """latents (B, C, Tf) -> (quantized (B, C, Tf), codes (Nq, B, Tf), loss (Nq,)).
-    An fp32 island: bf16 latents go up to fp32, and the quantized latents
-    come back in the latents' dtype; the VQ's loss stays fp32, FSQ's is a
-    zero of the latents' dtype (it has no commitment loss)."""
+def ema_draws(step: int, num_codes: int, num_vectors: int) -> dict:
+    """The EMA quantizer's draws for one training step: ``expiry``, the
+    (num_codes,) rows in [0, num_vectors) that replace dead codes, from a
+    CPU generator seeded by ``step`` (the same step draws the same rows;
+    the JAX package salts its key by the step the same way)."""
+    g = torch.Generator().manual_seed(int(step))
+    return {"expiry": torch.randint(0, num_vectors, (num_codes,), generator=g)}
+
+
+def _salt(latents) -> int:
+    """The JAX package's salt for a training call without a step."""
+    return int(((latents[:, 0, 0].float() * 1e3).to(torch.int32) % 7919).sum())
+
+
+def quantize(codec: Codec, latents, *, training: bool = False, step=None, draws=None,
+             state=None, with_state: bool = False):
+    """latents (B, C, Tf) -> (quantized (B, C, Tf), codes (Nq, B, Tf), loss (Nq,))
+    [+ the EMA quantizer's updated state, with ``with_state``: detached, None
+    for the other quantizers and in eval]. An fp32 island with TF32 off:
+    bf16 latents go up to fp32, and the quantized latents come back in the
+    latents' dtype; the loss stays fp32 (FSQ's is a zero of the latents'
+    dtype: it has no commitment loss).
+
+    EMA VQ: ``state`` (default: the codec's buffers) is the state read;
+    training draws ``draws(step, codes, vectors)`` (default ``ema_draws``;
+    without a step, salted by the latents as JAX does); the loss is the mean
+    commitment. LFQ: the loss is mean(commit) + the entropy aux loss."""
     d = codec.cfg.model.codec_decoder
-    if quantizer_kind(codec.cfg) == "fsq":
-        zq, codes = fsq.fsq_apply(codec.quantizer, latents)
-        codes = codes[None]
-        loss = torch.zeros((1,), dtype=latents.dtype, device=latents.device)
-    else:
-        zq, codes, loss = fvq.residual_vq_apply(codec.quantizer, latents.float(),
-                                                num_quantizers=d.vq_num_quantizers,
-                                                commitment=d.vq_commit_weight, training=training)
-    return zq.to(latents.dtype), codes, loss
+    kind = quantizer_kind(codec.cfg)
+    qstate = None
+    with full_fp32():
+        if kind == "fsq":
+            zq, codes = fsq.fsq_apply(codec.quantizer, latents)
+            codes = codes[None]
+            loss = torch.zeros((1,), dtype=latents.dtype, device=latents.device)
+        elif kind == "ema_vq":
+            rows = None
+            if training:
+                n_vectors = latents.shape[0] * latents.shape[2]
+                rows = (draws or ema_draws)(_salt(latents) if step is None else step,
+                                            d.codebook_size, n_vectors)
+            res = ema_vq_apply(codec.quantizer.state() if state is None else state, latents,
+                               training=training, commitment=d.vq_commit_weight, draws=rows,
+                               use_cosine_sim=d.vq_cosine_sim, kmeans_init=False)
+            zq, codes, loss = res.quantized, res.indices[None], res.loss.mean()[None]
+            if training:
+                qstate = {k: v.detach() for k, v in res.state.items()}
+        elif kind == "lfq":
+            res = lfq_apply(latents, commit_weight=d.vq_commit_weight, training=training)
+            zq, codes = res.quantized, res.indices[None]
+            loss = (res.commit_loss.mean() + res.entropy_aux_loss)[None]
+        else:
+            zq, codes, loss = fvq.residual_vq_apply(codec.quantizer, latents.float(),
+                                                    num_quantizers=d.vq_num_quantizers,
+                                                    commitment=d.vq_commit_weight,
+                                                    training=training)
+    out = (zq.to(latents.dtype), codes, loss)
+    return out + (qstate,) if with_state else out
 
 
 def decode(codec: Codec, quantized, *, remat: bool = False):
@@ -187,14 +255,15 @@ def decode(codec: Codec, quantized, *, remat: bool = False):
 
 
 def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
-            step=None) -> CodecOutput:
+            step=None, draws=None, quantizer_state=None) -> CodecOutput:
     """batch {"wav": (B, T)} -> CodecOutput: encode -> quantize -> decode,
     under ``train.precision`` (module docstring). In bf16 training the wav
     and every parameter but the quantizer's run as bf16 copies, and
     gradients reach the fp32 masters through the casts. ``training`` also
     turns on the commitment losses and, per ``resolve_remat``, per-block
-    recomputation. ``step`` salts the EMA quantizers in the JAX package; the
-    factorized VQ and FSQ draw nothing and ignore it. The encoder's MoE
+    recomputation. ``step``, ``draws`` and ``quantizer_state`` go to the
+    EMA quantizer (``quantize``), whose updated state comes back in
+    ``quantizer_state``; the other quantizers draw nothing. The encoder's MoE
     layers' aux losses are averaged into ``moe_aux_loss`` (JAX
     ``codec.py:221-229``)."""
     cfg = codec.cfg
@@ -206,22 +275,30 @@ def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
         wav = wav.to(torch.bfloat16)
     aux = []
     with precision_scope(cfg), parameters_as(codec, cast):
-        zq, codes, vq_loss = quantize(codec, encode(codec, wav, remat=remat, aux=aux),
-                                      training=training)
+        zq, codes, vq_loss, qstate = quantize(
+            codec, encode(codec, wav, remat=remat, aux=aux), training=training, step=step,
+            draws=draws, state=quantizer_state, with_state=True)
         gen = decode(codec, zq, remat=remat)
     moe = None
     if aux:
         moe = torch.stack([sum(a[k] for a in aux) / len(aux)
                            for k in ("load_balance_loss", "router_z_loss", "dropped_frac")])
     return CodecOutput(gt_wav=wav[:, None, :], gen_wav=gen, vq_loss=vq_loss, vq_code=codes,
-                       moe_aux_loss=moe)
+                       moe_aux_loss=moe, quantizer_state=qstate)
 
 
 def codes_to_emb(codec: Codec, codes, *, proj: bool = True):
-    """codes (B, Tf, Nq) -> decoder-input embeddings (B, C, Tf); FSQ reads
-    the one codebook's codes[..., 0] (``proj`` is the VQ's)."""
-    if quantizer_kind(codec.cfg) == "fsq":
+    """codes (B, Tf, Nq) -> decoder-input embeddings (B, C, Tf); FSQ, EMA VQ
+    and LFQ read their one codebook's codes[..., 0] (``proj`` is the VQ's):
+    the EMA codebook's ``embed`` rows, LFQ's ±1 bits."""
+    kind = quantizer_kind(codec.cfg)
+    if kind == "fsq":
         return fsq.fsq_codes_to_emb(codec.quantizer, codes[..., 0]).transpose(1, 2)
+    if kind == "ema_vq":
+        return codec.quantizer.embed[codes[..., 0].long()].transpose(1, 2)
+    if kind == "lfq":
+        bits = codec.cfg.model.codec_decoder.in_channels
+        return lfq_indices_to_codes(codes[..., 0], codebook_dim=bits).transpose(1, 2)
     return fvq.residual_vq_codes_to_emb(codec.quantizer, codes, proj=proj).transpose(1, 2)
 
 
@@ -302,13 +379,14 @@ def tokenize(codec: Codec, wav, *, mode: str = "conformant"):
 
     ``mode`` sets the encoder's precision (``encode_in_mode``): conformant
     (fp32, the mode held to the JAX package's tokens), high, balanced
-    (BigCodec only) or fast. The VQ (K1) runs fp32 with TF32 off in every
-    mode (FSQ, which has no K1, is fp32 too). On the Conformer at 32 x 1 s
+    (BigCodec only) or fast. The quantizer runs fp32 with TF32 off in every
+    mode: the factorized VQ's search is K1; FSQ, the EMA VQ's distance GEMM
+    and LFQ's sign bits run on stock ops, as they run on XLA in JAX. On the Conformer at 32 x 1 s
     the card waits on the host's kernel launches in every mode, so ``fast``
     is no faster than ``high`` there and flips more tokens (PERF.md).
     """
     wav = torch.as_tensor(wav, dtype=torch.float32, device=next(codec.parameters()).device)
     lat = encode_in_mode(codec.encoder, wav[:, None, :], mode)
-    with full_fp32(), torch.no_grad():
+    with torch.no_grad():
         _, codes, _ = quantize(codec, lat)
     return codes

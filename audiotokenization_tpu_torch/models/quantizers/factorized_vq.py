@@ -72,14 +72,18 @@ def factorized_vq_apply(p: FactorizedVQ, z, *, commitment: float = 0.25,
 
 
 def residual_vq_apply(p: ResidualVQ, x, *, num_quantizers: int,
-                      commitment: float = 0.25, training: bool = False):
-    """Returns (quantized (B, dim, T), indices (Nq, B, T), losses (Nq,))."""
+                      commitment: float = 0.25, training: bool = False,
+                      shared_codebook: bool = False):
+    """Returns (quantized (B, dim, T), indices (Nq, B, T), losses (Nq,)).
+    ``shared_codebook``: layer 0's parameters at every level (lucidrains
+    residual_vq.py:153-157)."""
     quantized_out = torch.zeros_like(x)
     residual = x
     all_indices, all_losses = [], []
     for q in range(num_quantizers):
         quantized, indices, loss = factorized_vq_apply(
-            p.layers[q], residual, commitment=commitment, training=training)
+            p.layers[0 if shared_codebook else q], residual, commitment=commitment,
+            training=training)
         residual = residual - quantized
         quantized_out = quantized_out + quantized
         all_indices.append(indices)

@@ -116,3 +116,37 @@ def fsq_codes_to_emb(p: FSQ, indices):
     """indices (B, T) -> project_out(codes) (B, T, dim)."""
     codes = fsq_indices_to_codes(indices, p.levels).to(indices.device)
     return linear(codes, p.project_out) if hasattr(p, "project_out") else codes
+
+
+def _residual_scale(levels, i: int, device):
+    """Level i's per-dim scale (levels - 1)^-i, computed in float64, fp32."""
+    lv = np.asarray(levels, np.float64)
+    return torch.tensor((lv - 1.0) ** -float(i), dtype=torch.float32, device=device)
+
+
+def residual_fsq_apply(p: FSQ, z, *, num_quantizers: int):
+    """Residual FSQ: level i quantizes residual / scale_i, de-scales,
+    subtracts (detached) and accumulates. z (B, dim, T) -> (out (B, dim, T),
+    indices (Nq, B, T) int32), in fp32."""
+    zt = z.float().transpose(1, 2)
+    has_proj = hasattr(p, "project_in")
+    residual = (linear(zt, p.project_in) if has_proj else zt).float()
+    out = torch.zeros_like(residual)
+    idxs = []
+    for i in range(num_quantizers):
+        scale = _residual_scale(p.levels, i, z.device)
+        codes = fsq_quantize_codes(residual / scale, p.levels)
+        q = codes * scale
+        idxs.append(fsq_codes_to_indices(codes, p.levels))
+        residual = residual - q.detach()
+        out = out + q
+    if has_proj:
+        out = linear(out, p.project_out)
+    return out.transpose(1, 2), torch.stack(idxs)
+
+
+def residual_fsq_codes_to_emb(p: FSQ, indices):
+    """indices (Nq, B, T) -> the summed scaled codes, projected out (B, T, dim)."""
+    out = sum(fsq_indices_to_codes(indices[i], p.levels).to(indices.device)
+              * _residual_scale(p.levels, i, indices.device) for i in range(indices.shape[0]))
+    return linear(out, p.project_out) if hasattr(p, "project_out") else out

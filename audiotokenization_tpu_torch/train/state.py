@@ -9,7 +9,10 @@ eps=1e-8, weight_decay=.01))`` computes:
 - the gradients are scaled by c / ‖g‖ (the global norm over every leaf of
   the side) only where ‖g‖ >= c; no +1e-6 as ``clip_grad_norm_`` adds;
 - AdamW decays **every** leaf, biases, snake α/β, weight-norm g and the
-  codebook included;
+  codebook included; the EMA quantizer's state is buffers, not
+  parameters, which no optimizer sees (the JAX step decays those leaves
+  and then overwrites them with the forward's state; the step writes it
+  here, ``train/step.py``), and which the state dict saves;
 - the learning rate of update k (k counted from 0, one count per
   optimizer) is schedule(k).
 """

@@ -20,9 +20,21 @@ gradients is not finite (one host sync per side). In the JAX step the
 generator loss then sees the discriminator's poisoned update, and so skips
 too; here it sees the discriminator as it was.
 
-K1 runs once per generator forward with the factorized VQ (FSQ has none)
-and K2 once per fused ResidualUnit (30 in the flagship, none in the
-Conformer) on CUDA tensors; K2's backward recomputes each unit.
+The EMA quantizer's codebook is state (buffers), which the forward returns
+and never writes: the fused step writes the forward's state into the
+buffers after the generator's update, and only when the guard did not skip
+it, as the JAX step swaps it in after the optimizer; accumulation's phase 1
+reads the state from before the step and discards its updates, phase 2
+threads it from micro-batch to micro-batch and writes the last. Its draws
+are ``draws(step, codes, vectors)`` (``make_train_step``'s argument,
+default ``models.codec.ema_draws``), salted by the state's step, so the
+same step and batch give the same update. LFQ's codebook histogram has
+2^bits bins.
+
+K1 runs once per generator forward with the factorized VQ (FSQ, the EMA
+VQ and LFQ have none) and K2 once per fused ResidualUnit (30 in the
+flagship, none in the Conformer) on CUDA tensors; K2's backward recomputes
+each unit.
 """
 from __future__ import annotations
 
@@ -43,28 +55,21 @@ from .schedule import warmup_lr_schedule
 from .state import ClippedAdamW, TrainState
 
 
-def _check_supported(cfg: Config):
-    quantizer = quantizer_kind(cfg)
-    if quantizer not in ("fvq", "fsq"):
-        raise NotImplementedError(f"training with the {quantizer!r} quantizer is not ported yet "
-                                  "(ROADMAP Queue 1 item 14: EMA, LFQ and the zoo come later)")
-    if cfg.train.use_semantic:
-        raise NotImplementedError("the semantic branch is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
-
-
 def _finite(total, grads) -> bool:
     return bool(torch.stack([torch.isfinite(total).all()]
                             + [torch.isfinite(g).all() for g in grads]).all())
 
 
-def make_train_step(cfg: Config, *, device="cuda"):
+def make_train_step(cfg: Config, *, device="cuda", draws=None):
     """``step(state, batch) -> metrics`` for ``batch = {"wav": (B, T)}`` on
     ``device`` (the state's): updates ``state`` in place and returns the
-    JAX step's metrics as tensors (``gen_lr`` a float). Raises without a
-    card unless ``device="cpu"``."""
+    JAX step's metrics as tensors (``gen_lr`` a float). ``draws``: the EMA
+    quantizer's, a callable ``(step, codes, vectors) -> {"expiry": rows}``
+    (default ``models.codec.ema_draws``). Raises without a card unless
+    ``device="cpu"``, and for a config the port does not build
+    (``models.codec.check_config``)."""
     C.resolve_device(device)
-    _check_supported(cfg)
+    C.check_config(cfg)
     cfg = copy.deepcopy(cfg)
     cfg.train.remat = resolve_remat(cfg)  # once, for the whole step
     tcfg = cfg.train
@@ -76,7 +81,8 @@ def make_train_step(cfg: Config, *, device="cuda"):
     gen_sched = warmup_lr_schedule(warmup_step=s.warmup_step, down_step=s.down_step,
                                    max_lr=s.max_lr, min_lr=s.min_lr)
     n_accum = max(int(tcfg.accumulate_grad_batches), 1)
-    codebook_size = cfg.model.codec_decoder.codebook_size
+    d = cfg.model.codec_decoder
+    codebook_size = 2 ** d.in_channels if quantizer_kind(cfg) == "lfq" else d.codebook_size
 
     def disc_forward(disc, wav, *, detach: bool):
         """Both discriminators on ``wav`` (B, 1, T), in the compute dtype;
@@ -139,7 +145,7 @@ def make_train_step(cfg: Config, *, device="cuda"):
 
     def fused_step(state: TrainState, batch):
         y = batch["wav"][:, None, :]
-        out = C.forward(state.gen, batch, training=True, step=state.step)
+        out = C.forward(state.gen, batch, training=True, step=state.step, draws=draws)
         state.disc_opt.zero_grad()
         disc_total, disc_logs = disc_losses(state.disc, y, out.gen_wav)
         disc_total.backward()
@@ -148,6 +154,8 @@ def make_train_step(cfg: Config, *, device="cuda"):
         gen_total, gen_logs = gen_losses(state.disc, y, out)
         gen_total.backward()
         ok_g = update(state.gen_opt, gen_total)
+        if ok_g and out.quantizer_state is not None:
+            state.gen.quantizer.load_state(out.quantizer_state)
         return {**disc_logs, **gen_logs}, codebook_histogram(out.vq_code, codebook_size), ok_d, ok_g
 
     def accumulated_step(state: TrainState, batch):
@@ -165,8 +173,9 @@ def make_train_step(cfg: Config, *, device="cuda"):
         disc_logs: Dict[str, Any] = {}
         state.disc_opt.zero_grad()
         for mb in mbs:  # phase 1: the discriminator's gradients at its weights before the update
-            with torch.no_grad():
-                fake = C.forward(state.gen, mb, training=True, step=state.step).gen_wav
+            with torch.no_grad():  # the EMA state as before the step; its update discarded
+                fake = C.forward(state.gen, mb, training=True, step=state.step,
+                                 draws=draws).gen_wav
             total, logs = disc_losses(state.disc, mb["wav"][:, None, :], fake)
             (total / n).backward()
             mean_logs(disc_logs, logs)
@@ -175,13 +184,18 @@ def make_train_step(cfg: Config, *, device="cuda"):
         gen_logs: Dict[str, Any] = {}
         hist = torch.zeros(codebook_size, device=batch["wav"].device)
         state.gen_opt.zero_grad()
+        qstate = None  # the EMA state threaded through phase 2 (None: the buffers)
         for mb in mbs:  # phase 2: the generator's, against the updated discriminator
-            out = C.forward(state.gen, mb, training=True, step=state.step)
+            out = C.forward(state.gen, mb, training=True, step=state.step, draws=draws,
+                            quantizer_state=qstate)
+            qstate = out.quantizer_state
             total, logs = gen_losses(state.disc, mb["wav"][:, None, :], out)
             (total / n).backward()
             mean_logs(gen_logs, logs)
             hist += codebook_histogram(out.vq_code, codebook_size)
         ok_g = update(state.gen_opt, gen_logs["gen_loss"])
+        if ok_g and qstate is not None:
+            state.gen.quantizer.load_state(qstate)
         return {**disc_logs, **gen_logs}, hist, ok_d, ok_g
 
     body = accumulated_step if n_accum > 1 else fused_step

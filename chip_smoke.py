@@ -166,6 +166,30 @@ Phases, each fatal on failure:
     against each file's tokenize, cli.extract_indices on 16 files ((T,)
     int16 < 512, K2 15 a device batch), one bf16 step timed (K1 0 / K2 30)
     (the bigcodec_fsq line), and the phase's seconds (phase_15_s).
+16. the quantizer zoo, full width and depth, random weights from seed 0:
+    (a) the flagship with ``quantizer: ema_vq`` (8192 codes of 1024 dims;
+    its codebook set to frames of its own latents on seeded noise, as a
+    kmeans init would seed it): tokenize and decode of 32 x 1 s, K1 0 and
+    K2 15 each, the first 2 requests against the CPU (tokens but where the
+    top-2 distance gap is under 1e-5 x (|x|² + |e_best|²), counted; latents
+    and waveforms as in phase 5), audio-s/s, a torch.profiler split
+    (quantizer: the distance GEMM and argmin; K2; ResLSTM; other kernels;
+    idle); high and fast over 4 batches; the cosine codebook's tokenize and
+    decode against the CPU the same way; (b) one fp32_strict EMA step at
+    2 x 8000 against the CPU's (phase 8b's tolerances; the EMA buffers within
+    rtol 1e-4 / atol 1e-5, the same codes expired); (c) bf16 steps at
+    32 x 1 s (2 warm-ups, 5 timed, K1 0 / K2 30 a step, finite, the EMA
+    codebook moved and finite, audio-s/s, peak memory); (d) the flagship
+    with a 13-bit LFQ bottleneck: tokenize and decode as in (a) (tokens but
+    where a bit's latent lies within atol 2e-4 of 0), one fp32_strict step
+    against the CPU, bf16 steps timed; (e) make_ragged_tokenizer on 8 files
+    against each file's tokenize, cli.extract_indices on 16 files from an
+    EMA run dir whose buffers restore bit for bit; (f) SimVQ, BEST-RQ's
+    random projection, NSVQ (eval), latent quantize, residual FSQ and QINCo
+    (2560 positions, 256 codes of 8 dims, 2 stages, chunks of 640) once on
+    the card against the CPU (indices but at relative top-2 gaps under
+    1e-5; outputs within the latents' tolerance). Prints the
+    bigcodec_ema_vq, bigcodec_lfq and quantizer_zoo lines and phase_16_s.
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -761,7 +785,9 @@ def _leaves(state):
 def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu"):
     """(b) One fp32_strict step at full width on the card against the same
     step on the CPU, from the same weights and batch; prints the ``line``
-    line."""
+    line. The EMA quantizer's buffers (their draws made on the CPU from the
+    step, the same for both) are held within EMA_RTOL / EMA_ATOL, and its
+    expired codes (cluster size at the threshold) must be the same ones."""
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.train.state import init_train_state, train_state
@@ -803,8 +829,8 @@ def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu"):
         scale = want.abs().max().item()
         # AdamW rounds each parameter twice an update (the decay, then the step):
         # each side's (after - before) is good to 1 spacing of the parameter
-        spacing = torch.from_numpy(2 * np.spacing(np.maximum(b.abs().numpy(),
-                                                             after_cpu[name].abs().numpy())))
+        spacing = torch.from_numpy(np.asarray(2 * np.spacing(np.maximum(
+            b.abs().numpy(), after_cpu[name].abs().numpy()))))  # 0-d leaves too
         err = (got - want).abs()
         if bool((err > UPDATE_TOL * scale + spacing).any()):  # an update may round to 0
             fail(f"fp32_strict step: update of {name} off by {err.max().item():.3g} against "
@@ -814,6 +840,21 @@ def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu"):
     out = {"card_s": t1 - t0, "cpu_s": t2 - t1, "worst_metric_rel": worst_metric,
            "worst_update_rel": worst_update, "worst_update_leaf": worst_at,
            "hist_bins_differing": flips, "leaves": len(before)}
+    buffers = dict(ref.gen.quantizer.named_buffers())
+    if buffers:
+        errs = {}
+        for name, want in buffers.items():
+            got = after_card["gen.quantizer." + name]
+            errs[name] = (got - want).abs().max().item()
+            if not torch.allclose(got, want, rtol=EMA_RTOL, atol=EMA_ATOL):
+                fail(f"fp32_strict step: EMA buffer {name} off by {errs[name]:.3g} "
+                     f"(rtol {EMA_RTOL:g} / atol {EMA_ATOL:g})")
+        dead = {k: after["gen.quantizer.cluster_size"] == EMA_THRESHOLD
+                for k, after in (("card", after_card), ("cpu", after_cpu))}
+        if not torch.equal(dead["card"], dead["cpu"]):
+            fail("fp32_strict step: the card and the CPU expired other EMA codes")
+        out["ema_buffers"] = {"max_abs_err": errs, "expired": int(dead["cpu"].sum()),
+                              "codes": int(dead["cpu"].numel())}
     print(json.dumps({line: out}))
     return out
 
@@ -1605,16 +1646,27 @@ def expect_launches(name, got, want):
 
 
 def frame_gaps(codec, lat):
-    """Each frame's margin of latents (B, C, T) -> (B, T): the VQ's top-2
-    distance gap; FSQ's distance of its bounded values from the nearest .5
-    rounding boundary (the smallest over the dims), where a few ulps of
-    tanh may round the other way."""
+    """Each frame's margin of latents (B, C, T) -> (B, T), under GAP where
+    its token may flip: the VQ's top-2 distance gap; FSQ's distance of its
+    bounded values from the nearest .5 rounding boundary (the smallest over
+    the dims), where a few ulps of tanh may round the other way; the EMA
+    VQ's top-2 gap over |x|² + |e_best|² (``ema_margins``: its distances
+    cancel); LFQ's smallest |latent| over the bits, scaled so that it is
+    under GAP where a bit lies within the latents' LAT_ATOL of 0."""
     import torch
+    from audiotokenization_tpu_torch.config import quantizer_kind
     from audiotokenization_tpu_torch.models import codec as C
     from audiotokenization_tpu_torch.models.quantizers import fsq
     from audiotokenization_tpu_torch.ops.conv import linear
 
     q = codec.quantizer
+    kind = quantizer_kind(codec.cfg)
+    if kind == "ema_vq":
+        flat = lat.float().transpose(1, 2).reshape(-1, lat.shape[1])
+        return ema_margins(flat, q.embed, codec.cfg.model.codec_decoder.vq_cosine_sim).reshape(
+            lat.shape[0], lat.shape[-1])
+    if kind == "lfq":
+        return lat.float().abs().amin(1) * (GAP / LAT_ATOL)
     if isinstance(q, fsq.FSQ):
         with C.full_fp32(), torch.no_grad():
             z = lat.float().transpose(1, 2)
@@ -2480,7 +2532,7 @@ def conformer_path(card):
 # -- 15. configs/conformer_moe.yaml and configs/bigcodec_fsq.yaml ---------------------
 
 MOE_EXTRACT_FILES, MOE_HOLD_FILES, MOE_EVAL_FILES = 16, 4, 4
-FSQ_RAGGED_FILES, FSQ_EXTRACT_FILES = 8, 16
+RAGGED_FILES, QUANTIZER_EXTRACT_FILES = 8, 16  # the FSQ and EMA BigCodecs' ragged and CLI runs
 
 
 class RouteRecorder:
@@ -2848,6 +2900,7 @@ def timed_training(name, cfg, card, want):
     state = init_train_state(cfg, generator=torch.Generator().manual_seed(0))
     routers = {n: m.router.w.detach().clone() for n, m in state.gen.named_modules()
                if isinstance(m, MoEFeedForward)}
+    ema = {n: b.clone() for n, b in state.gen.quantizer.named_buffers()}
     step = make_train_step(cfg)
     wav = torch.from_numpy((np.random.RandomState(2).randn(B, SR) * 0.1).astype(np.float32)).cuda()
     for _ in range(TRAIN_WARMUP):
@@ -2867,10 +2920,16 @@ def timed_training(name, cfg, card, want):
     still = [n for n, w in routers.items() if torch.equal(modules[n].router.w.detach(), w)]
     if still:
         fail(f"{name} training: routers that did not move: {still}")
+    now = dict(state.gen.quantizer.named_buffers())
+    if ema and (torch.equal(now["embed"], ema["embed"])
+                or not all(torch.isfinite(b).all() for b in now.values())):
+        fail(f"{name} training: the EMA codebook did not move or is not finite")
     out = {"ms_per_step": ms, "audio_s_per_s": B / (ms / 1e3),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches_per_step": {"vq_argmin": per_step[0], "residual_unit": per_step[1]},
-           "routers_moved": len(routers), "precision": cfg.train.precision,
+           "routers_moved": len(routers), "ema_buffers_moved": sorted(
+               n for n, b in ema.items() if not torch.equal(now[n], b)),
+           "precision": cfg.train.precision,
            "steps_timed": TRAIN_STEPS, "metrics": last}
     print(json.dumps({f"{name}_train_step": out, "card": card}))
     return out
@@ -2991,9 +3050,14 @@ def fsq_bounded_vs_cpu(codec, wav_np):
     return out
 
 
-def fsq_path(card):
-    """15f. configs/bigcodec_fsq.yaml at full width, random weights from
-    seed 0 (module docstring). Prints the bigcodec_fsq line."""
+def ragged_and_extract(name, cfg, codec, n_units, write_run):
+    """make_ragged_tokenizer on RAGGED_FILES files of 0.7-6.3 s against
+    each file's own tokenize (but at frames under GAP, ``frame_gaps``), and
+    cli.extract_indices at batch EXTRACT_BATCH on QUANTIZER_EXTRACT_FILES
+    files from the run dir ``write_run(run)`` writes (it returns the run
+    dir's CPU codec): int16 in [0, codebook_size), ceil(len / hop) frames,
+    K1 0 / K2 n_units a device batch, 4 files against the CPU. For the
+    BigCodecs without K1 (FSQ, the EMA VQ)."""
     import shutil
     import tempfile
 
@@ -3004,35 +3068,8 @@ def fsq_path(card):
     from audiotokenization_tpu_torch.utils import ragged
     from audiotokenization_tpu_torch.utils.ragged import make_ragged_tokenizer
 
-    t0 = time.perf_counter()
-    cfg = repo_config("bigcodec_fsq.yaml")
-    codec = seeded_codec(cfg)
-    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
-    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
-    wav = torch.from_numpy(wav_np).cuda()
-    codes, tok = counted(lambda: C.tokenize(codec, wav))
-    out, dec = counted(lambda: offline_decode(codec, codes))
-    expect_launches("FSQ tokenize", tok, (0, n_units))
-    expect_launches("FSQ decode", dec, (0, n_units))
-    if tuple(codes.shape) != (1, B, SR // HOP) or tuple(out.shape) != (B, 1, SR) \
-            or not torch.isfinite(out).all() or int(codes.max()) >= 512 or int(codes.min()) < 0:
-        fail(f"FSQ: codes {tuple(codes.shape)} in {int(codes.min())}..{int(codes.max())}, "
-             f"waveform {tuple(out.shape)}")
-    result = {"offline": hold_against_cpu("FSQ main path", codec, wav_np, codes, out)}
-    result["offline"]["bounded"] = fsq_bounded_vs_cpu(codec, wav_np[:2])
-    tok_ms = cuda_ms(lambda: C.tokenize(codec, wav), iters=5)
-    dec_ms = cuda_ms(lambda: offline_decode(codec, codes), iters=5)
-    result["offline"].update(
-        tokenize_ms=tok_ms, tokenize_audio_s_per_s=B / (tok_ms / 1e3), decode_ms=dec_ms,
-        decode_audio_s_per_s=B / (dec_ms / 1e3), codes_used=int(torch.unique(codes).numel()),
-        launches_per_tokenize={"vq_argmin": tok[0], "residual_unit": tok[1]},
-        launches_per_decode={"vq_argmin": dec[0], "residual_unit": dec[1]})
-    wavs = [wav] + [torch.from_numpy((np.random.RandomState(i).randn(B, SR) * 0.1)
-                                     .astype(np.float32)).cuda() for i in range(1, MODE_BATCHES)]
-    result["modes"] = mode_rows("bigcodec_fsq", codec, wavs,
-                                {m: MODE_LAT_REL[m] for m in ("high", "fast")}, (0, n_units))
-
-    lens = [int(sec * SR) // HOP * HOP for sec in np.linspace(0.7, 6.3, FSQ_RAGGED_FILES)]
+    out = {}
+    lens = [int(sec * SR) // HOP * HOP for sec in np.linspace(0.7, 6.3, RAGGED_FILES)]
     rng = np.random.RandomState(6)
     batch = np.zeros((len(lens), max(lens)), np.float32)
     for i, n in enumerate(lens):
@@ -3040,27 +3077,27 @@ def fsq_path(card):
     batch_t = torch.from_numpy(batch).cuda()
     rcodes, launches = counted(lambda: make_ragged_tokenizer(cfg)(
         codec, batch_t, torch.tensor(lens).cuda()))
-    expect_launches("FSQ ragged tokenizer", launches, (0, n_units))
+    expect_launches(f"{name} ragged tokenizer", launches, (0, n_units))
     differ = near = 0
     for i, n in enumerate(lens):
         with C.full_fp32(), torch.no_grad():
             lat = C.encode(codec, batch_t[i:i + 1, :n])
             own = C.quantize(codec, lat)[1]
-        f, m = hold_codes(f"FSQ ragged row {i} vs its own tokenize",
+        f, m = hold_codes(f"{name} ragged row {i} vs its own tokenize",
                           rcodes[:, i:i + 1, :n // HOP], own, frame_gaps(codec, lat))
         differ, near = differ + f, near + m
-    result["ragged"] = {"files": len(lens), "tokens_differ": differ, "near_boundary": near,
-                        "launches_per_call": {"vq_argmin": launches[0],
-                                              "residual_unit": launches[1]}}
+    out["ragged"] = {"files": len(lens), "tokens_differ": differ, "near_ties": near,
+                     "launches_per_call": {"vq_argmin": launches[0],
+                                           "residual_unit": launches[1]}}
 
     build_dir = Path(__file__).resolve().parent / "build"
     build_dir.mkdir(exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fsq_", dir=build_dir))
+    root = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name.lower()}_", dir=build_dir))
     ledger = None
     try:
-        files = write_extract_corpus(root, FSQ_EXTRACT_FILES)
+        files = write_extract_corpus(root, QUANTIZER_EXTRACT_FILES)
         run = root / "run"
-        codec_cpu = write_gen_run(run, cfg)
+        codec_cpu = write_run(run)
         ledger = LaunchLedger({"batch": (ragged, "make_ragged_tokenizer")})
         counts, launches = counted(lambda: extract_indices.main(
             ["--dataset_root", str(root), "--save_path", str(run), "--dataset_path",
@@ -3068,48 +3105,450 @@ def fsq_path(card):
              "--batch_size", str(EXTRACT_BATCH)]))
         ledger.close()
         calls = ledger.calls["batch"]
-        if counts["saved"] != FSQ_EXTRACT_FILES or counts["errors"] \
+        if counts["saved"] != QUANTIZER_EXTRACT_FILES or counts["errors"] \
                 or set(calls) != {(0, n_units)} or tuple(launches) != (0, n_units * len(calls)):
-            fail(f"FSQ extraction: {counts['saved']} saved, {counts['errors']} errors, "
+            fail(f"{name} extraction: {counts['saved']} saved, {counts['errors']} errors, "
                  f"launches {launches} over batches {calls}")
         npys = {p.stem: p for p in (run / "extracted_indices").rglob("*.npy")}
+        codebook = cfg.model.codec_decoder.codebook_size
         for path, rate, n in files:
             a = np.load(npys[path.stem])
             if a.dtype != np.int16 or a.shape != (ceil_div(ceil_div(n * SR, rate), HOP),) \
-                    or a.min() < 0 or a.max() >= 512:
-                fail(f"FSQ extraction {path.name}: {a.dtype} {a.shape} "
-                     f"in {a.min()}..{a.max()}")
+                    or a.min() < 0 or a.max() >= codebook:
+                fail(f"{name} extraction {path.name}: {a.dtype} {a.shape} in {a.min()}..{a.max()}")
         flips = near_x = 0
         for path, _, _ in files[:4]:
             want, gap = cpu_tokens(codec_cpu, path, hop_pad=True)
-            f, m = hold_tokens(f"FSQ extraction of {path.name}", np.load(npys[path.stem]),
+            f, m = hold_tokens(f"{name} extraction of {path.name}", np.load(npys[path.stem]),
                                want, gap)
             flips, near_x = flips + f, near_x + m
-        result["extract"] = {"files": FSQ_EXTRACT_FILES, "batch_size": EXTRACT_BATCH,
-                             **{k: counts[k] for k in ("audio_seconds", "audio_s_per_s",
-                                                       "device_batches", "device_s")},
-                             "launches_per_batch": {"vq_argmin": calls[0][0],
-                                                    "residual_unit": calls[0][1]},
-                             "tokens_differ_vs_cpu": flips, "near_boundary": near_x}
+        out["extract"] = {"files": QUANTIZER_EXTRACT_FILES, "batch_size": EXTRACT_BATCH,
+                          **{k: counts[k] for k in ("audio_seconds", "audio_s_per_s",
+                                                    "device_batches", "device_s")},
+                          "launches_per_batch": {"vq_argmin": calls[0][0],
+                                                 "residual_unit": calls[0][1]},
+                          "tokens_differ_vs_cpu": flips, "near_ties": near_x}
     finally:
         if ledger is not None:
             ledger.close()
         shutil.rmtree(root, ignore_errors=True)
-    del codec
+    return out
+
+
+def fsq_path(card):
+    """15f. configs/bigcodec_fsq.yaml at full width, random weights from
+    seed 0 (module docstring). Prints the bigcodec_fsq line."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = repo_config("bigcodec_fsq.yaml")
+    codec = seeded_codec(cfg)
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    result = {}
+    result["offline"], _ = offline_rows("FSQ", codec, wav_np, n_units,
+                                        cfg.model.codec_decoder.codebook_size)
+    result["offline"]["bounded"] = fsq_bounded_vs_cpu(codec, wav_np[:2])
+    wavs = [torch.from_numpy((np.random.RandomState(i).randn(B, SR) * 0.1).astype(np.float32))
+            .cuda() for i in range(MODE_BATCHES)]
+    result["modes"] = mode_rows("bigcodec_fsq", codec, wavs,
+                                {m: MODE_LAT_REL[m] for m in ("high", "fast")}, (0, n_units))
+    result.update(ragged_and_extract("FSQ", cfg, codec, n_units,
+                                     lambda run: write_gen_run(run, cfg)))
+    del codec, wavs
     result["train"] = timed_training("bigcodec_fsq", cfg, card, (0, 2 * n_units))
     result["phase_s"] = time.perf_counter() - t0
-    off = result["offline"]
-    line = {"tokenize_audio_s_per_s": off["tokenize_audio_s_per_s"],
-            "decode_audio_s_per_s": off["decode_audio_s_per_s"],
-            "launches": {"tokenize": off["launches_per_tokenize"],
-                         "decode": off["launches_per_decode"],
-                         "modes_per_call": {m: r["launches"] for m, r in result["modes"].items()},
-                         "ragged_per_call": result["ragged"]["launches_per_call"],
-                         "extract_per_batch": result["extract"]["launches_per_batch"],
-                         "train_per_step": result["train"]["launches_per_step"]},
-            **result}
+    line = quantizer_line(result)
     print(json.dumps({"bigcodec_fsq": line, "card": card}))
     return line
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the quantizer zoo
+# ---------------------------------------------------------------------------
+
+LFQ_BITS = 13              # the LFQ bottleneck: 2^13 = 8192 codes, the flagship VQ's count
+EMA_CALIB_BATCHES = 6      # B x 1 s noise batches whose frames seed the EMA codebook
+EMA_RTOL, EMA_ATOL = 1e-4, 1e-5   # the EMA buffers after a step, card against CPU
+EMA_THRESHOLD = 2.0        # the codec's dead-code threshold (models/codec.py: JAX's default)
+ZOO_M = 2560               # positions of the library quantizers' inputs (K1's flagship M)
+
+
+def zoo_config(kind: str, *, cosine: bool = False):
+    """Config() with ``quantizer: ema_vq`` (8192 codes of 1024 dims; the
+    cosine codebook with ``cosine``) or ``lfq`` (a 13-bit bottleneck:
+    encoder out_channels = decoder in_channels = 13, 8192 implicit codes);
+    every other field the flagship's."""
+    from audiotokenization_tpu_torch.config import Config
+
+    cfg = Config()
+    d = cfg.model.codec_decoder
+    d.quantizer = kind
+    if kind == "ema_vq":
+        d.vq_cosine_sim = cosine
+    else:
+        d.in_channels = cfg.model.codec_encoder.out_channels = LFQ_BITS
+        d.codebook_size = 2 ** LFQ_BITS
+    return cfg
+
+
+def ema_margins(flat, embed, cosine: bool):
+    """Each row's top-2 distance gap to ``embed`` over |x|² + |e_best|² (the
+    EMA distance |x|² - 2x·e + |e|² cancels to that scale; 2 for the cosine
+    codebook's unit vectors), fp32 with TF32 off."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    with C.full_fp32(), torch.no_grad():
+        x = flat.float()
+        if cosine:
+            x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1e-12)
+            dist = -(x @ embed.T)
+        else:
+            dist = (x * x).sum(1, keepdim=True) - 2 * x @ embed.T + (embed * embed).sum(1)[None]
+        v, i = dist.topk(2, dim=1, largest=False)
+        scale = (x * x).sum(1) + (embed[i[:, 0]] ** 2).sum(1)
+        return (v[:, 1] - v[:, 0]) / scale
+
+
+def spread_ema(codec):
+    """The EMA codebook (``embed``, ``embed_avg``) set to frames of the
+    codec's own latents on seeded noise (8192 of the 9600 frames of
+    EMA_CALIB_BATCHES batches of B x 1 s; unit-norm for the cosine
+    codebook), as a kmeans init from data would seed it: at its N(0, 1)
+    init every frame takes the same code. In place; returns the codec."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    q = codec.quantizer
+    with C.full_fp32(), torch.no_grad():
+        lat = torch.cat([C.encode(codec, torch.from_numpy(
+            (np.random.RandomState(100 + i).randn(B, SR) * 0.1).astype(np.float32)).cuda())
+            .transpose(1, 2).reshape(-1, q.embed.shape[1]) for i in range(EMA_CALIB_BATCHES)])
+        rows = lat[torch.randperm(lat.shape[0], generator=torch.Generator().manual_seed(0))
+                   [:q.embed.shape[0]].cuda()]
+        if codec.cfg.model.codec_decoder.vq_cosine_sim:
+            rows = rows / torch.linalg.vector_norm(rows, dim=1, keepdim=True).clamp_min(1e-12)
+        q.embed.copy_(rows)
+        q.embed_avg.copy_(rows)
+    return codec
+
+
+def quantizer_split(fn):
+    """torch.profiler split of one tokenize or decode call of a BigCodec:
+    device ms of the quantizer (the EMA's distance GEMM and argmin, LFQ's
+    sign bits: kernels under ``quantize``), of K2, of the ResLSTMs, of the
+    other kernels (cuDNN's convs and the rest), and the idle share of the
+    call's wall time."""
+    import torch
+    from audiotokenization_tpu_torch.models import bigcodec
+    from audiotokenization_tpu_torch.models import codec as C
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with annotated([(C, "quantize"), (bigcodec, "res_lstm")]):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    dev = [(e.name, e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == DeviceType.CUDA and not e.name.startswith("cs.")]
+
+    def kernels_under(e):
+        out = [(k.name, k.duration) for k in getattr(e, "kernels", [])]
+        for c in e.cpu_children:
+            out += kernels_under(c)
+        return out
+
+    ranged = {n: sum(d for e in events if e.name == f"cs.{n}" for _, d in kernels_under(e)) / 1e3
+              for n in ("quantize", "res_lstm")}
+    busy = _busy_ms(dev)
+    k2 = _busy_ms([e for e in dev if "tf32unit" in e[0]])  # K2's kernel (split_tf32_unit.cuh)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "quantizer_ms": ranged["quantize"],
+            "k2_ms": k2, "lstm_ms": ranged["res_lstm"],
+            "other_ms": max(busy - k2 - ranged["quantize"] - ranged["res_lstm"], 0.0),
+            "idle_share": 1 - busy / wall_ms, "device_kernels": len(dev)}
+
+
+def offline_rows(name, codec, wav_np, n_units, codebook: int):
+    """Tokenize and decode of ``wav_np`` (B x 1 s) on the card: K1 0 and K2
+    ``n_units`` each, codes in [0, codebook), the first 2 requests against
+    the CPU (``hold_against_cpu``), audio-s/s (CUDA events) and the
+    quantizer's profiler split."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+
+    wav = torch.from_numpy(wav_np).cuda()
+    codes, tok = counted(lambda: C.tokenize(codec, wav))
+    out, dec = counted(lambda: offline_decode(codec, codes))
+    expect_launches(f"{name} tokenize", tok, (0, n_units))
+    expect_launches(f"{name} decode", dec, (0, n_units))
+    if tuple(codes.shape) != (1, B, SR // HOP) or tuple(out.shape) != (B, 1, SR) \
+            or not torch.isfinite(out).all() or int(codes.max()) >= codebook \
+            or int(codes.min()) < 0:
+        fail(f"{name}: codes {tuple(codes.shape)} in {int(codes.min())}..{int(codes.max())}, "
+             f"waveform {tuple(out.shape)}")
+    row = hold_against_cpu(f"{name} main path", codec, wav_np, codes, out)
+    tok_ms = cuda_ms(lambda: C.tokenize(codec, wav), iters=5)
+    dec_ms = cuda_ms(lambda: offline_decode(codec, codes), iters=5)
+    row.update(tokenize_ms=tok_ms, tokenize_audio_s_per_s=B / (tok_ms / 1e3), decode_ms=dec_ms,
+               decode_audio_s_per_s=B / (dec_ms / 1e3),
+               codes_used=int(torch.unique(codes).numel()),
+               launches_per_tokenize={"vq_argmin": tok[0], "residual_unit": tok[1]},
+               launches_per_decode={"vq_argmin": dec[0], "residual_unit": dec[1]},
+               tokenize_profile=quantizer_split(lambda: C.tokenize(codec, wav)),
+               decode_profile=quantizer_split(lambda: offline_decode(codec, codes)))
+    print(json.dumps({f"{name}_offline": row}))
+    return row, codes
+
+
+def ema_run_dir(run: Path, cfg, codec):
+    """A generator-only port run dir of ``cfg``: random weights from seed 0
+    and ``codec``'s (the card's, spread) EMA buffers; the buffers that
+    ``load_checkpoint_params`` reads back must equal them bit for bit.
+    Returns the CLI's CPU codec of the run dir."""
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices
+    from audiotokenization_tpu_torch.config import save_config
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.train.checkpoint import load_checkpoint_params
+
+    (run / "ckpt" / "0").mkdir(parents=True)
+    save_config(cfg, run / "config.json")
+    gen = C.init_codec(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gen.quantizer.load_state({n: b.cpu() for n, b in codec.quantizer.named_buffers()})
+    torch.save({"step": 0, "gen": gen.state_dict()}, run / "ckpt" / "0" / "state.pt")
+    _, back = load_checkpoint_params(run, device="cpu")
+    for n, b in gen.quantizer.named_buffers():
+        if not torch.equal(back.quantizer.get_buffer(n), b):
+            fail(f"EMA run dir: buffer {n} did not restore bit for bit")
+    return extract_indices.load_model(run, device="cpu")[1]
+
+
+def ema_path(card):
+    """16a-c, e: the EMA-VQ flagship (zoo_config("ema_vq")), random weights
+    from seed 0, the codebook spread (``spread_ema``). Prints the
+    bigcodec_ema_vq line."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = zoo_config("ema_vq")
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    codebook = cfg.model.codec_decoder.codebook_size
+    codec = spread_ema(seeded_codec(cfg))
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    result = {}
+    result["offline"], _ = offline_rows("EMA", codec, wav_np, n_units, codebook)
+    wavs = [torch.from_numpy(wav_np).cuda()] + [
+        torch.from_numpy((np.random.RandomState(i).randn(B, SR) * 0.1).astype(np.float32)).cuda()
+        for i in range(1, MODE_BATCHES)]
+    result["modes"] = mode_rows("bigcodec_ema_vq", codec, wavs,
+                                {m: MODE_LAT_REL[m] for m in ("high", "fast")}, (0, n_units))
+    result.update(ragged_and_extract("EMA", cfg, codec, n_units,
+                                     lambda run: ema_run_dir(run, cfg, codec)))
+    del codec, wavs
+    cos_cfg = zoo_config("ema_vq", cosine=True)
+    cos = spread_ema(seeded_codec(cos_cfg, seed=1))
+    result["cosine_offline"], _ = offline_rows("EMA cosine", cos, wav_np, n_units, codebook)
+    del cos
+    result["train_vs_cpu"] = train_step_vs_cpu(cfg, line="ema_train_step_vs_cpu")
+    result["train"] = timed_training("bigcodec_ema_vq", cfg, card, (0, 2 * n_units))
+    result["phase_s"] = time.perf_counter() - t0
+    line = quantizer_line(result)
+    print(json.dumps({"bigcodec_ema_vq": line, "card": card}))
+    return line
+
+
+def lfq_path(card):
+    """16d: the 13-bit LFQ flagship (zoo_config("lfq")), random weights from
+    seed 0. Prints the bigcodec_lfq line."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cfg = zoo_config("lfq")
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    codec = seeded_codec(cfg)
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    result = {}
+    result["offline"], _ = offline_rows("LFQ", codec, wav_np, n_units, 2 ** LFQ_BITS)
+    del codec
+    result["train_vs_cpu"] = train_step_vs_cpu(cfg, line="lfq_train_step_vs_cpu")
+    result["train"] = timed_training("bigcodec_lfq", cfg, card, (0, 2 * n_units))
+    result["phase_s"] = time.perf_counter() - t0
+    line = quantizer_line(result)
+    print(json.dumps({"bigcodec_lfq": line, "card": card}))
+    return line
+
+
+def quantizer_line(result):
+    """The bigcodec_fsq / _ema_vq / _lfq line: throughputs, launches per
+    call on each path, then every result."""
+    off = result["offline"]
+    launches = {"tokenize": off["launches_per_tokenize"], "decode": off["launches_per_decode"],
+                "train_per_step": result["train"]["launches_per_step"]}
+    if "modes" in result:
+        launches.update(modes_per_call={m: r["launches"] for m, r in result["modes"].items()},
+                        ragged_per_call=result["ragged"]["launches_per_call"],
+                        extract_per_batch=result["extract"]["launches_per_batch"])
+    return {"tokenize_audio_s_per_s": off["tokenize_audio_s_per_s"],
+            "decode_audio_s_per_s": off["decode_audio_s_per_s"],
+            "train_audio_s_per_s": result["train"]["audio_s_per_s"],
+            "train_peak_memory_gb": result["train"]["peak_memory_gb"],
+            "launches": launches, **result}
+
+
+def hold_indices(name, got, want, margin):
+    """Indices of a library quantizer on the card against the CPU's, (Nq,)
+    + positions or positions: equal at every position (all levels) but
+    where its margin (a relative top-2 gap; FSQ's rounding margin) is under
+    GAP. Returns (positions that differ, positions under GAP, the mask of
+    those that differ)."""
+    got, want = got.cpu(), want
+    if got.shape != want.shape:
+        fail(f"{name}: {tuple(got.shape)} indices against {tuple(want.shape)}")
+    differ = (got != want).reshape(-1, margin.numel()).any(0)
+    margin = margin.reshape(-1)
+    if (differ & (margin >= GAP)).any():
+        fail(f"{name}: {int(differ.sum())} indices differ from the CPU's, some at a margin "
+             f">= {GAP:g}")
+    return int(differ.sum()), int((margin < GAP).sum()), differ
+
+
+def hold_close(name, got, want, keep=None):
+    """Floats of the card against the CPU's within LAT_RTOL / LAT_ATOL (over
+    the rows ``keep`` whose indices agree, when given)."""
+    import torch
+
+    got = got.detach().cpu()
+    want = want.detach()
+    if keep is not None:
+        got, want = got[keep], want[keep]
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=LAT_RTOL, atol=LAT_ATOL):
+        fail(f"{name}: outside rtol 1e-3 / atol 2e-4 of the CPU (max |d| {err:.3g})")
+    return err
+
+
+def zoo_library(card):
+    """16f: each library quantizer once on the card against its CPU result,
+    at widths their users pick, on inputs of ZOO_M positions, random weights
+    from seed 0: indices equal but at near ties (relative top-2 gap under
+    GAP), outputs within the latents' tolerance where the indices agree.
+    Prints the quantizer_zoo line."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.quantizers import fsq, latent_quantize, misc, qinco
+
+    t0 = time.perf_counter()
+    g = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    T = ZOO_M // 2
+    rows = {}
+
+    def run(fn, module, x):
+        """(card result, CPU result, card ms) of fn(module, x) without gradients."""
+        cpu_m = copy.deepcopy(module)
+        card_m = copy.deepcopy(module).cuda()
+        with C.full_fp32(), torch.no_grad():
+            want = fn(cpu_m, x)
+            got = fn(card_m, x.cuda())
+            ms = cuda_ms(lambda: fn(card_m, x.cuda()), iters=5)
+        return got, want, ms, cpu_m
+
+    def euclid_margin(flat, codebook):
+        return ema_margins(flat, codebook, False)
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1])
+
+    # SimVQ: 8192 codes of 8 dims (the flagship VQ's book) through its transform
+    x8 = torch.from_numpy(np.random.RandomState(1).randn(2, 8, T).astype(np.float32))
+    m = misc.SimVQ(codebook_size=8192, dim=8, generator=g())
+    got, want, ms, cpu_m = run(lambda p, x: misc.sim_vq_apply(p, x), m, x8)
+    from audiotokenization_tpu_torch.ops.conv import linear
+    with torch.no_grad():
+        book = linear(cpu_m.frozen_codebook, cpu_m.transform)
+    f, n, differ = hold_indices("SimVQ", got[1], want[1], euclid_margin(flat(x8), book))
+    rows["sim_vq"] = {"ms": ms, "indices_differ": f, "near_ties": n,
+                      "max_abs_err": hold_close("SimVQ", flat(got[0]), flat(want[0]), ~differ)}
+    # BEST-RQ: a 1024-dim latent projected to 16 dims, 8192 codes
+    x1024 = torch.from_numpy(np.random.RandomState(2).randn(2, 1024, T).astype(np.float32))
+    m = misc.RandomProjectionQuantizer(dim=1024, codebook_dim=16, codebook_size=8192,
+                                       generator=g())
+    got, want, ms, cpu_m = run(misc.random_projection_quantize, m, x1024)
+    z = flat(x1024) @ cpu_m.projection.T
+    f, n, _ = hold_indices("random projection", got, want,
+                           ema_margins(z, cpu_m.codebook, True))
+    rows["random_projection"] = {"ms": ms, "indices_differ": f, "near_ties": n}
+    # NSVQ (eval): 8192 codes of 8 dims
+    m = misc.NSVQ(codebook_size=8192, dim=8, generator=g())
+    got, want, ms, cpu_m = run(lambda p, x: misc.nsvq_apply(p, x), m, x8)
+    f, n, differ = hold_indices("NSVQ", got[1], want[1],
+                                euclid_margin(flat(x8), cpu_m.codebook.detach()))
+    rows["nsvq"] = {"ms": ms, "indices_differ": f, "near_ties": n,
+                    "max_abs_err": hold_close("NSVQ", flat(got[0]), flat(want[0]), ~differ)}
+    # latent quantize: 1024 -> 8 dims of 5 levels each
+    m = latent_quantize.LatentQuantize(levels_per_dim=5, codebook_dim=8, dim=1024,
+                                       generator=g())
+    got, want, ms, cpu_m = run(lambda p, x: latent_quantize.latent_quantize_apply(p, x), m,
+                               x1024 * 0.05)
+    with torch.no_grad():
+        lx = linear(flat(x1024 * 0.05), cpu_m.project_in)
+        d = (lx[..., None] - cpu_m.values).abs().topk(2, dim=-1, largest=False).values
+        margin = ((d[..., 1] - d[..., 0]) / (lx.abs() + cpu_m.values.abs().amax(-1) + 1e-12)
+                  ).amin(-1)
+    f, n, differ = hold_indices("latent quantize", got[1], want[1], margin)
+    rows["latent_quantize"] = {"ms": ms, "indices_differ": f, "near_ties": n,
+                               "max_abs_err": hold_close("latent quantize", flat(got[0]),
+                                                         flat(want[0]), ~differ)}
+    # residual FSQ: 1024 -> levels (8, 5, 5, 5), 4 levels of residual
+    levels = (8, 5, 5, 5)
+    m = fsq.FSQ(dim=1024, levels=levels, generator=g())
+    got, want, ms, cpu_m = run(lambda p, x: fsq.residual_fsq_apply(p, x, num_quantizers=4), m,
+                               x1024)
+    with torch.no_grad():  # the CPU's bounded values of every level, their rounding margin
+        res = linear(flat(x1024), cpu_m.project_in)
+        margins = []
+        for i in range(4):
+            scale = fsq._residual_scale(levels, i, res.device)
+            b = fsq.fsq_bounded(res / scale, levels)
+            margins.append(((b - torch.floor(b)) - 0.5).abs().amin(-1))
+            res = res - fsq.fsq_quantize_codes(res / scale, levels) * scale
+        margin = torch.stack(margins).amin(0)
+    f, n, differ = hold_indices("residual FSQ", got[1], want[1], margin)
+    rows["residual_fsq"] = {"ms": ms, "frames_differ": f, "near_boundary": n,
+                            "max_abs_err": hold_close("residual FSQ", flat(got[0]),
+                                                      flat(want[0]), ~differ)}
+    # QINCo: 256 codes of 8 dims, 2 stages, positions in chunks of 640
+    m = qinco.Qinco(num_quantizers=2, codebook_size=256, dim=8, generator=g())
+    got, want, ms, cpu_m = run(lambda p, x: qinco.qinco_apply(p, x, chunk_size=640), m, x8)
+    with torch.no_grad():  # each stage's relative top-2 gap on the CPU
+        fx = flat(x8)
+        q0 = cpu_m.codebooks[0]
+        m0 = euclid_margin(fx, q0)
+        cond = q0[want.indices[0].reshape(-1).long()]
+        tcb = qinco.qinco_mlp_apply(cpu_m.mlps[0], cpu_m.codebooks[1], cond)
+        r = fx - cond
+        dist = ((r[:, None, :] - tcb) ** 2).sum(-1)
+        v, i = dist.topk(2, dim=1, largest=False)
+        best = tcb[torch.arange(len(i)), i[:, 0]]
+        m1 = (v[:, 1] - v[:, 0]) / ((r * r).sum(1) + (best * best).sum(1))
+        margin = torch.minimum(m0, m1)
+    f, n, differ = hold_indices("QINCo", got.indices, want.indices, margin)
+    rows["qinco"] = {"ms": ms, "positions": ZOO_M, "codes": 256, "dim": 8, "stages": 2,
+                     "chunk_size": 640, "positions_differ": f, "near_ties": n,
+                     "max_abs_err": hold_close("QINCo", flat(got.quantized),
+                                               flat(want.quantized), ~differ)}
+    out = {"positions": ZOO_M, **rows, "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"quantizer_zoo": out, "card": card}))
+    return out
 
 
 def main() -> int:
@@ -3174,9 +3613,14 @@ def main() -> int:
     moe = moe_path(card)
     fsq = fsq_path(card)
     print(json.dumps({"phase_15_s": time.perf_counter() - t0, "card": card}))
+    t0 = time.perf_counter()
+    ema = ema_path(card)
+    lfq = lfq_path(card)
+    zoo_library(card)
+    print(json.dumps({"phase_16_s": time.perf_counter() - t0, "card": card}))
 
     def path_launches(kernel):
-        """A kernel's launches per call on the paths of phases 10-15."""
+        """A kernel's launches per call on the paths of phases 10-16."""
         return {
             "modes_per_call": {m: r["launches"][kernel] for m, r in modes.items()},
             "extract_fast": ext["extract_fast"]["launches"][kernel],
@@ -3189,7 +3633,8 @@ def main() -> int:
                              if path == "modes_per_call" else got[kernel])
                       for path, got in line["launches"].items()}
                for name, line in (("conformer", conformer), ("conformer_moe", moe),
-                                  ("bigcodec_fsq", fsq))}}
+                                  ("bigcodec_fsq", fsq), ("bigcodec_ema_vq", ema),
+                                  ("bigcodec_lfq", lfq))}}
 
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
     # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
@@ -3251,7 +3696,10 @@ def main() -> int:
                               "MoE Conformer tokenize (32 x 1 s and 4 x 30 s), mode call, "
                               "extracted file (per-file route) and bf16 training step; "
                               "bigcodec_fsq: per FSQ BigCodec tokenize, decode, mode call, "
-                              "ragged call, extraction device batch and bf16 training step"}))
+                              "ragged call, extraction device batch and bf16 training step; "
+                              "bigcodec_ema_vq: the same for the EMA-VQ BigCodec; "
+                              "bigcodec_lfq: per LFQ BigCodec tokenize, decode and bf16 "
+                              "training step"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,7 @@
 """The port's causal and anti-aliased BigCodec against the JAX package's
-(CPU, tiny configs, the same weights from params_from_jax):
+(CPU, tiny configs, the same weights in both: the port's init and its JAX
+tree, tests/test_torch_streaming.py::build; the JAX references jitted once
+per config and shape):
 
 - ``ops/alias_free.py`` (the Kaiser-sinc filter, up/down sampling,
   Activation1d) and ``parallel/sp.py``'s ``_replicate_window`` / ``_SPAA``
@@ -33,7 +35,6 @@ from audiotokenization_tpu.ops import snake as JSN
 from audiotokenization_tpu.parallel import sp as JSP
 from audiotokenization_tpu_torch import config as PC
 from audiotokenization_tpu_torch import convert as TV
-from audiotokenization_tpu_torch.convert import params_from_jax
 from audiotokenization_tpu_torch.models import bigcodec
 from audiotokenization_tpu_torch.models import codec as TC
 from audiotokenization_tpu_torch.ops import alias_free as TA
@@ -43,6 +44,7 @@ from audiotokenization_tpu_torch.parallel import sp as TSP
 from audiotokenization_tpu_torch.utils.ragged import make_ragged_codec, make_ragged_tokenizer
 
 from test_torch_convert import reference_state_dict, write_reference_run
+from test_torch_streaming import build, jax_ref, jax_tokens
 
 AA_TOL = 1e-6
 LAT_RTOL, LAT_ATOL = 1e-3, 2e-4
@@ -132,28 +134,30 @@ def test_causal_convs_match_jax(stride, dilation):
 
 @pytest.fixture(scope="module", params=list(VARIANTS), ids=list(VARIANTS))
 def variant(request):
-    """A tiny variant config, JAX weights, the port's codec with them."""
+    """A tiny variant config, the port's codec at its init and the JAX tree
+    of the same weights (tests/test_torch_streaming.py::build)."""
     jcfg = variant_config(*VARIANTS[request.param])
-    params = JC.init_codec(jax.random.key(5), jcfg)
-    cfg = PC.from_dict(dataclasses.asdict(jcfg))
-    codec = TC.init_codec(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    codec.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
-    return jcfg, params, cfg, codec
+    params, codec = build(jcfg, 5)
+    return jcfg, params, codec.cfg, codec
+
+
+def _decode(params, jcfg, codes):
+    return JC.decode(params, jcfg, JC.codes_to_emb(params, jcfg, codes))
 
 
 def test_variant_tokenize_and_decode_match_jax(variant):
     jcfg, params, cfg, codec = variant
     wav = (np.random.RandomState(6).randn(2, 1230) * 0.1).astype(np.float32)
-    want = np.asarray(JC.tokenize(params, jcfg, jnp.asarray(wav)))
+    want = jax_tokens(params, jcfg, wav)
     got = TC.tokenize(codec, wav)
     assert got.shape == want.shape == (1, 2, 123)
     np.testing.assert_array_equal(got.numpy(), want)
     with torch.no_grad(), TC.full_fp32():
         lat = TC.encode(codec, torch.from_numpy(wav)).numpy()
-    np.testing.assert_allclose(lat, np.asarray(JC.encode(params, jcfg, jnp.asarray(wav))),
+    np.testing.assert_allclose(lat, np.asarray(jax_ref(JC.encode, jcfg)(params, jnp.asarray(wav))),
                                rtol=LAT_RTOL, atol=LAT_ATOL)
     c = want.transpose(1, 2, 0).copy()
-    ref = np.asarray(JC.decode(params, jcfg, JC.codes_to_emb(params, jcfg, jnp.asarray(c))))
+    ref = np.asarray(jax_ref(_decode, jcfg)(params, jnp.asarray(c)))
     with torch.no_grad(), TC.full_fp32():
         wav_got = TC.decode(codec, TC.codes_to_emb(codec, torch.from_numpy(c))).numpy()
     assert wav_got.shape == ref.shape == (2, 1, 1230)
@@ -205,7 +209,7 @@ def test_causal_reference_checkpoint_tokenizes_as_jax(tmp_path):
     """A reference run dir of a causal codec, every conv under the causal
     ``.conv.``: the port's loader needs no code of its own for it."""
     jcfg = variant_config(True, False)
-    tree = jax.tree.map(np.asarray, JC.init_codec(jax.random.key(8), jcfg))
+    tree = jax.tree.map(np.asarray, build(jcfg, 8)[0])
     run = write_reference_run(tmp_path / "ref", tree, jcfg, nested=True)
     cfg, codec = TV.load_reference_checkpoint(run, device="cpu")
     assert cfg.model.codec_encoder.causal and cfg.model.codec_decoder.causal
@@ -213,5 +217,5 @@ def test_causal_reference_checkpoint_tokenizes_as_jax(tmp_path):
     assert any(".conv.weight_v" in k for k in sd)
     jax_tree = JV.convert_codec_state_dict({k: v.numpy() for k, v in sd.items()}, jcfg)
     wav = (np.random.RandomState(8).randn(2, 800) * 0.1).astype(np.float32)
-    want = np.asarray(JC.tokenize(jax_tree, jcfg, jnp.asarray(wav)))
+    want = jax_tokens(jax_tree, jcfg, wav)
     np.testing.assert_array_equal(TC.tokenize(codec, wav).numpy(), want)

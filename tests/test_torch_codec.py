@@ -139,7 +139,9 @@ def test_tokenize_modes_not_ported_raise():
 def test_variants_not_ported_raise():
     """Causal and anti-aliased codecs build now, their units off K2 (the
     route is fixed by the config); the Conformer builds with its MoE
-    feed-forward, and FSQ builds; the quantizers still to port (LFQ) raise."""
+    feed-forward, and FSQ builds; LFQ (13 bits) builds with no parameters,
+    and a library quantizer no codec selects (SimVQ) raises JAX's
+    ValueError."""
     cfg = PC.Config()
     cfg.model.codec_encoder.causal = True
     cfg.model.codec_decoder.antialias = True
@@ -153,7 +155,11 @@ def test_variants_not_ported_raise():
     codec = TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
     assert codec.encoder_moe and type(codec.quantizer).__name__ == "FSQ"
     cfg.model.codec_decoder.fsq, cfg.model.codec_decoder.quantizer = False, "lfq"
-    with pytest.raises(NotImplementedError, match="item 14"):
+    cfg.model.codec_encoder.out_channels = cfg.model.codec_decoder.in_channels = 13
+    codec = TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
+    assert list(codec.quantizer.parameters()) == []
+    cfg.model.codec_decoder.quantizer = "sim_vq"
+    with pytest.raises(ValueError, match="unknown quantizer sim_vq"):
         TC.Codec(cfg, generator=torch.Generator().manual_seed(0))
 
 

@@ -228,7 +228,9 @@ def test_unported_reference_checkpoints_raise(jax_tree):
 
     for edit, reason in ((moe_conformer, "dense FFNs only"),
                          (lambda c: setattr(c.model.codec_decoder, "quantizer", "lfq"),
-                          "item 14"),
+                          "'lfq' quantizer has no mapping"),
+                         (lambda c: setattr(c.model.codec_decoder, "quantizer", "ema_vq"),
+                          "'ema_vq' quantizer has no mapping"),
                          (lambda c: setattr(c.train, "use_semantic", True), "item 15")):
         cfg = PC.from_dict(dataclasses.asdict(jcfg))
         edit(cfg)

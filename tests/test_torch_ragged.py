@@ -22,7 +22,7 @@ from audiotokenization_tpu_torch import config as PC
 from audiotokenization_tpu_torch.convert import params_from_jax
 from audiotokenization_tpu_torch.models import codec as TC
 from audiotokenization_tpu_torch.ops import lstm as TL
-from audiotokenization_tpu_torch.utils.ragged import make_ragged_codec
+from audiotokenization_tpu_torch.utils.ragged import make_ragged_codec, make_ragged_tokenizer
 
 LSTM_TOL = 1e-5
 WAV_RTOL, WAV_ATOL = 1e-5, 1e-6
@@ -153,7 +153,11 @@ def test_ragged_codec_fsq_matches_jax_and_per_file():
     # the Conformer's MoE feed-forward: expert capacity is batch-global
     (("codec_encoder", "type", "conformer_stft"), ("codec_encoder", "ffn_type", "moe")),
     (("codec_decoder", "type", "conformer_istft"), ("codec_decoder", "ffn_type", "moe")),
-    (("codec_decoder", "quantizer", "ema_vq"),), (("codec_decoder", "quantizer", "lfq"),),
+    # the EMA VQ and LFQ quantize frame by frame: they build (a library
+    # quantizer no codec selects raises JAX's ValueError in their place)
+    (("codec_decoder", "quantizer", "ema_vq"),),
+    (("codec_decoder", "quantizer", "lfq"), ("codec_decoder", "in_channels", 13),
+     ("codec_encoder", "out_channels", 13)),
     (("train", "use_semantic", True),)],
     ids=["encoder.ffn_type=moe", "decoder.ffn_type=moe", "quantizer=ema_vq", "quantizer=lfq",
          "use_semantic=True"])
@@ -161,6 +165,13 @@ def test_ragged_codec_refuses_unported_families(change):
     cfg = PC.Config()
     for group, field, value in change:
         setattr(cfg.train if group == "train" else getattr(cfg.model, group), field, value)
+    if cfg.model.codec_decoder.quantizer in ("ema_vq", "lfq"):
+        assert callable(make_ragged_codec(cfg, device="cpu"))
+        assert callable(make_ragged_tokenizer(cfg, device="cpu"))
+        cfg.model.codec_decoder.quantizer = "rpq"
+        with pytest.raises(ValueError, match="unknown quantizer rpq"):
+            make_ragged_codec(cfg, device="cpu")
+        return
     moe = any(v == "moe" for _, _, v in change)
     with pytest.raises(NotImplementedError,
                        match="capacity routing is batch-global" if moe else "ROADMAP"):

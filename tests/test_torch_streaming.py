@@ -1,5 +1,5 @@
 """The port's streaming runtime and chunked tokenizer against the JAX
-package's (CPU, tiny causal configs, the same weights from params_from_jax;
+package's (CPU, tiny causal configs, the same weights in both;
 the BigCodec cases of tests/test_streaming.py):
 
 - ``res_lstm_streaming`` over two chunks, with and without a (T,) suffix
@@ -18,6 +18,12 @@ the BigCodec cases of tests/test_streaming.py):
   file's edges;
 - ``cli/synthesize.py --streaming`` equals the offline decode of its
   tokens.
+
+The weights are the port's init, the JAX tree built from them
+(tests/test_torch_conformer_train.py::jax_tree), and the JAX references
+(``tokenize``, ``codes_to_emb`` -> ``decode``) are jitted once per config
+and input shape (``jax_ref``): run op by op, each new shape recompiles
+every primitive.
 """
 import copy
 import dataclasses
@@ -49,6 +55,8 @@ from audiotokenization_tpu_torch.utils.chunked import (make_chunked_tokenizer,
                                                        receptive_field_samples,
                                                        tokenize_chunked)
 
+from test_torch_conformer_train import jax_tree
+
 LSTM_TOL = 1e-5
 WAV_RTOL, WAV_ATOL = 1e-3, 2e-5
 HOP = 10
@@ -67,11 +75,31 @@ def tiny(causal=True, antialias=False, five_stage=False):
 
 
 def build(jcfg, seed):
-    params = JC.init_codec(jax.random.key(seed), jcfg)
+    """The JAX tree and the port's codec holding the same weights (the
+    port's init from ``seed``)."""
     cfg = PC.from_dict(dataclasses.asdict(jcfg))
-    codec = TC.init_codec(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    codec.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
-    return params, codec
+    codec = TC.init_codec(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+    return jax_tree(codec.state_dict()), codec
+
+
+_JITTED: dict = {}
+
+
+def jax_ref(fn, jcfg):
+    """``fn(params, jcfg, *args)`` jitted once per function and config (the
+    config is held, so its id stays its own)."""
+    key = (fn, id(jcfg))
+    if key not in _JITTED:
+        _JITTED[key] = (jcfg, jax.jit(lambda params, *args: fn(params, jcfg, *args)))
+    return _JITTED[key][1]
+
+
+def _decode_codes(params, jcfg, codes):
+    return JC.decode(params, jcfg, JC.codes_to_emb(params, jcfg, jnp.moveaxis(codes, 0, -1)))
+
+
+def jax_tokens(params, jcfg, wav):
+    return np.asarray(jax_ref(JC.tokenize, jcfg)(params, jnp.asarray(wav)))
 
 
 @pytest.fixture(scope="module")
@@ -99,8 +127,7 @@ def _stream_tokens(codec, wav, chunk):
 
 
 def _offline_wav(params, jcfg, codes):
-    emb = JC.codes_to_emb(params, jcfg, jnp.moveaxis(jnp.asarray(codes), 0, -1))
-    return np.asarray(JC.decode(params, jcfg, emb))[:, 0]
+    return np.asarray(jax_ref(_decode_codes, jcfg)(params, jnp.asarray(codes)))[:, 0]
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "suffix-valid"])
@@ -138,8 +165,7 @@ def test_streaming_matches_offline_tokens(plain):
     streamed, tok = _stream_tokens(codec, wav, 200)
     assert tok.delay_frames == 0
     np.testing.assert_array_equal(streamed, TC.tokenize(codec, wav).numpy())
-    np.testing.assert_array_equal(streamed, np.asarray(JC.tokenize(params, jcfg,
-                                                                   jnp.asarray(wav))))
+    np.testing.assert_array_equal(streamed, jax_tokens(params, jcfg, wav))
 
 
 def test_streaming_five_stage_config():
@@ -159,8 +185,7 @@ def test_streaming_tokenizer_antialias_exact(antialiased):
     streamed, tok = _stream_tokens(codec, wav, 200)
     assert tok.delay_frames > 0
     np.testing.assert_array_equal(streamed[:, :, :200], TC.tokenize(codec, wav).numpy())
-    np.testing.assert_array_equal(streamed[:, :, :200],
-                                  np.asarray(JC.tokenize(params, jcfg, jnp.asarray(wav))))
+    np.testing.assert_array_equal(streamed[:, :, :200], jax_tokens(params, jcfg, wav))
 
 
 def test_streaming_synthesizer_matches_offline_decode(plain):
@@ -203,7 +228,7 @@ def test_streaming_roundtrip_causal(plain):
         codes, ts = tok.step(ts, wav[:, start:start + 200])
         w, ss = syn.step(ss, codes)
         out.append(w)
-    want = _offline_wav(params, jcfg, np.asarray(JC.tokenize(params, jcfg, jnp.asarray(wav))))
+    want = _offline_wav(params, jcfg, jax_tokens(params, jcfg, wav))
     np.testing.assert_allclose(torch.cat(out, dim=1).numpy(), want, rtol=WAV_RTOL,
                                atol=WAV_ATOL)
 

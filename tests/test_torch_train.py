@@ -383,10 +383,20 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(jax_state):
 
 @pytest.mark.parametrize("change", ["ema_vq", "semantic", "lfq"])
 def test_unported_training_configurations_raise(change):
+    """The semantic branch raises; the EMA VQ and LFQ (8 bits) build a step,
+    and the library quantizers no codec selects (SimVQ, the random
+    projection) raise JAX's ValueError in their place."""
     cfg = port_cfg(tiny())
     if change == "semantic":
         cfg.train.use_semantic = True
-    else:
-        cfg.model.codec_decoder.quantizer = change
-    with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            make_train_step(cfg, device="cpu")
+        return
+    d = cfg.model.codec_decoder
+    d.quantizer = change
+    if change == "lfq":
+        d.in_channels = cfg.model.codec_encoder.out_channels = 8
+    assert callable(make_train_step(cfg, device="cpu"))
+    d.quantizer = {"ema_vq": "sim_vq", "lfq": "rpq"}[change]
+    with pytest.raises(ValueError, match=f"unknown quantizer {d.quantizer}"):
         make_train_step(cfg, device="cpu")
