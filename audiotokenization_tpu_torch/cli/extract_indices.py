@@ -29,8 +29,13 @@ path (``utils/ragged.py``). ``--mode`` (conformant, high, balanced, fast;
 ``models/codec.py::encode_in_mode``) sets the encoder's precision on both
 paths; a mode the encoder lacks (the Conformer's ``balanced``) raises
 ``ValueError`` before any file is read. The frame count is the Conformer's
-``hop_length`` or BigCodec's stride product (``config.codec_hop``). Sequence
-and tensor parallelism and the semantic targets raise
+``hop_length`` or BigCodec's stride product (``config.codec_hop``).
+
+A ``concat_semantic`` checkpoint's tokens depend on the teacher:
+``--semantic_dir`` (required for it) holds each file's precomputed teacher
+output (``<fileid>.npy``, (1024, Tf), ``cli/precompute_semantic.py``),
+zero-padded or trimmed to the file's frames and, on the ragged route,
+zero past them in its row. Sequence and tensor parallelism raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -65,7 +70,9 @@ def build_argparser():
                    help="the encoder's precision: conformant (fp32), high (TF32 library "
                         "calls), balanced (bf16 conv front), fast (bf16 encoder)")
     p.add_argument("--semantic_dir", type=str, default=None,
-                   help="precomputed w2v-bert targets (semantic branch: not ported)")
+                   help="directory of precomputed w2v-bert targets (<fileid>.npy, (1024, Tf); "
+                        "cli/precompute_semantic.py); required for concat_semantic "
+                        "checkpoints (tokens depend on the teacher)")
     p.add_argument("--sequence_parallel", action="store_true",
                    help="shard each utterance across devices (not ported)")
     p.add_argument("--tensor_parallel", type=int, nargs="?", const=-1, default=0, metavar="N",
@@ -122,9 +129,15 @@ def _refuse_unported(args):
     if args.sequence_parallel or args.tensor_parallel:
         raise NotImplementedError("--sequence_parallel and --tensor_parallel are not ported yet "
                                   "(ROADMAP Queue 1 item 18)")
-    if args.semantic_dir:
-        raise NotImplementedError("--semantic_dir (the semantic branch) is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
+
+
+def load_semantic_target(sem_dir: Path, fileid: str, frames: int) -> np.ndarray:
+    """A file's precomputed teacher output as float32 (1024, ``frames``),
+    zero-padded or trimmed."""
+    from ..models.semantic import align_frames
+
+    sem = torch.from_numpy(np.load(sem_dir / f"{fileid}.npy").astype(np.float32))
+    return align_frames(sem, frames).numpy()
 
 
 def _as_pcm16(w: np.ndarray) -> np.ndarray:
@@ -152,6 +165,15 @@ def main(argv=None):
     _refuse_unported(args)
     device = C.resolve_device(args.device)
     cfg, codec = load_model(args.save_path, device=device)
+    concat = cfg.train.use_semantic and cfg.train.concat_semantic
+    sem_dir = Path(args.semantic_dir) if args.semantic_dir and concat else None
+    if concat and sem_dir is None:
+        raise SystemExit(
+            "this checkpoint quantizes concat(semantic, latents) "
+            "(concat_semantic: true): tokenization needs per-utterance "
+            "w2v-bert teacher targets. Precompute them with "
+            "cli/precompute_semantic.py and pass --semantic_dir "
+            "(the reference's extract_indices predates this layout).")
     hop = codec_hop(cfg)
     out_dir = Path(args.save_path) / args.output_folder
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -174,16 +196,24 @@ def main(argv=None):
         np.save(sub_dir / f"{fileid}.npy", indices.astype(dtype))
         split["save_s"] += time.perf_counter() - t0
 
-    def device_call(rows, plen, dt):
+    def device_call(rows, plen, dt, sems=None):
         """One ragged call on ``rows`` (at most batch_size), zero-padded to
-        (batch_size, plen) -> codes (Nq, batch_size, plen / hop) on the host."""
+        (batch_size, plen), with their teacher outputs ``sems`` -> codes
+        (Nq, batch_size, plen / hop) on the host."""
         t0 = time.perf_counter()
         wavs = np.zeros((args.batch_size, plen), dt)
         lens = np.zeros((args.batch_size,), np.int64)
         for i, w in enumerate(rows):
             wavs[i, :len(w)] = w
             lens[i] = len(w)
-        codes = ragged(codec, torch.from_numpy(wavs), torch.from_numpy(lens)).cpu().numpy()
+        target = None
+        if sems is not None:
+            target = np.zeros((args.batch_size, sems[0].shape[0], plen // hop), np.float32)
+            for i, t in enumerate(sems):
+                target[i, :, :t.shape[1]] = t
+            target = torch.from_numpy(target)
+        codes = ragged(codec, torch.from_numpy(wavs), torch.from_numpy(lens),
+                       target).cpu().numpy()
         split["device_s"] += time.perf_counter() - t0
         stats["device_batches"] += 1
         return codes
@@ -194,8 +224,9 @@ def main(argv=None):
             return
         plen, dt = key
         try:
-            codes = device_call([w for _, _, w in items], plen, dt)
-            for i, (subset, fileid, w) in enumerate(items):
+            codes = device_call([w for _, _, w, _ in items], plen, dt,
+                                None if sem_dir is None else [t for *_, t in items])
+            for i, (subset, fileid, w, _) in enumerate(items):
                 save_one(subset, fileid, codes[:, i, :len(w) // hop])
             stats["saved"] += len(items)
         except Exception as exc:
@@ -203,9 +234,10 @@ def main(argv=None):
             # through the same bucket shape
             print(f"batch error ({len(items)} files), retrying per file: "
                   f"{type(exc).__name__}: {exc}")
-            for subset, fileid, w in items:
+            for subset, fileid, w, t in items:
                 try:
-                    save_one(subset, fileid, device_call([w], plen, dt)[:, 0, :len(w) // hop])
+                    codes = device_call([w], plen, dt, None if t is None else [t])
+                    save_one(subset, fileid, codes[:, 0, :len(w) // hop])
                     stats["saved"] += 1
                 except Exception as exc2:
                     print(f"error on {fileid}: {type(exc2).__name__}: {exc2}")
@@ -235,17 +267,21 @@ def main(argv=None):
             audio_seconds += len(wav) / args.sample_rate
             if not args.exact and len(wav) % hop != 0:
                 wav = np.pad(wav, (0, hop - len(wav) % hop))
+            sem = (None if sem_dir is None
+                   else load_semantic_target(sem_dir, fileid, len(wav) // hop))
             if ragged is not None:
                 w = _as_pcm16(wav)
                 key = (-(-len(w) // quantum) * quantum, w.dtype.str)
                 bucket = pending.setdefault(key, [])
-                bucket.append((subset, fileid, w))
+                bucket.append((subset, fileid, w, sem))
                 if len(bucket) == args.batch_size:
                     flush(key)
             else:
                 t0 = time.perf_counter()
                 x = torch.from_numpy(np.asarray(wav, np.float32))[None].to(device)
-                codes = C.tokenize(codec, x, mode=args.mode).cpu().numpy()[:, 0]
+                codes = C.tokenize(codec, x, mode=args.mode, semantic_target=(
+                    None if sem is None else torch.from_numpy(sem)[None].to(device)))
+                codes = codes.cpu().numpy()[:, 0]
                 split["device_s"] += time.perf_counter() - t0
                 stats["device_batches"] += 1
                 save_one(subset, fileid, codes)

@@ -20,9 +20,14 @@ ragged codec (``utils/ragged.py``) in buckets of ceil(length / 1 s) seconds,
 SI-SNR and SI-SDR per file in one device call (``train/metrics.py::
 masked_si``); else, and for a Conformer with ``ffn_type: moe`` (no exact
 ragged path, ``utils/ragged.py``; a note says so), one file a batch. STOI
-and PESQ run on the host, on the first 2 files of each batch. Semantic
-checkpoints (``--w2v_bert_path``) are not ported and raise
-``NotImplementedError``.
+and PESQ run on the host, on the first 2 files of each batch.
+
+A semantic checkpoint needs the frozen w2v-bert teacher where its forward
+reads it: on the crop and one-file paths (the loader computes the
+teacher's features) and on the ragged path of a ``concat_semantic`` one
+(the teacher per file, ``train/loop.py::make_test_teacher``). It comes
+from ``--w2v_bert_path`` (a local snapshot) or ``--w2v_bert_init random``
+(a seeded random teacher, for smoke runs).
 """
 from __future__ import annotations
 
@@ -78,9 +83,9 @@ def build_argparser():
     p.add_argument("--num_examples", type=int, default=10)
     p.add_argument("--output_folder", type=str, default="inference_full")
     p.add_argument("--w2v_bert_path", type=str, default=None,
-                   help="w2v-bert teacher snapshot (semantic checkpoints: not ported)")
+                   help="local w2v-bert-2.0 snapshot dir: the teacher of semantic checkpoints")
     p.add_argument("--w2v_bert_init", choices=["pretrained", "random"], default="pretrained",
-                   help="teacher init (semantic checkpoints: not ported)")
+                   help="random: a seeded random teacher (smoke runs only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     return p
@@ -89,9 +94,6 @@ def build_argparser():
 def main(argv=None):
     """Evaluate; returns the summary dict it writes."""
     args = build_argparser().parse_args(argv)
-    if args.w2v_bert_path or args.w2v_bert_init != "pretrained":
-        raise NotImplementedError("evaluating semantic checkpoints (--w2v_bert_*) is not "
-                                  "ported yet (ROADMAP Queue 1 item 15)")
     out_dir = Path(args.save_path) / args.output_folder
     out_dir.mkdir(parents=True, exist_ok=True)
     tee = Tee(out_dir / "log.txt")
@@ -126,10 +128,6 @@ def _evaluate(args, out_dir: Path):
     dur = None if args.duration is None or args.duration <= 0 else args.duration
     split = DatasetSplit(filelist=filelist, batch_size=args.batch_size if dur else 1,
                          shuffle=False, min_audio_length=int(dur * sr) if dur else -1)
-    ds = AudioDataset(split, sample_rate=sr, pad_to_multiple_of=hop, root=args.dataset_root,
-                      train=False)
-    loader = DataLoader(ds, batch_size=split.batch_size, shuffle=False, drop_last=False,
-                        num_workers=8)
     # whole files in bucketed ragged batches: each file's tokens equal its own
     # forward, waveforms to fp32 rounding; a config without an exact ragged
     # path (the MoE feed-forward) is evaluated one file a batch
@@ -139,6 +137,23 @@ def _evaluate(args, out_dir: Path):
             ragged = make_ragged_codec(cfg, device=device)
         except NotImplementedError as exc:
             print(f"note: ragged full-length batching unavailable ({exc}); running batch-1")
+    # the teacher where the forward reads it: the loader's features on the
+    # crop and one-file paths, per file on the ragged path of a concat
+    # checkpoint; the ragged path of a non-concat one applies fc_prior only
+    teacher = teacher_fwd = None
+    compute_feats = cfg.train.use_semantic and ragged is None
+    if compute_feats or (cfg.train.use_semantic and cfg.train.concat_semantic):
+        from ..models.w2v_bert import build_teacher
+        from ..train.loop import make_test_teacher
+
+        teacher = build_teacher(cfg, path=args.w2v_bert_path, init=args.w2v_bert_init,
+                                device=device)
+        if ragged is not None:
+            teacher_fwd = make_test_teacher(cfg)
+    ds = AudioDataset(split, sample_rate=sr, pad_to_multiple_of=hop, root=args.dataset_root,
+                      train=False, compute_feats=compute_feats, hop_length=hop)
+    loader = DataLoader(ds, batch_size=split.batch_size, shuffle=False, drop_last=False,
+                        num_workers=8)
 
     usage = Counter()
     agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": []}
@@ -181,7 +196,12 @@ def _evaluate(args, out_dir: Path):
                 wavs[i, :len(w)] = torch.from_numpy(w)
                 lens[i] = len(w)
             wavs, lens = wavs.to(device), lens.to(device)
-            recon, codes = ragged(codec, wavs, lens)
+            sem_t = None
+            if teacher_fwd is not None:
+                sem_t = torch.cat([teacher_fwd(teacher, w, plen, hop) for w in items])
+                sem_t = torch.cat([sem_t, sem_t.new_zeros((args.batch_size - len(items),
+                                                           *sem_t.shape[1:]))])
+            recon, codes = ragged(codec, wavs, lens, sem_t)
             with torch.no_grad():
                 snr = M.masked_si(recon, wavs, lens, zero_mean=True)
                 sdr = M.masked_si(recon, wavs, lens, zero_mean=False)
@@ -225,7 +245,10 @@ def _evaluate(args, out_dir: Path):
             t0 = time.perf_counter()
             wav = batch["wav"]
             state["audio_s"] += wav.shape[0] * wav.shape[1] / sr
-            out = eval_step(codec, {"wav": wav.to(device)})
+            batch_d = {"wav": wav.to(device)}
+            if compute_feats:
+                batch_d["feats"] = batch["feats"].to(device)
+            out = eval_step(codec, batch_d, teacher)
             agg["si_snr"].append(float(out["si_snr"]))
             agg["si_sdr"].append(float(out["si_sdr"]))
             hist = out["codebook_hist"].cpu().numpy()

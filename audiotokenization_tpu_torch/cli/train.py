@@ -8,8 +8,17 @@ Usage:
 The run dir gets config.json, checkpoints (ckpt/, ckpt_best/, best.json)
 and metrics.jsonl; running the command again with a higher --max_steps
 resumes from its latest checkpoint. One card (or the CPU with --device
-cpu, for small configs). The semantic branch's flags are not ported and
-raise.
+cpu, for small configs).
+
+The semantic branch (``train.use_semantic``, configs/bigcodec_semantic.yaml):
+  - default: the loader computes the teacher's input features from each
+    cropped clip (``ops/fbank.py``) and the frozen w2v-bert teacher runs in
+    the step; its weights come from --w2v_bert_path (a local
+    facebook/w2v-bert-2.0 snapshot directory), or --w2v_bert_init random
+    gives a seeded random teacher (smoke runs);
+  - --semantic_dir: precomputed targets instead (cli/precompute_semantic.py),
+    no teacher in the step.
+The teacher is never saved with the run: pass the same flag on resume.
 """
 from __future__ import annotations
 
@@ -21,25 +30,29 @@ from ..data.dataset import AudioDataset, DataLoader
 
 
 def make_loaders(cfg: Config, *, dataset_root=None, pin_memory: bool = False,
-                 skip_test: bool = False):
+                 skip_test: bool = False, semantic_dir=None, compute_feats: bool = False):
     """(train, val, test) loaders of the config's filelists, as the JAX CLI
     builds them: the train split shuffled from ``train.seed``, the val split
     in order, the test split full length and one file a batch (val and test
-    None without a filelist)."""
+    None without a filelist). ``semantic_dir`` / ``compute_feats``: the
+    train and val items' teacher targets or features (the test pass
+    computes its own)."""
     kw = dict(sample_rate=cfg.dataset.sample_rate, root=dataset_root)
+    hop = codec_hop(cfg)
+    sem = dict(semantic_dir=semantic_dir, compute_feats=compute_feats, hop_length=hop)
     train_loader = DataLoader(
         AudioDataset(cfg.dataset.train, train=True,
-                     pad_to_multiple_of=cfg.dataset.pad_to_multiple_of, **kw),
+                     pad_to_multiple_of=cfg.dataset.pad_to_multiple_of, **kw, **sem),
         batch_size=cfg.dataset.train.batch_size, shuffle=cfg.dataset.train.shuffle,
         seed=cfg.train.seed, pin_memory=pin_memory)
     val_loader = None
     if cfg.dataset.val.filelist:
         val_loader = DataLoader(
-            AudioDataset(cfg.dataset.val, pad_to_multiple_of=cfg.dataset.pad_to_multiple_of, **kw),
+            AudioDataset(cfg.dataset.val, pad_to_multiple_of=cfg.dataset.pad_to_multiple_of,
+                         **kw, **sem),
             batch_size=cfg.dataset.val.batch_size, shuffle=False, pin_memory=pin_memory)
     test_loader = None
     if cfg.dataset.test.filelist and not skip_test:
-        hop = codec_hop(cfg)
         test_loader = DataLoader(AudioDataset(cfg.dataset.test, pad_to_multiple_of=hop, **kw),
                                  batch_size=1, shuffle=False, drop_last=False)
     return train_loader, val_loader, test_loader
@@ -55,11 +68,12 @@ def main(argv=None):
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--no_wandb", action="store_true")
     p.add_argument("--semantic_dir", type=str, default=None,
-                   help="precomputed w2v-bert targets (semantic branch: not ported)")
+                   help="directory of precomputed w2v-bert targets (<stem>.npy, (1024, Tf); "
+                        "cli/precompute_semantic.py)")
     p.add_argument("--w2v_bert_path", type=str, default=None,
-                   help="w2v-bert teacher snapshot (semantic branch: not ported)")
+                   help="local facebook/w2v-bert-2.0 snapshot dir (the in-loop teacher)")
     p.add_argument("--w2v_bert_init", choices=["pretrained", "random"], default="pretrained",
-                   help="teacher init (semantic branch: not ported)")
+                   help="random: a seeded random teacher (smoke runs only)")
     p.add_argument("--resume_from", type=str, default=None,
                    help="run dir to restore the train state from; default: "
                         "this run dir's latest checkpoint")
@@ -76,26 +90,34 @@ def main(argv=None):
 
     from ..config import load_config
     from ..models.codec import resolve_device
+    from ..models.w2v_bert import build_teacher
     from ..train.loop import train
     from ..utils.logging import MetricsLogger
 
     device = resolve_device(args.device)
     cfg = load_config(args.config, args.override)
-    if (cfg.train.use_semantic or args.semantic_dir or args.w2v_bert_path
-            or args.w2v_bert_init != "pretrained"):
-        raise NotImplementedError("the semantic branch (use_semantic, --semantic_dir, "
-                                  "--w2v_bert_*) is not ported yet (ROADMAP Queue 1 item 15)")
+    teacher, compute_feats = None, False
+    if cfg.train.use_semantic:
+        if args.semantic_dir is None:
+            compute_feats = True
+            teacher = build_teacher(cfg, path=args.w2v_bert_path, init=args.w2v_bert_init,
+                                    device=device)
+        elif args.w2v_bert_path:
+            print("[train] --semantic_dir set; ignoring --w2v_bert_path "
+                  "(precomputed targets take precedence)")
     run_dir = args.run_dir or str(Path(cfg.log_dir) / cfg.name)
     if args.resume_from is None and cfg.resume_ckpt:
         args.resume_from = cfg.resume_ckpt
     train_loader, val_loader, test_loader = make_loaders(
         cfg, dataset_root=args.dataset_root, pin_memory=device.type == "cuda",
-        skip_test=args.skip_test)
+        skip_test=args.skip_test,
+        semantic_dir=args.semantic_dir if cfg.train.use_semantic else None,
+        compute_feats=compute_feats)
     logger = MetricsLogger(run_dir, run_name=cfg.name, use_wandb=not args.no_wandb)
     try:
         return train(cfg, train_loader=train_loader, val_loader=val_loader,
                      test_loader=test_loader, run_dir=run_dir, max_steps=args.max_steps,
-                     logger=logger,
+                     logger=logger, teacher=teacher,
                      profile_steps=tuple(args.profile_steps) if args.profile_steps else None,
                      resume_from=args.resume_from, resume_best=args.resume_best, device=device)
     finally:

@@ -22,11 +22,14 @@ state dict (``encoder.*``, ``decoder.*`` with the quantizer under
 for tensor, tolerant of the causal convs' inner ``.conv.``;
 ``load_reference_checkpoint`` finds and reads a reference run dir. Both
 codec families (BigCodec, and the Conformer STFT/ISTFT codec of the
-reference's config1) with the factorized VQ or FSQ convert: an EMA-VQ or
-LFQ reference checkpoint and semantic checkpoints raise
-``NotImplementedError`` (the JAX package's converter has no mapping for
-those quantizers either), and so does an MoE Conformer config, which the
-reference does not have. JAX run dirs of all of them convert through
+reference's config1) with the factorized VQ or FSQ convert, and so do the
+semantic heads of an SSL checkpoint (``convert_semantic_heads``: fc_prior,
+fc_post_a, fc_post_s and the Semantic{En,De}coder, under ``semantic.``); an
+EMA-VQ or LFQ reference checkpoint raises ``NotImplementedError`` (the JAX
+package's converter has no mapping for those quantizers either), and so
+does an MoE Conformer config, which the reference does not have. The
+frozen w2v-bert teacher is never part of a codec checkpoint: it loads
+from its own snapshot (``models/w2v_bert.py::load_w2v_bert_teacher``). JAX run dirs of all of them convert through
 ``params_from_jax``: the EMA quantizer's state leaves (``embed``,
 ``embed_avg``, ``cluster_size``, the 0-d ``initted``) are the buffers of
 ``quantizers/ema_vq.py::EmaVQ``, LFQ's quantizer tree is empty, and the
@@ -300,9 +303,6 @@ def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, to
             "package's converter reads every quantizer but FSQ as a factorized residual VQ "
             "(audiotokenization_tpu/convert.py:305-312); a JAX run dir converts through "
             "params_from_jax")
-    if "fc_prior" in groups or cfg.train.use_semantic:
-        raise NotImplementedError("converting the semantic heads is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
     enc_sd, dec_sd = groups.get("encoder", {}), groups.get("decoder", {})
     if e.type == "bigcodec":
         enc = convert_bigcodec_encoder(
@@ -320,7 +320,41 @@ def convert_codec_state_dict(sd: Mapping[str, Any], cfg: Config) -> Dict[str, to
         quant = convert_fsq(dec_sd)
     else:
         quant = convert_residual_vq(dec_sd, num_quantizers=d.vq_num_quantizers)
-    return {**_under("encoder", enc), **_under("decoder", dec), **_under("quantizer", quant)}
+    out = {**_under("encoder", enc), **_under("decoder", dec), **_under("quantizer", quant)}
+    if "fc_prior" in groups:
+        out.update(_under("semantic", convert_semantic_heads(groups)))
+    return out
+
+
+def convert_semantic_heads(groups: Mapping[str, Mapping[str, Any]]) -> Dict[str, torch.Tensor]:
+    """The SSL heads of a split Lightning state dict (``fc_prior``,
+    ``fc_post_a``, ``fc_post_s``, ``SemanticEncoder_module``,
+    ``SemanticDecoder_module``) -> the port's ``Semantic`` keys. A
+    weight-normed bottleneck conv (``weight_v`` / ``weight_g``) is folded
+    into its one weight ``w``, which is what the port's bottleneck holds."""
+    from .ops.conv import weight_norm
+
+    def lin(g):
+        return {"w": _tensor(g["weight"]), "b": _tensor(g["bias"])}
+
+    def conv(v: _View):
+        p = _conv(v)
+        if "v" in p:
+            p["w"] = weight_norm(p.pop("v"), p.pop("g"))
+        return p
+
+    def bottleneck(g):
+        v = _View(g)
+        return {**_under("initial", conv(v.sub("initial_conv"))),
+                **_under("res1", conv(v.sub("residual_blocks.1"))),
+                **_under("res2", conv(v.sub("residual_blocks.3"))),
+                **_under("final", conv(v.sub("final_conv")))}
+
+    return {**_under("fc_prior", lin(groups["fc_prior"])),
+            **_under("fc_post_a", lin(groups["fc_post_a"])),
+            **_under("fc_post_s", lin(groups["fc_post_s"])),
+            **_under("encoder", bottleneck(groups["SemanticEncoder_module"])),
+            **_under("decoder", bottleneck(groups["SemanticDecoder_module"]))}
 
 
 def reference_config_to_config(ref_cfg: Mapping[str, Any]) -> Config:

@@ -11,6 +11,15 @@
 - zero-pad the tail so that length % pad_to_multiple_of == 0;
 - collate into {"wav": (B, T), "lengths": (B,)}.
 
+The semantic branch's items: ``semantic_dir`` attaches each file's
+precomputed teacher output (``<stem>.npy``, float16 (1024, Tf), written by
+``cli/precompute_semantic.py``), sliced at the crop's frame offset, the
+crop's start then a multiple of the hop so that the frames align exactly;
+``compute_feats`` attaches the teacher's input features of the cropped
+clip (``ops/fbank.py::w2v_bert_features_from_clip``). Both are zero-padded
+to the batch's longest in the collate, as ``feats`` (B, Tf', 160) and
+``semantic_target`` (B, 1024, Tf).
+
 The loader draws each item's crop from a seed of ``SeedSequence([seed,
 epoch])``, as the JAX loader does, so the same filelist, seed and epoch
 give the same batches in both packages. Batches are built by a thread pool
@@ -48,52 +57,87 @@ def read_filelist(path, root: Optional[str] = None) -> list:
 
 def load_clip(path, *, sample_rate: int, min_audio_length: int,
               pad_to_multiple_of: int, train: bool,
-              rng: Optional[np.random.RandomState] = None) -> np.ndarray:
-    """Load one file and apply the crop/pad policy. Returns float32 (T,)."""
+              rng: Optional[np.random.RandomState] = None, return_start: bool = False,
+              crop_multiple: int = 1):
+    """Load one file and apply the crop/pad policy. Returns float32 (T,)
+    [, the crop's start sample with ``return_start``]. ``crop_multiple``:
+    random crops start at multiples of it (the hop, for precomputed
+    per-frame targets)."""
     wav, sr = read_audio(path)
     wav = wav[0]  # channel 0
     if sr != sample_rate:
         from ..ops.resample import resample
 
         wav = resample(torch.from_numpy(wav), sr, sample_rate).numpy()
+    start = 0
     if min_audio_length != -1:
         if len(wav) < min_audio_length:
             wav = np.pad(wav, (0, min_audio_length - len(wav)))
-        start = 0
         if train:
-            start = int((rng or np.random).randint(0, len(wav) - min_audio_length + 1))
+            hi = (len(wav) - min_audio_length) // crop_multiple + 1
+            start = int((rng or np.random).randint(0, hi)) * crop_multiple
         wav = wav[start:start + min_audio_length]
     if pad_to_multiple_of and len(wav) % pad_to_multiple_of != 0:
         wav = np.pad(wav, (0, pad_to_multiple_of - len(wav) % pad_to_multiple_of))
-    return wav.astype(np.float32)
+    wav = wav.astype(np.float32)
+    return (wav, start) if return_start else wav
 
 
 class AudioDataset:
-    """Map-style dataset over a filelist. ``semantic_dir`` and
-    ``compute_feats`` (the semantic branch's targets and features) are not
-    ported and raise."""
+    """Map-style dataset over a filelist. An item is the clip (T,), or with
+    ``semantic_dir`` or ``compute_feats`` a dict {"wav", "semantic_target"
+    (1024, T / hop_length) float32, "feats" (Tf', 160)} (module
+    docstring)."""
 
     def __init__(self, split: DatasetSplit, *, sample_rate: int,
                  pad_to_multiple_of: int, root: Optional[str] = None,
                  train: bool = False, semantic_dir: Optional[str] = None,
-                 compute_feats: bool = False):
-        if semantic_dir or compute_feats:
-            raise NotImplementedError("the semantic branch's data (semantic_dir, "
-                                      "compute_feats) is not ported yet")
+                 hop_length: int = 200, compute_feats: bool = False):
         self.files = read_filelist(split.filelist, root)
         self.split = split
         self.sample_rate = sample_rate
         self.pad_to_multiple_of = pad_to_multiple_of
         self.train = train
+        self.semantic_dir = Path(semantic_dir) if semantic_dir else None
+        self.hop_length = hop_length
+        self.compute_feats = compute_feats
 
     def __len__(self):
         return len(self.files)
 
-    def get(self, idx: int, rng=None) -> np.ndarray:
-        return load_clip(self.files[idx], sample_rate=self.sample_rate,
-                         min_audio_length=self.split.min_audio_length,
-                         pad_to_multiple_of=self.pad_to_multiple_of,
-                         train=self.train, rng=rng)
+    def get(self, idx: int, rng=None):
+        wav, start = load_clip(
+            self.files[idx], sample_rate=self.sample_rate,
+            min_audio_length=self.split.min_audio_length,
+            pad_to_multiple_of=self.pad_to_multiple_of, train=self.train, rng=rng,
+            return_start=True, crop_multiple=self.hop_length if self.semantic_dir else 1)
+        if self.semantic_dir is None and not self.compute_feats:
+            return wav
+        item = {"wav": wav}
+        if self.compute_feats:
+            from ..ops.fbank import w2v_bert_features_from_clip
+
+            item["feats"] = w2v_bert_features_from_clip(wav)
+        if self.semantic_dir is not None:
+            sem = np.load(self.semantic_dir / (Path(self.files[idx]).stem + ".npy"))
+            f0, tf = start // self.hop_length, len(wav) // self.hop_length
+            sem = sem[:, f0:f0 + tf]
+            if sem.shape[1] < tf:
+                sem = np.pad(sem, ((0, 0), (0, tf - sem.shape[1])))
+            item["semantic_target"] = sem.astype(np.float32)
+        return item
+
+
+def _stack_padded(arrays, *, axis: int) -> torch.Tensor:
+    """float32 arrays of one shape but ``axis`` -> one tensor, each zero-padded
+    along ``axis`` to the longest."""
+    n = max(a.shape[axis] for a in arrays)
+    shape = list(arrays[0].shape)
+    shape[axis] = n
+    out = torch.zeros((len(arrays), *shape), dtype=torch.float32)
+    for j, a in enumerate(arrays):
+        out[j].narrow(axis, 0, a.shape[axis]).copy_(torch.from_numpy(np.asarray(a, np.float32)))
+    return out
 
 
 class DataLoader:
@@ -132,14 +176,22 @@ class DataLoader:
         rng = np.random.RandomState(mix.generate_state(1)[0] % (2 ** 31))
         return dict(zip(indices.tolist(), rng.randint(0, 2 ** 31, size=len(indices)).tolist()))
 
-    def _collate(self, clips) -> dict:
-        wav = torch.zeros((len(clips), max(len(c) for c in clips)), dtype=torch.float32)
-        for j, c in enumerate(clips):
-            wav[j, :len(c)] = torch.from_numpy(c)
-        lengths = torch.tensor([len(c) for c in clips], dtype=torch.int32)
+    def _collate(self, items) -> dict:
+        """Items (clips, or dicts of them) -> the batch, each key zero-padded
+        to its longest along its frame axis."""
+        if not isinstance(items[0], dict):
+            items = [{"wav": c} for c in items]
+        clips = [it["wav"] for it in items]
+        batch = {"wav": _stack_padded(clips, axis=0),
+                 "lengths": torch.tensor([len(c) for c in clips], dtype=torch.int32)}
+        if "feats" in items[0]:
+            batch["feats"] = _stack_padded([it["feats"] for it in items], axis=0)
+        if "semantic_target" in items[0]:
+            batch["semantic_target"] = _stack_padded([it["semantic_target"] for it in items],
+                                                     axis=1)
         if self.pin_memory:
-            wav, lengths = wav.pin_memory(), lengths.pin_memory()
-        return {"wav": wav, "lengths": lengths}
+            batch = {k: v.pin_memory() for k, v in batch.items()}
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         indices = self._indices()

@@ -32,6 +32,17 @@ by default ``ema_draws``: a CPU generator seeded by the step.
 A Conformer encoder with ``ffn_type: moe`` adds the router's aux losses to
 ``forward``'s output (``moe_aux_loss``: [load balance, router z, dropped
 share], means over the MoE layers); tokenize and decode discard them.
+
+``train.use_semantic`` adds the semantic-distillation branch
+(``models/semantic.py``, the ``semantic`` submodule): the quantizer takes
+``semantic_vq_in`` of the latents (fc_prior, over the teacher's encoded
+layer concatenated with the latents under ``concat_semantic``, which then
+needs the teacher's ``semantic_target`` to tokenize), decoding goes
+through ``apply_fc_post_a``, and ``forward`` returns
+``semantic_recon_loss``, the teacher's output coming from the batch's
+``semantic_target`` or from a ``teacher`` run on its ``feats``. The
+teacher is a module of its own, frozen, never in the codec's state; in
+bf16 training it runs on bf16 copies of its weights.
 """
 from __future__ import annotations
 
@@ -49,6 +60,9 @@ from .quantizers import factorized_vq as fvq
 from .quantizers import fsq
 from .quantizers.ema_vq import EmaVQ, ema_vq_apply
 from .quantizers.lfq import lfq_apply, lfq_indices_to_codes
+from .semantic import (Semantic, align_frames, channels_linear, semantic_recon_loss,
+                       teacher_target)
+from .semantic import semantic_vq_in as _semantic_vq_in
 
 QUANTIZERS = ("fvq", "fsq", "ema_vq", "lfq")
 
@@ -103,9 +117,8 @@ DECODERS = {"bigcodec": bigcodec.BigCodecDecoder, "conformer_istft": conformer.C
 
 
 def check_config(cfg: Config):
-    """Raise for what the port does not build: an unknown family or
-    quantizer (``ValueError``, as the JAX package raises), the semantic
-    branch (``NotImplementedError`` citing the ROADMAP item)."""
+    """Raise ``ValueError`` for what the port does not build, as the JAX
+    package raises: an unknown family or quantizer, an LFQ over 31 bits."""
     e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
     for part, name, family in ((e, "encoder", ENCODERS), (d, "decoder", DECODERS)):
         if part.type not in family:
@@ -116,9 +129,6 @@ def check_config(cfg: Config):
     if quantizer == "lfq" and d.in_channels > 31:
         raise ValueError(f"lfq: a code is in_channels = {d.in_channels} bits of an int32 index "
                          "(at most 31)")
-    if cfg.train.use_semantic:
-        raise NotImplementedError("the semantic branch is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
 
 
 def uses_moe(cfg: Config) -> bool:
@@ -130,9 +140,10 @@ def uses_moe(cfg: Config) -> bool:
 
 class Codec(nn.Module):
     """Encoder (BigCodec or Conformer), quantizer (factorized residual VQ,
-    FSQ, EMA VQ or LFQ, which has no parameters) and decoder (BigCodec or
-    Conformer), with parameter and buffer names as in the JAX tree
-    (``encoder``, ``quantizer``, ``decoder``)."""
+    FSQ, EMA VQ or LFQ, which has no parameters), decoder (BigCodec or
+    Conformer) and, with ``train.use_semantic``, the semantic branch, with
+    parameter and buffer names as in the JAX tree (``encoder``,
+    ``quantizer``, ``decoder``, ``semantic``)."""
 
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
@@ -154,6 +165,8 @@ class Codec(nn.Module):
                 num_quantizers=d.vq_num_quantizers, dim=d.in_channels,
                 codebook_size=d.codebook_size, codebook_dim=d.codebook_dim,
                 generator=generator)
+        if cfg.train.use_semantic:
+            self.semantic = Semantic(cfg, generator=generator)
         # whether encode() collects MoE aux losses (an MoE layer in the encoder)
         self.encoder_moe = any(isinstance(m, MoEFeedForward) for m in self.encoder.modules())
 
@@ -168,6 +181,8 @@ class CodecOutput(NamedTuple):
     moe_aux_loss: torch.Tensor | None = None
     # the EMA quantizer's updated state (detached), None for the others
     quantizer_state: dict | None = None
+    # fp32 mse of the semantic branch's reconstruction of the teacher, None without it
+    semantic_recon_loss: torch.Tensor | None = None
 
 
 def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Codec:
@@ -254,8 +269,20 @@ def decode(codec: Codec, quantized, *, remat: bool = False):
     return codec.decoder(quantized, remat=remat)
 
 
+def _semantic_target(codec: Codec, batch: Dict[str, Any], frames: int, teacher=None):
+    """The teacher's output (B, 1024, ``frames``) for ``forward``: the
+    batch's ``semantic_target``, or the ``teacher`` on its ``feats``,
+    detached. Raises when neither is there."""
+    if "semantic_target" in batch:
+        return align_frames(batch["semantic_target"], frames).detach()
+    if teacher is None or "feats" not in batch:
+        raise ValueError("use_semantic needs the batch's semantic_target, or its feats and "
+                         "a teacher")
+    return teacher_target(teacher, batch["feats"], frames, codec.cfg.train.teacher_layer)
+
+
 def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
-            step=None, draws=None, quantizer_state=None) -> CodecOutput:
+            step=None, draws=None, quantizer_state=None, teacher=None) -> CodecOutput:
     """batch {"wav": (B, T)} -> CodecOutput: encode -> quantize -> decode,
     under ``train.precision`` (module docstring). In bf16 training the wav
     and every parameter but the quantizer's run as bf16 copies, and
@@ -265,26 +292,42 @@ def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
     EMA quantizer (``quantize``), whose updated state comes back in
     ``quantizer_state``; the other quantizers draw nothing. The encoder's MoE
     layers' aux losses are averaged into ``moe_aux_loss`` (JAX
-    ``codec.py:221-229``)."""
+    ``codec.py:221-229``). With ``use_semantic`` the batch carries
+    ``semantic_target`` (B, 1024, Tf) or ``feats`` (B, Tf', 160) for the
+    frozen ``teacher`` (``models/w2v_bert.py``; on bf16 copies of its
+    weights in bf16 training), and ``semantic_recon_loss`` is returned."""
     cfg = codec.cfg
     wav = batch["wav"]
     remat = training and resolve_remat(cfg)
-    cast = {}
+    cast, teacher_cast = {}, {}
     if training and cfg.train.precision == "bf16":
         cast = cast_parameters(codec, torch.bfloat16, skip="quantizer")
         wav = wav.to(torch.bfloat16)
+        batch = {k: (v.to(torch.bfloat16) if k in ("feats", "semantic_target") else v)
+                 for k, v in batch.items()}
+        if teacher is not None:
+            teacher_cast = bf16_copies(teacher)
     aux = []
+    sem_loss = None
     with precision_scope(cfg), parameters_as(codec, cast):
+        latents = encode(codec, wav, remat=remat, aux=aux)
+        if cfg.train.use_semantic:
+            with torch.no_grad(), parameters_as(teacher, teacher_cast):
+                target = _semantic_target(codec, batch, latents.shape[-1], teacher)
+            latents = semantic_vq_in(codec, latents, target)
         zq, codes, vq_loss, qstate = quantize(
-            codec, encode(codec, wav, remat=remat, aux=aux), training=training, step=step,
-            draws=draws, state=quantizer_state, with_state=True)
+            codec, latents, training=training, step=step, draws=draws, state=quantizer_state,
+            with_state=True)
+        if cfg.train.use_semantic:
+            sem_loss = semantic_recon_loss(codec.semantic, zq, target)
+            zq = apply_fc_post_a(codec, zq)
         gen = decode(codec, zq, remat=remat)
     moe = None
     if aux:
         moe = torch.stack([sum(a[k] for a in aux) / len(aux)
                            for k in ("load_balance_loss", "router_z_loss", "dropped_frac")])
     return CodecOutput(gt_wav=wav[:, None, :], gen_wav=gen, vq_loss=vq_loss, vq_code=codes,
-                       moe_aux_loss=moe, quantizer_state=qstate)
+                       moe_aux_loss=moe, quantizer_state=qstate, semantic_recon_loss=sem_loss)
 
 
 def codes_to_emb(codec: Codec, codes, *, proj: bool = True):
@@ -303,10 +346,23 @@ def codes_to_emb(codec: Codec, codes, *, proj: bool = True):
 
 
 def apply_fc_post_a(codec: Codec, emb):
-    """Semantic checkpoints decode fc_post_a(z_q); the port builds no semantic
-    branch yet (``Codec`` refuses ``use_semantic``), so embeddings pass
-    through unchanged, as they do for non-semantic trees in JAX."""
-    return emb
+    """Semantic checkpoints decode fc_post_a(z_q): applied to decoder-input
+    embeddings (B, C, Tf); without the semantic branch they pass through.
+    Every decode from codes goes through it."""
+    sem = getattr(codec, "semantic", None)
+    return emb if sem is None else channels_linear(emb, sem.fc_post_a)
+
+
+def semantic_vq_in(codec: Codec, latents, semantic_target=None, *, frames=None):
+    """The quantizer's input of the latents (B, C, Tf): with
+    ``use_semantic``, fc_prior(latents), or under ``concat_semantic``
+    fc_prior(concat(SemanticEncoder(teacher), latents)) with the teacher's
+    ``semantic_target`` (B, 1024, T') zero-padded or trimmed to Tf
+    (``ValueError`` without it); else the latents. ``frames``: a ragged
+    batch's frame counts (``utils/ragged.py``)."""
+    if not codec.cfg.train.use_semantic:
+        return latents
+    return _semantic_vq_in(codec.semantic, codec.cfg, latents, semantic_target, frames=frames)
 
 
 MODES = ("conformant", "high", "balanced", "fast")
@@ -373,9 +429,12 @@ def encode_in_mode(encoder: nn.Module, x, mode: str, *, lengths=None):
             return tail(y.float())
 
 
-def tokenize(codec: Codec, wav, *, mode: str = "conformant"):
+def tokenize(codec: Codec, wav, *, mode: str = "conformant", semantic_target=None):
     """wav (B, T) -> token indices (Nq, B, Tf) int32, on the codec's device
-    (Nq: ``config.num_codebooks``).
+    (Nq: ``config.num_codebooks``). A semantic codec's latents go through
+    ``semantic_vq_in`` first, fp32 with TF32 off in every mode (as the JAX
+    package runs it at float32 precision); under ``concat_semantic`` it
+    needs the teacher's ``semantic_target`` (B, 1024, Tf).
 
     ``mode`` sets the encoder's precision (``encode_in_mode``): conformant
     (fp32, the mode held to the JAX package's tokens), high, balanced
@@ -388,5 +447,10 @@ def tokenize(codec: Codec, wav, *, mode: str = "conformant"):
     wav = torch.as_tensor(wav, dtype=torch.float32, device=next(codec.parameters()).device)
     lat = encode_in_mode(codec.encoder, wav[:, None, :], mode)
     with torch.no_grad():
+        if codec.cfg.train.use_semantic:
+            with full_fp32():
+                st = None if semantic_target is None else torch.as_tensor(
+                    semantic_target, dtype=torch.float32, device=lat.device)
+                lat = semantic_vq_in(codec, lat, st)
         _, codes, _ = quantize(codec, lat)
     return codes

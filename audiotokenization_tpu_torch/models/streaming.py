@@ -47,6 +47,13 @@ launch of K1 (the VQ) on the card; an FSQ codec (codes (1, B, T)) makes
 none. A causal unit is not K2's
 (``models/bigcodec.py``), and the Conformer has none, so the streaming
 paths launch no K2.
+
+A semantic codec streams when its quantizer reads the latents alone (no
+``concat_semantic``): each step applies ``semantic_vq_in`` (fc_prior, per
+frame) before the quantizer, and the synthesizers decode
+``apply_fc_post_a`` of the codes' embeddings. A ``concat_semantic`` codec
+raises ``NotImplementedError``: its tokens need the teacher's output per
+frame.
 """
 from __future__ import annotations
 
@@ -63,7 +70,7 @@ from ..ops.transformer import attend, conv_module, feed_forward, masked_bias, qk
 from ..parallel.sp import _AA_REACH, _SPAA
 from . import bigcodec
 from .codec import (Codec, apply_fc_post_a, codes_to_emb, full_fp32, quantize,
-                    resolve_device)
+                    resolve_device, semantic_vq_in)
 from .conformer import encode_features, encode_output, head_spectrum
 
 _NO_END = 2 ** 28    # mid-stream bound in samples: the right edge is not here yet
@@ -122,6 +129,7 @@ class StreamingTokenizer:
             raise ValueError("streaming requires a causal unidirectional bigcodec "
                              "encoder config (a causal Conformer streams through "
                              "StreamingConformerTokenizer)")
+        _refuse_concat_semantic(codec.cfg)
         self.codec, self.cfg = codec, codec.cfg
         self.hop = math.prod(e.up_ratios)
         if chunk_samples % self.hop != 0:
@@ -199,7 +207,7 @@ class StreamingTokenizer:
             y = _SPAA(True, E - (2 + m), end // self.hop)(post, enc.snake_out)
             lat = bigcodec._wn_conv(y, enc.conv_out)[:, :, m:m + nf]
             keep = lat_a
-        _, codes, _ = quantize(self.codec, lat)
+        _, codes, _ = quantize(self.codec, semantic_vq_in(self.codec, lat))
         return codes, StreamState(
             sample_tail=window[:, :, -self.tail:],
             lstm_state=lstm_state,
@@ -425,6 +433,14 @@ def _cache_bias(n: int, *, pos_row: int, min_row: int, device):
                        torch.float32)
 
 
+def _refuse_concat_semantic(cfg):
+    """A ``concat_semantic`` codec's tokens need the teacher's output per
+    frame, which a live stream does not have (as in the JAX package)."""
+    if cfg.train.use_semantic and cfg.train.concat_semantic:
+        raise NotImplementedError("concat_semantic tokenization needs the teacher target "
+                                  "per frame; no streaming path for it")
+
+
 def _conformer_streaming_part(part, name: str, chunk_attr: str):
     if part.type != f"conformer_{name}" or not part.causal:
         raise ValueError(f"streaming the Conformer requires a causal conformer_{name} "
@@ -485,6 +501,7 @@ class StreamingConformerTokenizer:
         self.device = resolve_device(device)
         e = codec.cfg.model.codec_encoder
         _conformer_streaming_part(e, "stft", "encoder")
+        _refuse_concat_semantic(codec.cfg)
         self.codec, self.cfg = codec, codec.cfg
         self.hop, self.win = e.hop_length, e.window_size
         if chunk_samples % self.hop != 0:
@@ -539,7 +556,7 @@ class StreamingConformerTokenizer:
                                          cos=cos, sin=sin, bias=bias, keep=keep,
                                          conv_first=True)
             carry.append(c)
-        _, codes, _ = quantize(self.codec, encode_output(enc, h))
+        _, codes, _ = quantize(self.codec, semantic_vq_in(self.codec, encode_output(enc, h)))
         return codes, ConformerStreamState(sample_tail=buf[:, -self.tail:],
                                            kv_cache=state.kv_cache, conv_carry=carry,
                                            pos=state.pos + S)

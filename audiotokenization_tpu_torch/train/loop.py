@@ -12,6 +12,13 @@ device until a log step. Batches arrive in pinned memory and upload with
 (cuDNN's LSTM has no backward in eval mode, and nothing else differs);
 validation and the test pass run under ``torch.no_grad()``.
 
+A semantic codec trains with the frozen w2v-bert ``teacher`` passed to
+``train`` (its batches carry the teacher's input ``feats``), or on
+precomputed ``semantic_target`` batches; validation logs
+``val_semantic_recon_loss``. Under ``concat_semantic`` the test pass runs
+the teacher per file (``make_test_teacher``), and without a teacher it
+is skipped with a ``test_skipped_concat_semantic`` marker, as in JAX.
+
 Data parallelism, tensor and pipeline parallelism and FSDP are not ported:
 their settings raise ``NotImplementedError`` (ROADMAP Queue 1 item 18). As
 in the JAX loop, a resumed run restarts the loader at its first epoch.
@@ -55,36 +62,50 @@ def _device_of(module: torch.nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
+BATCH_KEYS = ("wav", "feats", "semantic_target")  # what a step or eval forward reads
+
+
+def _to_device(batch, device) -> dict:
+    return {k: batch[k].to(device, non_blocking=True) for k in BATCH_KEYS if k in batch}
+
+
 def make_eval_step(cfg: Config):
-    """``eval_step(gen, batch)`` -> the validation metrics of one batch, on
-    the device: SI-SNR, SI-SDR, the codebook histogram and both waveforms."""
+    """``eval_step(gen, batch, teacher=None)`` -> the validation metrics of
+    one batch, on the device: SI-SNR, SI-SDR, the codebook histogram, both
+    waveforms and a semantic codec's ``semantic_recon_loss``."""
     codebook_size = cfg.model.codec_decoder.codebook_size
 
-    def eval_step(gen, batch):
+    def eval_step(gen, batch, teacher=None):
         with torch.no_grad():
-            out = C.forward(gen, batch, training=False)
+            out = C.forward(gen, batch, training=False, teacher=teacher)
             y, y_ = out.gt_wav[:, 0, :], out.gen_wav[:, 0, :]
-            return {"si_snr": M.si_snr(y_, y), "si_sdr": M.si_sdr(y_, y),
-                    "codebook_hist": M.codebook_histogram(out.vq_code, codebook_size),
-                    "gen_wav": out.gen_wav, "gt_wav": out.gt_wav}
+            res = {"si_snr": M.si_snr(y_, y), "si_sdr": M.si_sdr(y_, y),
+                   "codebook_hist": M.codebook_histogram(out.vq_code, codebook_size),
+                   "gen_wav": out.gen_wav, "gt_wav": out.gt_wav}
+            if out.semantic_recon_loss is not None:
+                res["semantic_recon_loss"] = out.semantic_recon_loss
+            return res
 
     return eval_step
 
 
 def run_validation(cfg: Config, gen, val_loader, *, compute_stoi: bool = True,
                    max_batches: Optional[int] = None, artifact_dir: Optional[str] = None,
-                   step: int = 0, eval_step=None, timings: Optional[dict] = None):
+                   step: int = 0, eval_step=None, timings: Optional[dict] = None,
+                   teacher=None):
     """Validation pass over fixed-length batches. STOI and PESQ run on a
     seeded random subset of ``quality_metric_items`` items per batch, as in
     the JAX loop. With ``artifact_dir``, writes the first item of each
     batch in ``cfg.dataset.val.log_idxs`` (original and reconstruction) as
     wavs. ``timings``, when given, accumulates the seconds spent in the
     device forward (up to the metrics on the host) as ``forward_s`` and in
-    STOI/PESQ as ``quality_s``."""
+    STOI/PESQ as ``quality_s``. ``teacher``: a semantic codec's, for
+    batches that carry ``feats``."""
     eval_step = eval_step if eval_step is not None else make_eval_step(cfg)
     device = _device_of(gen)
     sr = cfg.dataset.sample_rate
-    agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": [], "quality_items": []}
+    agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": [], "quality_items": [],
+           "semantic_recon_loss": []}
     hist = None
     log_idxs = set(cfg.dataset.val.log_idxs or ())
     forward_s = quality_s = 0.0
@@ -98,9 +119,11 @@ def run_validation(cfg: Config, gen, val_loader, *, compute_stoi: bool = True,
                 "run_validation got a ragged batch (unequal lengths); use a "
                 "fixed min_audio_length val split or run_test's ragged path")
         t0 = time.perf_counter()
-        out = eval_step(gen, {"wav": batch["wav"].to(device, non_blocking=True)})
+        out = eval_step(gen, _to_device(batch, device), teacher)
         agg["si_snr"].append(float(out["si_snr"]))
         agg["si_sdr"].append(float(out["si_sdr"]))
+        if "semantic_recon_loss" in out:
+            agg["semantic_recon_loss"].append(float(out["semantic_recon_loss"]))
         hist = out["codebook_hist"] if hist is None else hist + out["codebook_hist"]
         dump = artifact_dir is not None and i in log_idxs
         if compute_stoi or dump:
@@ -179,13 +202,55 @@ def _dump_val_artifacts(artifact_dir, batch_idx, step, gt, gen, sr):
     _save_spectrogram_png(d / f"step{step}_spec.png", gt, gen, sr)
 
 
-def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None):
+def make_test_teacher(cfg: Config):
+    """The teacher's per-file targets for the ``concat_semantic`` test pass:
+    ``compute(teacher, w, plen, hop)`` -> (1, 1024, plen // hop) on the
+    teacher's device, for a file w (T,) zero-padded to plen samples. The
+    features are the host fbank of the file alone (its own ±160-sample
+    pad), zero-padded to the bucket's frame count; the teacher masks the
+    pad keys (``valid_frames``), at the precision the codec evaluates in,
+    and its output is zeroed past the file's frames, the zero padding to
+    Tf that the reference applies."""
+    from ..models.semantic import teacher_target
+    from ..ops.fbank import feature_frames, w2v_bert_features_from_clip
+
+    layer = cfg.train.teacher_layer
+
+    def compute(teacher, w, plen, hop):
+        device = _device_of(teacher)
+        f = w2v_bert_features_from_clip(np.asarray(w))  # (nf_file, 160)
+        nfb = feature_frames(plen)  # the bucket's frames: one shape per bucket
+        n = min(len(f), nfb)
+        feats = torch.zeros((1, nfb, 160))
+        feats[0, :n] = torch.from_numpy(f[:n])
+        with torch.no_grad(), C.precision_scope(cfg):
+            return teacher_target(teacher, feats.to(device), plen // hop, layer,
+                                  valid_frames=torch.tensor([n], device=device)).float()
+
+    return compute
+
+
+def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None,
+             teacher=None):
     """Full-length test pass over a batch-1 loader: each file zero-padded
     to a whole number of seconds and run through the ragged codec
     (``utils/ragged.py``), metrics on its own length. Returns
-    ``test_``-prefixed metrics."""
+    ``test_``-prefixed metrics. A ``concat_semantic`` codec quantizes the
+    teacher's output too: its ``teacher`` runs per file
+    (``make_test_teacher``); without one the pass is skipped and returns
+    ``{"test_skipped_concat_semantic": 1.0}``."""
     from ..utils.ragged import make_ragged_codec
 
+    teacher_fwd = None
+    if cfg.train.use_semantic and cfg.train.concat_semantic:
+        if teacher is None:
+            # an explicit marker: an unattended run must not read "no teacher,
+            # phase skipped" as "the test phase ran clean"
+            print("[test] concat_semantic quantizes concat(teacher, latents) "
+                  "and no w2v-bert teacher is loaded — skipping the test "
+                  "phase (pass teacher / --w2v_bert_path)")
+            return {"test_skipped_concat_semantic": 1.0}
+        teacher_fwd = make_test_teacher(cfg)
     sr = cfg.dataset.sample_rate
     hop = codec_hop(cfg)
     quantum = max(sr // hop * hop, hop)
@@ -198,7 +263,8 @@ def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None
         w = batch["wav"][0].numpy()
         wav = torch.zeros((1, -(-len(w) // quantum) * quantum))
         wav[0, :len(w)] = torch.from_numpy(w)
-        recon, codes = ragged(gen, wav, torch.tensor([len(w)]))
+        sem_t = None if teacher_fwd is None else teacher_fwd(teacher, w, wav.shape[1], hop)
+        recon, codes = ragged(gen, wav, torch.tensor([len(w)]), sem_t)
         est = recon[0, :len(w)].float().cpu().numpy()
         np.add.at(hist, codes[:, 0, :len(w) // hop].cpu().numpy().reshape(-1), 1)
         e, t = torch.from_numpy(est)[None], torch.from_numpy(w)[None]
@@ -224,7 +290,7 @@ def _profiler(device: torch.device):
 def train(cfg: Config, *, train_loader, val_loader=None, test_loader=None, run_dir: str,
           max_steps: Optional[int] = None, logger: Optional[MetricsLogger] = None,
           profile_steps: Optional[tuple] = None, resume_from: Optional[str] = None,
-          resume_best: bool = False, device="cuda"):
+          resume_best: bool = False, device="cuda", teacher=None):
     """Train until ``max_steps`` (default ``cfg.train.max_steps``) and return
     the ``TrainState``.
 
@@ -240,7 +306,9 @@ def train(cfg: Config, *, train_loader, val_loader=None, test_loader=None, run_d
     and ``ckpt_stall_ms`` and ``ckpt_bytes`` logged. Then the test pass over
     ``test_loader``, if given. ``profile_steps=(start, stop)`` writes a
     ``torch.profiler`` trace of those steps to ``<run_dir>/profile``.
-    Raises without a card unless ``device="cpu"``.
+    ``teacher``: a semantic codec's frozen w2v-bert, for the step, the
+    validation and the test pass (never checkpointed). Raises without a
+    card unless ``device="cpu"``.
     """
     device = _single_device(cfg, device)
     t = cfg.train
@@ -255,11 +323,13 @@ def train(cfg: Config, *, train_loader, val_loader=None, test_loader=None, run_d
           else MetricsLogger(run_dir, run_name=cfg.name, use_wandb=False)) as logger:
         return _train(cfg, state, ckpt, logger, train_loader=train_loader,
                       val_loader=val_loader, test_loader=test_loader, run_dir=run_dir,
-                      max_steps=max_steps, profile_steps=profile_steps, device=device)
+                      max_steps=max_steps, profile_steps=profile_steps, device=device,
+                      teacher=teacher)
 
 
 def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *,
-           train_loader, val_loader, test_loader, run_dir, max_steps, profile_steps, device):
+           train_loader, val_loader, test_loader, run_dir, max_steps, profile_steps, device,
+           teacher):
     """The loop of ``train`` from a restored state."""
     t = cfg.train
     step_fn = make_train_step(cfg, device=device)
@@ -272,7 +342,7 @@ def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *
     if val_loader is not None and t.num_sanity_val_steps > 0:
         # a fault in the eval path shows at step 0, not at val_every_n_steps
         run_validation(cfg, state.gen, val_loader, eval_step=eval_step,
-                       max_batches=t.num_sanity_val_steps, compute_stoi=False)
+                       max_batches=t.num_sanity_val_steps, compute_stoi=False, teacher=teacher)
         logger.log({"sanity_val_ok": 1.0}, step)
     t_last = time.perf_counter()
     hist_accum = None
@@ -282,11 +352,10 @@ def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *
         for batch in train_loader:
             if step >= max_steps:
                 break
-            wav = batch["wav"].to(device, non_blocking=True)
             if profile_steps and step == profile_steps[0]:
                 prof = _profiler(device)
                 prof.start()
-            metrics = step_fn(state, {"wav": wav})
+            metrics = step_fn(state, _to_device(batch, device), teacher)
             step = state.step
             if prof is not None and step == profile_steps[1]:
                 if device.type == "cuda":
@@ -315,7 +384,8 @@ def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *
             if val_loader is not None and step % t.val_every_n_steps == 0:
                 timings: dict = {}
                 val = run_validation(cfg, state.gen, val_loader, artifact_dir=run_dir,
-                                     step=step, eval_step=eval_step, timings=timings)
+                                     step=step, eval_step=eval_step, timings=timings,
+                                     teacher=teacher)
                 logger.log({**val, "val_forward_s": timings["forward_s"],
                             "val_quality_s": timings["quality_s"]}, step)
             if step % t.checkpoint_every_n_steps == 0 or step == max_steps:
@@ -326,5 +396,5 @@ def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *
     ckpt.save(state)
     ckpt.wait()
     if test_loader is not None:
-        logger.log(run_test(cfg, state.gen, test_loader), step)
+        logger.log(run_test(cfg, state.gen, test_loader, teacher=teacher), step)
     return state

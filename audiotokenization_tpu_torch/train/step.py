@@ -8,8 +8,10 @@
   3. the generator loss against the **updated** discriminator, with no
      gradient into it: mel x15 + adv + feature matching (real side
      detached) + Σ vq (+ the MoE router's load-balance and z losses,
-     logged with the dropped share as ``moe_*``); backward through the
-     saved generator graph, then the generator update.
+     logged with the dropped share as ``moe_*``; + the semantic branch's
+     fp32 reconstruction mse x ``lambda_semantic_loss``, logged as
+     ``semantic_recon_loss``); backward through the saved generator graph,
+     then the generator update.
 
 ``accumulate_grad_batches = N`` splits the batch into N micro-batches:
 phase 1 averages the discriminator's gradients at its pre-update weights
@@ -30,6 +32,13 @@ are ``draws(step, codes, vectors)`` (``make_train_step``'s argument,
 default ``models.codec.ema_draws``), salted by the state's step, so the
 same step and batch give the same update. LFQ's codebook histogram has
 2^bits bins.
+
+A semantic codec's teacher (``models/w2v_bert.py``) is an argument of the
+step, not a part of its state: frozen (no gradient), it is in no optimizer,
+no weight decay, no gradient clipping and no checkpoint; in bf16 it runs
+on bf16 copies of its weights. A batch carries the teacher's input
+``feats`` (B, Tf', 160) or its precomputed ``semantic_target`` (B, 1024,
+Tf) beside ``wav``.
 
 K1 runs once per generator forward with the factorized VQ (FSQ, the EMA
 VQ and LFQ have none) and K2 once per fused ResidualUnit (30 in the
@@ -61,9 +70,11 @@ def _finite(total, grads) -> bool:
 
 
 def make_train_step(cfg: Config, *, device="cuda", draws=None):
-    """``step(state, batch) -> metrics`` for ``batch = {"wav": (B, T)}`` on
-    ``device`` (the state's): updates ``state`` in place and returns the
-    JAX step's metrics as tensors (``gen_lr`` a float). ``draws``: the EMA
+    """``step(state, batch, teacher=None) -> metrics`` for ``batch =
+    {"wav": (B, T)}`` (a semantic codec's with ``feats`` for the frozen
+    ``teacher``, or ``semantic_target``) on ``device`` (the state's):
+    updates ``state`` in place and returns the JAX step's metrics as
+    tensors (``gen_lr`` a float). ``draws``: the EMA
     quantizer's, a callable ``(step, codes, vectors) -> {"expiry": rows}``
     (default ``models.codec.ema_draws``). Raises without a card unless
     ``device="cpu"``, and for a config the port does not build
@@ -129,6 +140,9 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
             total = total + logs["fm_loss"] * lam.lambda_feat_match_loss
         logs["vq_loss"] = torch.sum(out.vq_loss)
         total = total + logs["vq_loss"]
+        if out.semantic_recon_loss is not None:
+            logs["semantic_recon_loss"] = out.semantic_recon_loss
+            total = total + out.semantic_recon_loss * lam.lambda_semantic_loss
         if out.moe_aux_loss is not None:  # the router's Switch aux losses
             lb, z, dropped = out.moe_aux_loss
             total = total + lb * lam.lambda_moe_load_balance + z * lam.lambda_moe_router_z
@@ -143,9 +157,10 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
         opt.step()
         return True
 
-    def fused_step(state: TrainState, batch):
+    def fused_step(state: TrainState, batch, teacher):
         y = batch["wav"][:, None, :]
-        out = C.forward(state.gen, batch, training=True, step=state.step, draws=draws)
+        out = C.forward(state.gen, batch, training=True, step=state.step, draws=draws,
+                        teacher=teacher)
         state.disc_opt.zero_grad()
         disc_total, disc_logs = disc_losses(state.disc, y, out.gen_wav)
         disc_total.backward()
@@ -158,7 +173,7 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
             state.gen.quantizer.load_state(out.quantizer_state)
         return {**disc_logs, **gen_logs}, codebook_histogram(out.vq_code, codebook_size), ok_d, ok_g
 
-    def accumulated_step(state: TrainState, batch):
+    def accumulated_step(state: TrainState, batch, teacher):
         n = n_accum
         for k, v in batch.items():
             if v.shape[0] % n:
@@ -175,7 +190,7 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
         for mb in mbs:  # phase 1: the discriminator's gradients at its weights before the update
             with torch.no_grad():  # the EMA state as before the step; its update discarded
                 fake = C.forward(state.gen, mb, training=True, step=state.step,
-                                 draws=draws).gen_wav
+                                 draws=draws, teacher=teacher).gen_wav
             total, logs = disc_losses(state.disc, mb["wav"][:, None, :], fake)
             (total / n).backward()
             mean_logs(disc_logs, logs)
@@ -187,7 +202,7 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
         qstate = None  # the EMA state threaded through phase 2 (None: the buffers)
         for mb in mbs:  # phase 2: the generator's, against the updated discriminator
             out = C.forward(state.gen, mb, training=True, step=state.step, draws=draws,
-                            quantizer_state=qstate)
+                            quantizer_state=qstate, teacher=teacher)
             qstate = out.quantizer_state
             total, logs = gen_losses(state.disc, mb["wav"][:, None, :], out)
             (total / n).backward()
@@ -200,9 +215,9 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
 
     body = accumulated_step if n_accum > 1 else fused_step
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], teacher=None) -> Dict[str, Any]:
         with C.precision_scope(cfg):
-            logs, hist, ok_d, ok_g = body(state, batch)
+            logs, hist, ok_d, ok_g = body(state, batch, teacher)
         metrics = {k: v.detach() for k, v in logs.items()}
         if tcfg.guard_nonfinite:
             metrics["nonfinite_skipped"] = torch.tensor(float(not (ok_d and ok_g)))

@@ -26,6 +26,14 @@ side raises ``NotImplementedError``, as in the JAX package: expert
 capacity is a function of the batch's token count and tokens compete for
 slots across samples, so a batched result can never equal per-file
 processing (evaluate such a codec per file).
+
+A semantic codec's ``semantic_vq_in`` (fc_prior) is per frame; under
+``concat_semantic`` its bottleneck's k3 convs zero each sample's tail
+after every conv, and the teacher's ``semantic_target`` (B, 1024, L // hop)
+is zeroed past each file's frames, which is what the per-file path's zero
+padding of the teacher gives (``models/semantic.py::semantic_vq_in``).
+The codec's decoder then takes ``apply_fc_post_a`` of the quantized
+latents.
 """
 from __future__ import annotations
 
@@ -33,8 +41,9 @@ import torch
 
 from ..config import Config, codec_hop
 from ..models.bigcodec import edge_mask
-from ..models.codec import (ENCODERS, check_config, check_mode, encode_in_mode, full_fp32,
-                            precision_scope, quantize, resolve_device)
+from ..models.codec import (ENCODERS, apply_fc_post_a, check_config, check_mode,
+                            encode_in_mode, full_fp32, precision_scope, quantize,
+                            resolve_device, semantic_vq_in)
 
 
 def check_exactness(cfg: Config):
@@ -54,10 +63,18 @@ def _maybe_pcm16(wavs):
     return wavs
 
 
+def _target(semantic_target, device):
+    if semantic_target is None:
+        return None
+    return torch.as_tensor(semantic_target, device=device).float()
+
+
 def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda"):
-    """Batched variable-length tokenization: ``run(codec, wavs, lengths)``
-    with wavs (B, L) float32 or int16 PCM, zero-padded, and lengths (B,) in
-    samples, returns codes (Nq, B, L // hop) on ``device`` (the codec's;
+    """Batched variable-length tokenization: ``run(codec, wavs, lengths,
+    semantic_target=None)`` with wavs (B, L) float32 or int16 PCM,
+    zero-padded, lengths (B,) in samples and, for a ``concat_semantic``
+    codec, the teacher's (B, 1024, L // hop) zero past each file's frames,
+    returns codes (Nq, B, L // hop) on ``device`` (the codec's;
     Nq: ``config.num_codebooks``); frames past lengths // hop are
     meaningless (trim per sample). Each row's tokens equal the per-file
     ``tokenize`` of its own hop-padded samples, in the same ``mode``
@@ -68,12 +85,15 @@ def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda
     check_config(cfg)
     check_exactness(cfg)
     check_mode(ENCODERS[cfg.model.codec_encoder.type], mode)
+    hop = codec_hop(cfg)
 
-    def run(codec, wavs, lengths):
+    def run(codec, wavs, lengths, semantic_target=None):
         wavs = _maybe_pcm16(torch.as_tensor(wavs, device=device)).float()
         lengths = torch.as_tensor(lengths, device=device).long()
         lat = encode_in_mode(codec.encoder, wavs[:, None, :], mode, lengths=lengths)
         with torch.no_grad(), full_fp32():
+            lat = semantic_vq_in(codec, lat, _target(semantic_target, device),
+                                 frames=lengths // hop)
             _, codes, _ = quantize(codec, lat)
         return codes
 
@@ -81,10 +101,12 @@ def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda
 
 
 def make_ragged_codec(cfg: Config, *, device="cuda"):
-    """Batched variable-length reconstruction: ``run(codec, wavs, lengths)``
-    with wavs (B, L) float32 or int16 PCM, zero-padded, and lengths (B,) in
-    samples, returns (recon (B, L), codes (Nq, B, L // hop)) on ``device``
-    (the codec's); frames past lengths // hop are meaningless. Runs without
+    """Batched variable-length reconstruction: ``run(codec, wavs, lengths,
+    semantic_target=None)`` with wavs (B, L) float32 or int16 PCM,
+    zero-padded, lengths (B,) in samples and the teacher's as for
+    ``make_ragged_tokenizer``, returns (recon (B, L), codes (Nq, B, L //
+    hop)) on ``device`` (the codec's); frames past lengths // hop are
+    meaningless. Runs without
     gradients under ``precision_scope(cfg)``, as ``forward`` evaluates.
     Raises without a card unless ``device="cpu"``."""
     device = resolve_device(device)
@@ -92,12 +114,15 @@ def make_ragged_codec(cfg: Config, *, device="cuda"):
     check_exactness(cfg)
     hop = codec_hop(cfg)
 
-    def run(codec, wavs, lengths):
+    def run(codec, wavs, lengths, semantic_target=None):
         wavs = _maybe_pcm16(torch.as_tensor(wavs, device=device))
         lengths = torch.as_tensor(lengths, device=device).long()
         frames = lengths // hop
         with torch.no_grad(), precision_scope(cfg):
-            zq, codes, _ = quantize(codec, codec.encoder(wavs[:, None, :], lengths=lengths))
+            lat = semantic_vq_in(codec, codec.encoder(wavs[:, None, :], lengths=lengths),
+                                 _target(semantic_target, device), frames=frames)
+            zq, codes, _ = quantize(codec, lat)
+            zq = apply_fc_post_a(codec, zq)
             recon = codec.decoder(edge_mask(zq, frames), frames=frames)
         return recon[:, 0], codes
 

@@ -8,9 +8,11 @@ Phases, each fatal on failure:
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel (one nvcc per source, started together);
  3. K1 (vq_argmin) against its plain version at the flagship shape, the
-    cases of tests/test_pallas_vq.py and the edges of its cluster layout;
+    semantic codec's (1,600 x 8 against 8192 x 8), the cases of
+    tests/test_pallas_vq.py and the edges of its cluster layout;
  4. K2 (fused_residual_unit) at the 15 (C, T, d) shapes of the flagship's
-    units, batch 32: within rtol/atol 1e-4 of its fp32 plain version (cuDNN,
+    units and the 15 of configs/bigcodec_semantic.yaml's (C 16-256, T
+    16000-250), batch 32: within rtol/atol 1e-4 of its fp32 plain version (cuDNN,
     TF32 off), and against the plain version in float64 no more than 4x as
     far off as the fp32 plain version is; the count of tensor-core (HMMA)
     instructions in its library, which must not be 0;
@@ -28,8 +30,8 @@ Phases, each fatal on failure:
     P1 both for their split-TF32 route and for fp32 on the SIMT pipes); for
     K1 also its device time alone (torch.profiler), and a check that one K1
     call runs exactly one device kernel;
- 8. the training path: (a) K2's autograd Function at the 15 unit shapes
-    (B = 2): its gradients for all nine inputs against autograd through the
+ 8. the training path: (a) K2's autograd Function at phase 4's 30 unit
+    shapes (B = 2): its gradients for all nine inputs against autograd through the
     plain version in fp32 (TF32 off), rtol 1e-4 / atol 1e-4 x the
     gradient's max magnitude, none all zero; (b) one fp32_strict flagship
     step on 2 x 8000 samples on the card against the same step on the CPU
@@ -190,6 +192,34 @@ Phases, each fatal on failure:
     the card against the CPU (indices but at relative top-2 gaps under
     1e-5; outputs within the latents' tolerance). Prints the
     bigcodec_ema_vq, bigcodec_lfq and quantizer_zoo lines and phase_16_s.
+17. configs/bigcodec_semantic.yaml (semantic distillation, concat_semantic)
+    at full width and depth, the codec from seed 0 and the w2v-bert teacher
+    (24 layers, 1024 wide, 16 heads, intermediate 4096) random from its own
+    seed, tapped at layer 16 (semantic_path): (a) 32 requests x 1 s: the
+    features on the card (w2v_bert_features_torch), the teacher (50
+    frames), tokenize with its output, codes_to_emb -> apply_fc_post_a ->
+    decode; K1 1 / K2 15 a tokenize, K2 15 a decode; the first 2 requests
+    against the CPU (the features within 3e-3, the teacher on the same
+    features within the latents' tolerance, the quantizer's input and the
+    tokens on the card's teacher output: tokens but at top-2 gaps under
+    1e-5, the waveforms); audio-s/s with and without the teacher and for
+    decode; a torch.profiler split (teacher, bottleneck and fc_prior, K1,
+    K2, the rest, idle); (b) the teacher at 1 x 30 s (1,500 frames) and a
+    20 s row padded to it under valid_frames, against the teacher in
+    float64 on the card: fatal over 4x the CPU fp32's error; the padded
+    row's frames against that row alone; (c) on 16 files: a snapshot of the
+    teacher (config.json, pytorch_model.bin), cli.precompute_semantic
+    (float16 (1024, Tf), 2 files against the CPU's teacher),
+    cli.extract_indices --semantic_dir at batch 16 ((T,) int16, ceil(len /
+    320) frames, K1 1 / K2 15 a device batch, 4 files against the CPU),
+    cli.inference_full --w2v_bert_init random on 4 whole files (K1 1 / K2
+    30 a device batch); (d) one fp32_strict step at 2 x 8000 with the
+    teacher against the CPU's (phase 8b's tolerances, semantic_recon_loss
+    among the metrics, both teachers unchanged bit for bit), then bf16
+    steps at 32 x 1 s with the teacher (2 warm-ups, 5 timed, K1 1 / K2 30
+    a step, finite, audio-s/s, peak memory) and a torch.profiler split of
+    one more step (teacher, bottleneck and fc_prior forward, K1, K2, the
+    rest, idle). Prints the bigcodec_semantic line and phase_17_s.
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -278,7 +308,7 @@ def check_k1():
     fewer codes than a cluster, a ragged last share and tile, D = 32 and
     the padded widths 16 and 24, 32 tiles a share, a book at a 4-byte offset
     for the 4-byte copies, rows equal to codes, duplicates in different
-    shares)."""
+    shares), and the semantic codec's 32 x 50 positions after fc_prior."""
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.ops.cuda.vq_kernel import (k1_geometry, k1_shares,
@@ -314,7 +344,8 @@ def check_k1():
              "65536 codes 2560x8 vs 65536x8": rand(9, 2560, 65536, 8),
              "book at a 4-byte offset 700x8 vs 8192x8": rand(11, 700, 8192, 8),
              "rows equal to codes 512x8 vs 8192x8": (book[picked], book),
-             "duplicates across shares 700x8 vs 2x4096x8": across}
+             "duplicates across shares 700x8 vs 2x4096x8": across,
+             "semantic 1600x8 vs 8192x8": rand(14, 1600, 8192, 8)}
     worst = 0.0
     for name, (e, c) in cases.items():
         enc = torch.from_numpy(e).cuda()
@@ -772,7 +803,7 @@ def check_k2_grads(shapes):
                      f"atol {GRAD_RTOL:g} x max |grad| ({err:.3g} against {scale:.3g})")
             if err / scale > worst:
                 worst, worst_at = err / scale, f"{name} at C={C} T={T} d={d}"
-    print(f"K2 gradients (15 shapes, 9 inputs each): worst |grad - plain| / max |plain| = "
+    print(f"K2 gradients ({len(shapes)} shapes, 9 inputs each): worst |grad - plain| / max |plain| = "
           f"{worst:.3g} ({worst_at})")
     return worst
 
@@ -782,12 +813,15 @@ def _leaves(state):
             **{"disc." + k: v.detach().cpu().clone() for k, v in state.disc.state_dict().items()}}
 
 
-def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu"):
+def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu", teacher=None):
     """(b) One fp32_strict step at full width on the card against the same
     step on the CPU, from the same weights and batch; prints the ``line``
     line. The EMA quantizer's buffers (their draws made on the CPU from the
     step, the same for both) are held within EMA_RTOL / EMA_ATOL, and its
-    expired codes (cluster size at the threshold) must be the same ones."""
+    expired codes (cluster size at the threshold) must be the same ones.
+    ``teacher`` (on the CPU): a semantic codec's, run in both steps on the
+    batch's features (the loader's numpy ones), which must come out of
+    them bit for bit unchanged."""
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.train.state import init_train_state, train_state
@@ -803,13 +837,26 @@ def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu"):
     ref = init_train_state(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     card = train_state(cfg, copy.deepcopy(ref.gen).cuda(), copy.deepcopy(ref.disc).cuda())
     wav = (np.random.RandomState(1).randn(REF_B, REF_T) * 0.1).astype(np.float32)
+    batch = {"wav": torch.from_numpy(wav)}
+    teachers = {}
+    if teacher is not None:
+        from audiotokenization_tpu_torch.ops.fbank import w2v_bert_features_from_clip
+
+        batch["feats"] = torch.from_numpy(np.stack([w2v_bert_features_from_clip(w) for w in wav]))
+        teachers = {"cpu": teacher, "card": copy.deepcopy(teacher).cuda()}
+        teacher_before = {k: v.clone() for k, v in teacher.state_dict().items()}
     before = _leaves(ref)
     t0 = time.perf_counter()
-    m_card = make_train_step(cfg)(card, {"wav": torch.from_numpy(wav).cuda()})
+    m_card = make_train_step(cfg)(card, {k: v.cuda() for k, v in batch.items()},
+                                  teachers.get("card"))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    m_cpu = make_train_step(cfg, device="cpu")(ref, {"wav": torch.from_numpy(wav)})
+    m_cpu = make_train_step(cfg, device="cpu")(ref, batch, teachers.get("cpu"))
     t2 = time.perf_counter()
+    for side, t in teachers.items():
+        for k, v in t.state_dict().items():
+            if not torch.equal(v.cpu(), teacher_before[k]):
+                fail(f"fp32_strict step: the {side}'s teacher changed at {k}")
     worst_metric = 0.0
     for key, want in m_cpu.items():
         got = m_card[key]
@@ -904,14 +951,16 @@ def train_step_bf16_vs_cpu(cfg):
     return out
 
 
-def timed_steps(step, state, wav):
-    """ms per step over TRAIN_STEPS steps (CUDA events), and the last metrics."""
+def timed_steps(step, state, wav, teacher=None, extra=None):
+    """ms per step over TRAIN_STEPS steps (CUDA events), and the last
+    metrics; ``extra``: more keys of the batch, ``teacher``: the step's."""
     import torch
 
+    batch = {"wav": wav, **(extra or {})}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(TRAIN_STEPS):
-        metrics = step(state, {"wav": wav})
+        metrics = step(state, batch, teacher)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / TRAIN_STEPS, metrics
@@ -1590,6 +1639,21 @@ REPO_CONFIGS = {
                               "moe_top_k": 2, "moe_capacity_factor": 1.25}},
         "train": {"max_steps": 180000, "precision": "bf16"},
         "dataset": {"sample_rate": 16000, "pad_to_multiple_of": 200}},
+    "bigcodec_semantic.yaml": {
+        "name": "bigcodec512-semantic-vq8192",
+        "model": {
+            "codec_encoder": {"type": "bigcodec", "out_channels": 512, "ngf": 16,
+                              "use_rnn": False, "rnn_num_layers": 1, "up_ratios": [2, 2, 4, 4, 5]},
+            "codec_decoder": {"type": "bigcodec", "in_channels": 512,
+                              "upsample_initial_channel": 512, "ngf": 16, "use_rnn": True,
+                              "rnn_num_layers": 1, "up_ratios": [5, 4, 4, 2, 2],
+                              "codebook_size": 8192, "codebook_dim": 8},
+            "mpd": {"periods": [2, 3, 5], "channels": 8, "max_downsample_channels": 256},
+            "mstft": {"stft_params": {"fft_sizes": [256, 512, 1024], "hop_sizes": [64, 128, 256],
+                                      "win_lengths": [256, 512, 1024]},
+                      "channels": 8, "max_downsample_channels": 256}},
+        "train": {"use_semantic": True, "concat_semantic": True, "precision": "bf16"},
+        "dataset": {"pad_to_multiple_of": 320}},
     "bigcodec_fsq.yaml": {
         "name": "bigcodec-fsq",
         "model": {
@@ -2887,10 +2951,13 @@ def moe_offline(cfg):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def timed_training(name, cfg, card, want):
+def timed_training(name, cfg, card, want, teacher=None, split=None):
     """A bf16 training step of ``cfg`` at B x 1 s: 2 warm-ups, TRAIN_STEPS
     timed (CUDA events) with K1 / K2 launches ``want`` a step, finite losses,
-    fp32 masters, every MoE router moved; audio-s/s and peak memory."""
+    fp32 masters, every MoE router moved; audio-s/s and peak memory.
+    ``teacher`` (on the card): a semantic codec's, run in the step on the
+    batch's features (the loader's numpy ones), unchanged after. ``split``:
+    a profiler split (``semantic_split``) of one more step, after the checks."""
     import numpy as np
     import torch
     from audiotokenization_tpu_torch.ops.moe import MoEFeedForward
@@ -2902,12 +2969,23 @@ def timed_training(name, cfg, card, want):
                if isinstance(m, MoEFeedForward)}
     ema = {n: b.clone() for n, b in state.gen.quantizer.named_buffers()}
     step = make_train_step(cfg)
-    wav = torch.from_numpy((np.random.RandomState(2).randn(B, SR) * 0.1).astype(np.float32)).cuda()
+    wav_np = (np.random.RandomState(2).randn(B, SR) * 0.1).astype(np.float32)
+    wav = torch.from_numpy(wav_np).cuda()
+    extra = None
+    if teacher is not None:
+        from audiotokenization_tpu_torch.ops.fbank import w2v_bert_features_from_clip
+
+        extra = {"feats": torch.from_numpy(
+            np.stack([w2v_bert_features_from_clip(w) for w in wav_np])).cuda()}
+        teacher_before = {k: v.cpu() for k, v in teacher.state_dict().items()}  # off the card
     for _ in range(TRAIN_WARMUP):
-        step(state, {"wav": wav})
+        step(state, {"wav": wav, **(extra or {})}, teacher)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    (ms, metrics), launches = counted(lambda: timed_steps(step, state, wav))
+    (ms, metrics), launches = counted(lambda: timed_steps(step, state, wav, teacher, extra))
+    if teacher is not None and any(not torch.equal(v.cpu(), teacher_before[k])
+                                   for k, v in teacher.state_dict().items()):
+        fail(f"{name} training: the teacher changed")
     per_step = (launches[0] / TRAIN_STEPS, launches[1] / TRAIN_STEPS)
     expect_launches(f"{name} training step", per_step, want)
     last = {k: float(v) for k, v in metrics.items() if k != "codebook_hist"}
@@ -2931,6 +3009,8 @@ def timed_training(name, cfg, card, want):
                n for n, b in ema.items() if not torch.equal(now[n], b)),
            "precision": cfg.train.precision,
            "steps_timed": TRAIN_STEPS, "metrics": last}
+    if split is not None:
+        out["profile"] = split(lambda: step(state, {"wav": wav, **(extra or {})}, teacher))
     print(json.dumps({f"{name}_train_step": out, "card": card}))
     return out
 
@@ -3551,6 +3631,440 @@ def zoo_library(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the semantic-distillation codec (configs/bigcodec_semantic.yaml)
+# ---------------------------------------------------------------------------
+
+SEM_HOP = 320              # configs/bigcodec_semantic.yaml's samples per frame
+SEM_TEACHER_SEED = 1       # the random teacher's generator (phases 17a-b, d)
+SEM_FILES, SEM_EVAL_FILES = 16, 4
+LONG_SECONDS, LONG_PAD_SECONDS = 30, 20  # 17b: a 30 s row and a 20 s row padded to it
+
+
+def seeded_teacher(cfg, device="cuda"):
+    """The teacher of ``cfg.train`` (24 layers, 1024 wide, 16 heads), random
+    from SEM_TEACHER_SEED, frozen, on ``device``."""
+    import torch
+    from audiotokenization_tpu_torch.models.w2v_bert import init_w2v_bert, teacher_config
+
+    return init_w2v_bert(teacher_config(cfg),
+                         generator=torch.Generator().manual_seed(SEM_TEACHER_SEED), device=device)
+
+
+def teacher_layer(teacher, cfg, feats, valid=None):
+    """The teacher's tapped layer of feats (B, T, 160) as (B, 1024, T), fp32
+    with TF32 off, without gradients."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models.semantic import teacher_target
+
+    with torch.no_grad(), C.full_fp32():
+        return teacher_target(teacher, feats, feats.shape[1], cfg.train.teacher_layer,
+                              valid_frames=valid)
+
+
+def serve_semantic(codec, teacher, wav):
+    """A request batch wav (B, T) on the card: features, the teacher, then
+    tokenize with its output -> codes (1, B, T / hop)."""
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.fbank import w2v_bert_features_torch
+
+    target = teacher_layer(teacher, codec.cfg, w2v_bert_features_torch(wav))
+    return C.tokenize(codec, wav, semantic_target=target)
+
+
+def semantic_split(fn):
+    """torch.profiler split of one call of ``fn``: device ms of the teacher
+    (kernels launched under ``w2v_bert_apply``), of the semantic bottleneck
+    and fc_prior (under ``semantic_vq_in``; in a training step, the forward's
+    only), of the bf16 casts of ``bf16_copies`` (a bf16 training step's
+    copies of the teacher), of K1 and K2, of the other kernels, and the idle
+    share of the call's wall time."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models import semantic as S
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with annotated([(S, "w2v_bert_apply"), (C, "semantic_vq_in"), (C, "bf16_copies")]):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    dev = [(e.name, e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == DeviceType.CUDA and not e.name.startswith("cs.")]
+
+    def kernels_under(e):
+        out = [(k.name, k.duration) for k in getattr(e, "kernels", [])]
+        for c in e.cpu_children:
+            out += kernels_under(c)
+        return out
+
+    ranged = {n: sum(d for e in events if e.name == f"cs.{n}" for _, d in kernels_under(e)) / 1e3
+              for n in ("w2v_bert_apply", "semantic_vq_in", "bf16_copies")}
+    busy = _busy_ms(dev)
+    k1 = _busy_ms([e for e in dev if "vq_argmin" in e[0]])
+    k2 = _busy_ms([e for e in dev if "tf32unit" in e[0]])
+    named = sum(ranged.values()) + k1 + k2
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "teacher_ms": ranged["w2v_bert_apply"],
+            "bottleneck_fc_prior_ms": ranged["semantic_vq_in"],
+            "bf16_cast_ms": ranged["bf16_copies"], "k1_ms": k1, "k2_ms": k2,
+            "other_ms": max(busy - named, 0.0), "idle_share": 1 - busy / wall_ms,
+            "device_kernels": len(dev)}
+
+
+def semantic_serving(cfg, codec, teacher, card):
+    """17a. 32 requests x 1 s through features -> teacher -> tokenize, then
+    codes_to_emb -> apply_fc_post_a -> decode; the first 2 requests against
+    the CPU; audio-s/s; the profiler's split."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.fbank import w2v_bert_features_torch
+
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    wav_np = (np.random.RandomState(0).randn(B, SR) * 0.1).astype(np.float32)
+    wav = torch.from_numpy(wav_np).cuda()
+    codes, tok = counted(lambda: serve_semantic(codec, teacher, wav))
+    out, dec = counted(lambda: offline_decode(codec, codes))
+    expect_launches("semantic tokenize", tok, (1, n_units))
+    expect_launches("semantic decode", dec, (0, n_units))
+    if tuple(codes.shape) != (1, B, SR // SEM_HOP) or tuple(out.shape) != (B, 1, SR) \
+            or not torch.isfinite(out).all():
+        fail(f"semantic serving: codes {tuple(codes.shape)}, waveform {tuple(out.shape)}")
+
+    # the first 2 requests on the CPU: the features, the teacher on the same
+    # features, the codec on the card's teacher output
+    n = 2
+    cpu, tcpu = copy.deepcopy(codec).cpu(), copy.deepcopy(teacher).cpu()
+    feats_cpu = w2v_bert_features_torch(torch.from_numpy(wav_np[:n]))
+    feat_err = (w2v_bert_features_torch(wav[:n]).cpu() - feats_cpu).abs().max().item()
+    if not torch.allclose(w2v_bert_features_torch(wav[:n]).cpu(), feats_cpu, rtol=3e-3, atol=3e-3):
+        fail(f"semantic serving: the card's features off the CPU's by {feat_err:.3g}")
+    t_gpu = teacher_layer(teacher, cfg, feats_cpu.cuda()).cpu()
+    t_cpu = teacher_layer(tcpu, cfg, feats_cpu)
+    teacher_err = (t_gpu - t_cpu).abs().max().item()
+    if not torch.allclose(t_gpu, t_cpu, rtol=LAT_RTOL, atol=LAT_ATOL):
+        fail(f"semantic serving: the teacher's layer off the CPU's by {teacher_err:.3g}")
+    target = teacher_layer(teacher, cfg, w2v_bert_features_torch(wav))
+    with C.full_fp32(), torch.no_grad():
+        lat_gpu = C.semantic_vq_in(codec, C.encode(codec, wav[:n]), target[:n]).cpu()
+        lat_cpu = C.semantic_vq_in(cpu, C.encode(cpu, torch.from_numpy(wav_np[:n])),
+                                   target[:n].cpu())
+        _, codes_cpu, _ = C.quantize(cpu, lat_cpu)
+    differ, near = hold_codes("semantic tokens vs the CPU", codes[:, :n].cpu(), codes_cpu,
+                              frame_gaps(cpu, lat_cpu))
+    lat_err = (lat_gpu - lat_cpu).abs().max().item()
+    if not torch.allclose(lat_gpu, lat_cpu, rtol=LAT_RTOL, atol=LAT_ATOL):
+        fail(f"semantic serving: the quantizer's input off the CPU's by {lat_err:.3g}")
+    wav_err = hold_wav("semantic decode vs the CPU", out[:n].cpu(),
+                       offline_decode(cpu, codes[:, :n].cpu()))
+    del cpu, tcpu
+
+    serve_ms = cuda_ms(lambda: serve_semantic(codec, teacher, wav), iters=5)
+    tok_ms = cuda_ms(lambda: C.tokenize(codec, wav, semantic_target=target), iters=5)
+    teacher_ms = cuda_ms(lambda: teacher_layer(teacher, cfg, w2v_bert_features_torch(wav)),
+                         iters=5)
+    dec_ms = cuda_ms(lambda: offline_decode(codec, codes), iters=5)
+    row = {"tokenize_with_teacher_ms": serve_ms,
+           "tokenize_with_teacher_audio_s_per_s": B / (serve_ms / 1e3),
+           "tokenize_given_target_ms": tok_ms,
+           "tokenize_given_target_audio_s_per_s": B / (tok_ms / 1e3),
+           "features_and_teacher_ms": teacher_ms,
+           "decode_ms": dec_ms, "decode_audio_s_per_s": B / (dec_ms / 1e3),
+           "codes_used": int(torch.unique(codes).numel()),
+           "vs_cpu": {"requests": n, "tokens_differ": differ, "near_ties": near,
+                      "max_abs_err_features": feat_err, "max_abs_err_teacher": teacher_err,
+                      "max_abs_err_vq_input": lat_err, "max_abs_err_wav": wav_err},
+           "launches_per_tokenize": {"vq_argmin": tok[0], "residual_unit": tok[1]},
+           "launches_per_decode": {"vq_argmin": dec[0], "residual_unit": dec[1]},
+           "tokenize_profile": semantic_split(lambda: serve_semantic(codec, teacher, wav)),
+           "decode_profile": semantic_split(lambda: offline_decode(codec, codes))}
+    print(json.dumps({"bigcodec_semantic_offline": row, "card": card}))
+    return row
+
+
+def semantic_long_precision(cfg, teacher, card):
+    """17b. The teacher's tapped layer at 1 x 30 s (1,500 frames) and a
+    20 s row zero-padded to it under ``valid_frames``: the card's fp32 (TF32
+    off) against the same teacher in float64 on the card, no more than
+    F64_RATIO times as far off as the CPU's fp32 is (fatal); the padded
+    row's valid frames against that row alone."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.ops.fbank import w2v_bert_features_torch
+
+    rng = np.random.RandomState(3)
+    rows = [w2v_bert_features_torch(torch.from_numpy(
+        (rng.randn(1, sec * SR) * 0.1).astype(np.float32)))[0]
+        for sec in (LONG_SECONDS, LONG_PAD_SECONDS)]
+    T, n = rows[0].shape[0], rows[1].shape[0]
+    feats = torch.zeros((2, T, 160))
+    feats[0], feats[1, :n] = rows[0], rows[1]
+    valid = torch.tensor([T, n])
+    t0 = time.perf_counter()
+    got = teacher_layer(teacher, cfg, feats.cuda(), valid.cuda()).cpu()
+    alone = teacher_layer(teacher, cfg, feats[1:, :n].cuda()).cpu()
+    card_s = time.perf_counter() - t0
+    t64 = copy.deepcopy(teacher).double()
+    with torch.no_grad():
+        ref = teacher_layer(t64, cfg, feats.double().cuda(), valid.cuda()).cpu()
+    del t64
+    t0 = time.perf_counter()
+    cpu32 = teacher_layer(copy.deepcopy(teacher).cpu(), cfg, feats, valid)
+    cpu_s = time.perf_counter() - t0
+
+    def err(x):
+        return max((x[0] - ref[0]).abs().max().item(),
+                   (x[1, :, :n] - ref[1, :, :n]).abs().max().item())
+
+    card_err, cpu_err = err(got.double()), err(cpu32.double())
+    alone_err = (got[1, :, :n] - alone[0]).abs().max().item()
+    out = {"frames": [T, n], "max_abs_err_card_vs_f64": card_err,
+           "max_abs_err_cpu32_vs_f64": cpu_err, "ratio": card_err / cpu_err,
+           "max_abs_err_padded_row_vs_alone": alone_err, "card_s": card_s, "cpu_s": cpu_s}
+    print(json.dumps({"semantic_long_precision": out, "card": card}))
+    if card_err > F64_RATIO * cpu_err:
+        fail(f"the teacher at {T} frames: {card_err:.3g} off float64 on the card, more than "
+             f"{F64_RATIO:g}x the CPU fp32's {cpu_err:.3g}")
+    if not torch.allclose(got[1, :, :n], alone[0], rtol=LAT_RTOL, atol=LAT_ATOL):
+        fail(f"the padded row's valid frames off its own forward by {alone_err:.3g}")
+    return out
+
+
+def hf_state_dict(teacher) -> dict:
+    """The teacher's weights under the HF Wav2Vec2BertModel names (the inverse
+    of ``models/w2v_bert.py::convert_w2v_bert``), on the CPU."""
+    sd = {}
+    names = {"ffn1.norm": "ffn1_layer_norm", "ffn2.norm": "ffn2_layer_norm",
+             "ffn1.inter": "ffn1.intermediate_dense", "ffn1.out": "ffn1.output_dense",
+             "ffn2.inter": "ffn2.intermediate_dense", "ffn2.out": "ffn2.output_dense",
+             "attn.norm": "self_attn_layer_norm", "attn.q": "self_attn.linear_q",
+             "attn.k": "self_attn.linear_k", "attn.v": "self_attn.linear_v",
+             "attn.out": "self_attn.linear_out",
+             "attn.distance_embedding": "self_attn.distance_embedding.weight",
+             "conv.norm": "conv_module.layer_norm", "conv.pw1": "conv_module.pointwise_conv1",
+             "conv.dw": "conv_module.depthwise_conv",
+             "conv.dw_norm": "conv_module.depthwise_layer_norm",
+             "conv.pw2": "conv_module.pointwise_conv2", "final_norm": "final_layer_norm",
+             "feat_norm": "feature_projection.layer_norm",
+             "feat_proj": "feature_projection.projection"}
+    for key, v in teacher.state_dict().items():
+        v = v.detach().cpu().clone()
+        if key.startswith("layers."):
+            _, i, rest = key.split(".", 2)
+            prefix = f"encoder.layers.{i}."
+        else:
+            prefix, rest = "", key
+        if rest == "attn.distance_embedding":
+            sd[prefix + names[rest]] = v
+            continue
+        module, leaf = rest.rsplit(".", 1)
+        if module in ("conv.pw1", "conv.pw2"):
+            v = v[:, :, None]
+        sd[f"{prefix}{names[module]}.{'weight' if leaf == 'w' else 'bias'}"] = v
+    return sd
+
+
+def write_snapshot(path: Path, teacher):
+    """A local w2v-bert snapshot of ``teacher``: config.json and
+    pytorch_model.bin."""
+    path.mkdir(parents=True)
+    c = teacher.cfg
+    (path / "config.json").write_text(json.dumps(
+        {"model_type": "wav2vec2-bert", "hidden_size": c.hidden_size,
+         "num_hidden_layers": c.num_hidden_layers,
+         "num_attention_heads": c.num_attention_heads,
+         "intermediate_size": c.intermediate_size,
+         "feature_projection_input_dim": c.feature_projection_input_dim,
+         "left_max_position_embeddings": c.left_max_position_embeddings,
+         "right_max_position_embeddings": c.right_max_position_embeddings,
+         "conv_depthwise_kernel_size": c.conv_depthwise_kernel_size,
+         "layer_norm_eps": c.layer_norm_eps, "position_embeddings_type": "relative_key"}))
+    import torch
+
+    torch.save(hf_state_dict(teacher), path / "pytorch_model.bin")
+
+
+def semantic_cli_path(cfg, teacher, card):
+    """17c. On a small corpus: cli.precompute_semantic from a snapshot of
+    the teacher, cli.extract_indices --semantic_dir, cli.inference_full
+    --w2v_bert_init random on whole files."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices, inference_full, precompute_semantic
+    from audiotokenization_tpu_torch.data.audio_io import read_audio
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.fbank import feature_frames, w2v_bert_features_from_clip
+    from audiotokenization_tpu_torch.ops.resample import resample
+    from audiotokenization_tpu_torch.utils import ragged
+
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    codebook = cfg.model.codec_decoder.codebook_size
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_semantic_", dir=build_dir))
+    out = {}
+    ledger = None
+    try:
+        files = write_extract_corpus(root, SEM_FILES)
+        snap, sem_dir, run = root / "w2v-bert", root / "semantic", root / "run"
+        t0 = time.perf_counter()
+        write_snapshot(snap, teacher)
+        snapshot_s = time.perf_counter() - t0
+
+        def wav16(path):
+            w, rate = read_audio(path)
+            w = w[0]
+            return w if rate == SR else resample(torch.from_numpy(w), rate, SR).numpy()
+
+        # precompute: float16 (1024, Tf), two files against the CPU's teacher
+        t0 = time.perf_counter()
+        counted(lambda: precompute_semantic.main(
+            ["--filelist", str(root / "filelist.txt"), "--out_dir", str(sem_dir),
+             "--model_path", str(snap), "--layer", str(cfg.train.teacher_layer)]))
+        pre_s = time.perf_counter() - t0
+        tcpu = copy.deepcopy(teacher).cpu()
+        pre_err = 0.0
+        for i, (path, _, _) in enumerate(files):
+            a = np.load(sem_dir / f"{path.stem}.npy")
+            w = wav16(path)
+            if a.dtype != np.float16 or a.shape != (1024, feature_frames(len(w))) \
+                    or not np.isfinite(a).all():
+                fail(f"precompute {path.name}: {a.dtype} {a.shape}")
+            if i < 2:
+                want = teacher_layer(tcpu, cfg, torch.from_numpy(
+                    w2v_bert_features_from_clip(w))[None])[0].numpy()
+                d = np.abs(a.astype(np.float32) - want)
+                tol = np.spacing(np.abs(want).astype(np.float16)).astype(np.float32) \
+                    + LAT_ATOL + LAT_RTOL * np.abs(want)
+                pre_err = max(pre_err, float(d.max()))
+                if (d > tol).any():
+                    fail(f"precompute {path.name}: off the CPU's teacher by {d.max():.3g}")
+        del tcpu
+        out["precompute"] = {"files": len(files), "seconds": pre_s, "snapshot_write_s": snapshot_s,
+                             "max_abs_err_vs_cpu": pre_err}
+
+        # extraction at batch EXTRACT_BATCH with the targets
+        codec_cpu = write_gen_run(run, cfg)
+        ledger = LaunchLedger({"batch": (ragged, "make_ragged_tokenizer")})
+        counts, launches = counted(lambda: extract_indices.main(
+            ["--dataset_root", str(root), "--save_path", str(run), "--dataset_path",
+             "LibriSpeech", "--ext_audio", ".wav", "--subsets", "test-clean", "--batch_size",
+             str(EXTRACT_BATCH), "--semantic_dir", str(sem_dir)]))
+        ledger.close()
+        calls = ledger.calls["batch"]
+        if counts["saved"] != len(files) or counts["errors"] or set(calls) != {(1, n_units)} \
+                or tuple(launches) != (len(calls), n_units * len(calls)):
+            fail(f"semantic extraction: {counts['saved']} saved, {counts['errors']} errors, "
+                 f"launches {launches} over batches {calls}")
+        npys = {p.stem: p for p in (run / "extracted_indices").rglob("*.npy")}
+        flips = near = 0
+        for i, (path, _, _) in enumerate(files):
+            a = np.load(npys[path.stem])
+            w = wav16(path)
+            frames = ceil_div(len(w), SEM_HOP)
+            if a.dtype != np.int16 or a.shape != (frames,) or a.min() < 0 or a.max() >= codebook:
+                fail(f"semantic extraction {path.name}: {a.dtype} {a.shape}")
+            if i < 4:  # against the CPU's tokenize of the hop-padded file with its target
+                x = torch.from_numpy(np.pad(w, (0, frames * SEM_HOP - len(w))))[None]
+                t = torch.from_numpy(extract_indices.load_semantic_target(sem_dir, path.stem,
+                                                                          frames))[None]
+                with torch.no_grad(), C.full_fp32():
+                    lat = C.semantic_vq_in(codec_cpu, C.encode(codec_cpu, x), t)
+                    want = C.quantize(codec_cpu, lat)[1][0, 0].numpy()
+                f, m = hold_tokens(f"semantic extraction of {path.name}", a, want,
+                                   frame_gaps(codec_cpu, lat)[0].numpy())
+                flips, near = flips + f, near + m
+        out["extract"] = {"files": len(files), "batch_size": EXTRACT_BATCH,
+                          **{k: counts[k] for k in ("audio_seconds", "audio_s_per_s",
+                                                    "device_batches", "device_s")},
+                          "launches_per_batch": {"vq_argmin": calls[0][0],
+                                                 "residual_unit": calls[0][1]},
+                          "tokens_differ_vs_cpu": flips, "near_ties": near}
+
+        # evaluation of whole files with a random teacher, per file on the ragged codec
+        (root / "eval.txt").write_text("\n".join(str(p) for p, _, _ in files[:SEM_EVAL_FILES]))
+        ledger = LaunchLedger({"eval": (ragged, "make_ragged_codec")})
+        summary, launches = counted(lambda: inference_full.main(
+            ["--save_path", str(run), "--filelist", str(root / "eval.txt"), "--duration", "0",
+             "--batch_size", str(SEM_EVAL_FILES), "--num_examples", "0",
+             "--w2v_bert_init", "random"]))
+        ledger.close()
+        calls = ledger.calls["eval"]
+        frames = sum(ceil_div(len(wav16(p)), SEM_HOP) for p, _, _ in files[:SEM_EVAL_FILES])
+        if summary["frames"] != frames or not all(np.isfinite(summary[k])
+                                                   for k in ("si_snr", "si_sdr")) \
+                or set(calls) != {(1, 2 * n_units)} \
+                or tuple(launches) != (len(calls), 2 * n_units * len(calls)):
+            fail(f"semantic evaluation: {summary['frames']} frames (want {frames}), "
+                 f"launches {launches} over batches {calls}")
+        out["eval"] = {"files": SEM_EVAL_FILES, "device_batches": len(calls),
+                       "launches_per_batch": {"vq_argmin": calls[0][0],
+                                              "residual_unit": calls[0][1]},
+                       **{k: summary[k] for k in ("si_snr", "si_sdr", "frames", "audio_s_per_s",
+                                                  "forward_s", "wall_seconds")}}
+    finally:
+        if ledger is not None:
+            ledger.close()
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"bigcodec_semantic_cli": out, "card": card}))
+    return out
+
+
+def semantic_path(card):
+    """17. configs/bigcodec_semantic.yaml at full width and depth, the codec
+    from seed 0 and the 24-layer teacher random from SEM_TEACHER_SEED,
+    tapped at layer 16 (module docstring). Prints the bigcodec_semantic line."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = repo_config("bigcodec_semantic.yaml")
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    codec = seeded_codec(cfg)
+    teacher = seeded_teacher(cfg)
+    result = {"teacher": {"layers": teacher.cfg.num_hidden_layers,
+                          "hidden": teacher.cfg.hidden_size,
+                          "heads": teacher.cfg.num_attention_heads,
+                          "intermediate": teacher.cfg.intermediate_size,
+                          "tapped_layer": cfg.train.teacher_layer,
+                          "parameters": sum(p.numel() for p in teacher.parameters())}}
+    result["offline"] = semantic_serving(cfg, codec, teacher, card)
+    result["long_precision"] = semantic_long_precision(cfg, teacher, card)
+    del codec
+    result.update(semantic_cli_path(cfg, teacher, card))
+    result["train_vs_cpu"] = train_step_vs_cpu(cfg, line="semantic_train_step_vs_cpu",
+                                               teacher=copy.deepcopy(teacher).cpu())
+    result["train"] = timed_training("bigcodec_semantic", cfg, card, (1, 2 * n_units),
+                                     teacher=teacher, split=semantic_split)
+    del teacher
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t0
+    off = result["offline"]
+    line = {"tokenize_with_teacher_audio_s_per_s": off["tokenize_with_teacher_audio_s_per_s"],
+            "tokenize_given_target_audio_s_per_s": off["tokenize_given_target_audio_s_per_s"],
+            "decode_audio_s_per_s": off["decode_audio_s_per_s"],
+            "tokens_differ_vs_cpu": off["vs_cpu"]["tokens_differ"],
+            "long_precision_ratio": result["long_precision"]["ratio"],
+            "train_audio_s_per_s": result["train"]["audio_s_per_s"],
+            "train_peak_memory_gb": result["train"]["peak_memory_gb"],
+            "launches": {"tokenize": off["launches_per_tokenize"],
+                         "decode": off["launches_per_decode"],
+                         "extract_per_batch": result["extract"]["launches_per_batch"],
+                         "eval_per_batch": result["eval"]["launches_per_batch"],
+                         "train_per_step": result["train"]["launches_per_step"]},
+            **result}
+    print(json.dumps({"bigcodec_semantic": line, "card": card}))
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -3581,8 +4095,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = Config()
     shapes = unit_shapes(cfg)
+    sem_shapes = unit_shapes(repo_config("bigcodec_semantic.yaml"))  # C 16-256: phase 17's
     k1_err = check_k1()
-    k2_err = check_k2(shapes)
+    k2_err = check_k2(shapes + sem_shapes)
     check_ragged()
     p1_launches, p1_err = probe_path()
     e2e = main_path(cfg)
@@ -3590,9 +4105,10 @@ def main() -> int:
 
     k1 = time_k1(cfg)
     rows = time_k2(shapes)
+    sem_rows = time_k2(sem_shapes)
     p1_rows = time_p1()
 
-    check_k2_grads(shapes)
+    check_k2_grads(shapes + sem_shapes)
     train_step_vs_cpu(cfg)
     train_step_bf16_vs_cpu(cfg)
     train = train_path(cfg, card)
@@ -3618,6 +4134,9 @@ def main() -> int:
     lfq = lfq_path(card)
     zoo_library(card)
     print(json.dumps({"phase_16_s": time.perf_counter() - t0, "card": card}))
+    t0 = time.perf_counter()
+    semantic = semantic_path(card)
+    print(json.dumps({"phase_17_s": time.perf_counter() - t0, "card": card}))
 
     def path_launches(kernel):
         """A kernel's launches per call on the paths of phases 10-16."""
@@ -3634,7 +4153,7 @@ def main() -> int:
                       for path, got in line["launches"].items()}
                for name, line in (("conformer", conformer), ("conformer_moe", moe),
                                   ("bigcodec_fsq", fsq), ("bigcodec_ema_vq", ema),
-                                  ("bigcodec_lfq", lfq))}}
+                                  ("bigcodec_lfq", lfq), ("bigcodec_semantic", semantic))}}
 
     # K2's main-path work: the encoder's 15 units (tokenize) and the decoder's
     # 15 at the same shapes (decode), so twice the per-shape sums. P1: one
@@ -3642,6 +4161,8 @@ def main() -> int:
     per_path = e2e["launches"]["residual_unit"] // len(shapes)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_simt_ms")
     tot = {k: per_path * sum(r[k] for r in rows) for k in keys}
+    # phase 17's units: its tokenize's 15 and its decode's 15 at C 16-256
+    sem_tot = {k: 2 * sum(r[k] for r in sem_rows) for k in keys}
     p1 = {k: sum(r[k] for r in p1_rows) for k in keys}
 
     def bound_by(rs):
@@ -3668,7 +4189,9 @@ def main() -> int:
          "path_launches": path_launches("residual_unit"),
          "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
          "bound_by": bound_by(rows), "bound_simt_ms": tot["bound_simt_ms"],
-         "library_ms": tot["library_ms"]},
+         "library_ms": tot["library_ms"],
+         "semantic_path": {**sem_tot, "bound_by": bound_by(sem_rows),
+                           "launches": 2 * len(sem_rows)}},
         {"name": "probe_unit", "route": "cuda",
          "source": "audiotokenization_tpu_torch/csrc/probe_unit.cu",
          "replaces": "scripts/probe_v5.py:33",
@@ -3699,7 +4222,11 @@ def main() -> int:
                               "ragged call, extraction device batch and bf16 training step; "
                               "bigcodec_ema_vq: the same for the EMA-VQ BigCodec; "
                               "bigcodec_lfq: per LFQ BigCodec tokenize, decode and bf16 "
-                              "training step"}))
+                              "training step; bigcodec_semantic: per semantic codec tokenize "
+                              "(the teacher's output given), decode, extraction device batch, "
+                              "evaluation device batch and bf16 training step; K2's "
+                              "semantic_path: summed over the semantic codec's 30 units "
+                              "(C 16-256) at 32 x 1 s"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -221,6 +221,8 @@ def test_reference_config_to_config_matches_jax():
 
 
 def test_unported_reference_checkpoints_raise(jax_tree):
+    """An MoE, LFQ or EMA-VQ reference checkpoint raises; a semantic one
+    converts, its heads as JAX's converter maps them (under ``semantic.``)."""
     jcfg, tree = jax_tree
     sd = reference_state_dict(tree, jcfg)
     def moe_conformer(c):
@@ -230,15 +232,26 @@ def test_unported_reference_checkpoints_raise(jax_tree):
                          (lambda c: setattr(c.model.codec_decoder, "quantizer", "lfq"),
                           "'lfq' quantizer has no mapping"),
                          (lambda c: setattr(c.model.codec_decoder, "quantizer", "ema_vq"),
-                          "'ema_vq' quantizer has no mapping"),
-                         (lambda c: setattr(c.train, "use_semantic", True), "item 15")):
+                          "'ema_vq' quantizer has no mapping")):
         cfg = PC.from_dict(dataclasses.asdict(jcfg))
         edit(cfg)
         with pytest.raises(NotImplementedError, match=reason):
             TV.convert_codec_state_dict(sd, cfg)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TV.convert_codec_state_dict({**sd, "fc_prior.weight": torch.zeros(1)},
-                                    PC.from_dict(dataclasses.asdict(jcfg)))
+    sem_cfg = PC.from_dict(dataclasses.asdict(jcfg))
+    sem_cfg.train.use_semantic = True
+    heads = Codec(sem_cfg, generator=torch.Generator().manual_seed(2)).semantic.state_dict()
+    names = {"fc_prior": "fc_prior", "fc_post_a": "fc_post_a", "fc_post_s": "fc_post_s",
+             "encoder": "SemanticEncoder_module", "decoder": "SemanticDecoder_module",
+             "initial": "initial_conv", "res1": "residual_blocks.1",
+             "res2": "residual_blocks.3", "final": "final_conv", "w": "weight", "b": "bias"}
+    ref = {".".join(names[part] for part in k.split(".")): v for k, v in heads.items()}
+    got = TV.convert_codec_state_dict({**sd, **ref}, sem_cfg)
+    want = TV.params_from_jax(jax.tree.map(np.asarray, JV.convert_codec_state_dict(
+        {k: v.numpy() for k, v in {**sd, **ref}.items()}, jcfg)))
+    assert got.keys() == want.keys() == Codec(sem_cfg,
+                                              generator=torch.Generator()).state_dict().keys()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
 
 
 def test_reference_run_without_pyyaml_names_it(jax_tree, tmp_path, monkeypatch):

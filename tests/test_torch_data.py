@@ -145,7 +145,26 @@ def test_wav_io_matches_jax(tmp_path):
 
 
 def test_semantic_items_are_not_ported(tmp_path):
+    """The semantic branch's items are ported: with ``semantic_dir`` (float16
+    (1024, Tf) targets, crops at multiples of the hop) and ``compute_feats``
+    the training loader's batches equal the JAX loader's, key for key."""
     fl = _corpus(tmp_path, "wav")
-    for kw in ({"semantic_dir": str(tmp_path)}, {"compute_feats": True}):
-        with pytest.raises(NotImplementedError, match="semantic"):
-            AudioDataset(PSplit(filelist=str(fl)), sample_rate=16000, pad_to_multiple_of=10, **kw)
+    hop = 10
+    rng = np.random.RandomState(9)
+    for line in fl.read_text().splitlines():
+        name = line.split("\t")[0]
+        n = len(PIO.read_audio(tmp_path / name)[0][0])
+        np.save(tmp_path / (name.rsplit(".", 1)[0] + ".npy"),
+                rng.randn(1024, n // hop).astype(np.float16))
+    split = dict(filelist=str(fl), batch_size=2, shuffle=True, min_audio_length=800)
+    ds_kw = dict(sample_rate=16000, pad_to_multiple_of=hop, root=str(tmp_path), train=True,
+                 semantic_dir=str(tmp_path), compute_feats=True, hop_length=hop)
+    ld_kw = dict(batch_size=2, shuffle=True, seed=5, num_workers=2, drop_last=True)
+    want = list(JLoader(JDataset(JSplit(**split), **ds_kw), **ld_kw))
+    got = list(DataLoader(AudioDataset(PSplit(**split), **ds_kw), **ld_kw))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() == {"wav", "lengths", "feats", "semantic_target"}
+        assert tuple(g["semantic_target"].shape) == (2, 1024, 800 // hop)
+        for k in w:
+            np.testing.assert_array_equal(g[k].numpy(), w[k], err_msg=k)

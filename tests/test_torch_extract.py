@@ -221,11 +221,21 @@ def test_extract_cli_matches_jax(runs, jax_extracted, layout, mode, capsys):
 
 
 def test_extract_cli_refuses_what_is_not_ported(runs):
+    """Sequence and tensor parallelism raise; ``--semantic_dir`` is ported: a
+    checkpoint without ``concat_semantic`` reads no target and writes the
+    same tokens (tests/test_torch_semantic_cli.py runs a concat one)."""
     base = _extract_args(runs, runs["port"], "never", "batch1") + ["--device", "cpu"]
-    for extra, item in ((["--sequence_parallel"], "18"), (["--tensor_parallel", "2"], "18"),
-                        (["--semantic_dir", "x"], "15")):
+    for extra, item in ((["--sequence_parallel"], "18"), (["--tensor_parallel", "2"], "18")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             extract_indices.main(base + extra)
+    extract_indices.main(_extract_args(runs, runs["port"], "sem_plain", "batch1")
+                         + ["--device", "cpu"])
+    extract_indices.main(_extract_args(runs, runs["port"], "sem_dir", "batch1")
+                         + ["--device", "cpu", "--semantic_dir", str(runs["tmp"] / "absent")])
+    got, want = _npy_tree(runs["port"] / "sem_dir"), _npy_tree(runs["port"] / "sem_plain")
+    assert len(want) == len(CORPUS) and got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             extract_indices.main(base[:-2])  # the default device is the card
@@ -281,9 +291,17 @@ def test_inference_full_matches_jax(runs, case):
 
 
 def test_inference_full_refuses_semantic(runs):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        inference_full.main(["--save_path", str(runs["port"]), "--w2v_bert_path", "x",
-                             "--device", "cpu"])
+    """The teacher flags are ported: a checkpoint without the semantic branch
+    needs no teacher, so ``--w2v_bert_path`` is not read and the summary is
+    the one without it (tests/test_torch_semantic_cli.py evaluates a
+    semantic run)."""
+    common = ["--save_path", str(runs["port"]), "--filelist", str(runs["filelist"]),
+              "--num_examples", "0", "--device", "cpu", *EVAL_CASES["crop"]]
+    plain = inference_full.main(common + ["--output_folder", "eval_no_teacher"])
+    flagged = inference_full.main(common + ["--output_folder", "eval_teacher_flag",
+                                            "--w2v_bert_path", str(runs["tmp"] / "absent")])
+    for key in ("si_snr", "si_sdr", "stoi", "codebook_used", "frames", "perplexity_raw"):
+        assert flagged[key] == plain[key], key
 
 
 # -- synthesis ----------------------------------------------------------------

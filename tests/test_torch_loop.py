@@ -339,8 +339,10 @@ def test_cli_trains_and_resumes(corpus, tmp_path):
     steps = [r["step"] for r in _jsonl(run_dir) if "gen_loss" in r]
     assert steps == [1, 2, 3]
     assert sorted(p.name for p in (run_dir / "ckpt").iterdir()) == ["2", "3"]
-    with pytest.raises(NotImplementedError, match="semantic"):
-        cli.main(args + ["--semantic_dir", str(tmp_path)])
+    # the semantic flags are ported: a semantic config needs a teacher or
+    # targets, and says so before it trains (JAX's message)
+    with pytest.raises(SystemExit, match="needs teacher features"):
+        cli.main(args + ["--override", "train.use_semantic=true"])
 
 
 def test_entry_points_raise_without_a_card(corpus, tmp_path):

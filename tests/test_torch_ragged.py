@@ -153,8 +153,9 @@ def test_ragged_codec_fsq_matches_jax_and_per_file():
     # the Conformer's MoE feed-forward: expert capacity is batch-global
     (("codec_encoder", "type", "conformer_stft"), ("codec_encoder", "ffn_type", "moe")),
     (("codec_decoder", "type", "conformer_istft"), ("codec_decoder", "ffn_type", "moe")),
-    # the EMA VQ and LFQ quantize frame by frame: they build (a library
-    # quantizer no codec selects raises JAX's ValueError in their place)
+    # the EMA VQ and LFQ quantize frame by frame, and the semantic branch's
+    # bottleneck is masked per file: they build (a library quantizer no codec
+    # selects raises JAX's ValueError in their place)
     (("codec_decoder", "quantizer", "ema_vq"),),
     (("codec_decoder", "quantizer", "lfq"), ("codec_decoder", "in_channels", 13),
      ("codec_encoder", "out_channels", 13)),
@@ -165,7 +166,7 @@ def test_ragged_codec_refuses_unported_families(change):
     cfg = PC.Config()
     for group, field, value in change:
         setattr(cfg.train if group == "train" else getattr(cfg.model, group), field, value)
-    if cfg.model.codec_decoder.quantizer in ("ema_vq", "lfq"):
+    if cfg.model.codec_decoder.quantizer in ("ema_vq", "lfq") or cfg.train.use_semantic:
         assert callable(make_ragged_codec(cfg, device="cpu"))
         assert callable(make_ragged_tokenizer(cfg, device="cpu"))
         cfg.model.codec_decoder.quantizer = "rpq"

@@ -383,13 +383,16 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(jax_state):
 
 @pytest.mark.parametrize("change", ["ema_vq", "semantic", "lfq"])
 def test_unported_training_configurations_raise(change):
-    """The semantic branch raises; the EMA VQ and LFQ (8 bits) build a step,
+    """The semantic branch, the EMA VQ and LFQ (8 bits) build a step (the
+    semantic one runs with a teacher or targets: tests/test_torch_semantic_train.py),
     and the library quantizers no codec selects (SimVQ, the random
     projection) raise JAX's ValueError in their place."""
     cfg = port_cfg(tiny())
     if change == "semantic":
         cfg.train.use_semantic = True
-        with pytest.raises(NotImplementedError, match="item 15"):
+        assert callable(make_train_step(cfg, device="cpu"))
+        cfg.model.codec_decoder.quantizer = "sim_vq"
+        with pytest.raises(ValueError, match="unknown quantizer sim_vq"):
             make_train_step(cfg, device="cpu")
         return
     d = cfg.model.codec_decoder
