@@ -5,16 +5,26 @@
         --random [--seconds 2 --num_samples 2 --seed 0 --out_dir synthesized] \\
         [--streaming CHUNK_FRAMES] [--device cpu]
 
+    python -m audiotokenization_tpu_torch.cli.synthesize --codec_ckpt runs/my_run \\
+        --lm_ckpt runs/token_lm [--temperature 1.0 ...]
+
+``--lm_ckpt`` samples ``num_samples`` token sequences of ``seconds`` of
+audio from a token LM (a ``cli/train_token_lm.py`` run dir, or one
+``scripts/jax_run_to_torch.py --token_lm`` wrote) with the KV-cached
+sampler (``models/token_lm.py::token_lm_generate_kv``) from BOS at
+``--temperature``, its Gumbel draws from a ``torch.Generator`` on the
+device seeded by ``--seed`` (not JAX's ``jax.random`` draws), and clips
+them to the codebook (a sampled BOS or EOS becomes the last code).
 ``--random`` draws uniform tokens from a seeded ``torch.Generator`` (a codec
-smoke test: the draw is not JAX's ``jax.random`` one), then decodes them
+smoke test) instead. The tokens are decoded
 through ``codes_to_emb`` -> ``apply_fc_post_a`` -> ``decode`` in full fp32
-and writes ``sample_<i>.wav`` and the tokens as int16 ``tokens.npy``.
+and written as ``sample_<i>.wav`` and the tokens as int16 ``tokens.npy``.
 ``--codec_ckpt`` is any run dir ``cli/extract_indices.py::load_model``
 reads. ``--streaming CHUNK_FRAMES`` (causal checkpoints) decodes through
 the streaming synthesizer in chunks of that many frames
 (``models/streaming.py::stream_decode``, equal to the plain decode to fp32
-rounding). Sampling from a token LM (``--lm_ckpt``), sequence and pipeline
-parallelism are not ported and raise ``NotImplementedError``.
+rounding). Sequence and pipeline parallelism are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--codec_ckpt", type=str, required=True)
     p.add_argument("--lm_ckpt", type=str, default=None,
-                   help="token-LM run dir (not ported)")
+                   help="token-LM run dir (cli.train_token_lm)")
     p.add_argument("--random", action="store_true",
                    help="sample uniform random tokens instead of the LM")
     p.add_argument("--seconds", type=float, default=2.0)
@@ -59,16 +69,13 @@ def main(argv=None):
                    help="cuda (the default; raises without a card) or cpu")
     args = p.parse_args(argv)
 
-    if args.lm_ckpt:
-        raise NotImplementedError("sampling from a token LM (--lm_ckpt) is not ported yet "
-                                  "(ROADMAP Queue 1 item 16)")
     if sum(map(bool, (args.sequence_parallel, args.pipeline_parallel, args.streaming))) > 1:
         raise SystemExit("--sequence_parallel / --pipeline_parallel / --streaming are "
                          "distinct execution modes; pick one")
     if args.sequence_parallel or args.pipeline_parallel:
         raise NotImplementedError("--sequence_parallel and --pipeline_parallel are not ported "
                                   "yet (ROADMAP Queue 1 item 18)")
-    if not args.random:
+    if not (args.random or args.lm_ckpt):
         raise SystemExit("no --lm_ckpt given; pass --random for uniform tokens")
 
     from ..config import codec_hop
@@ -80,9 +87,19 @@ def main(argv=None):
     cfg, codec = load_model(args.codec_ckpt, device=device)
     sr = cfg.dataset.sample_rate
     n_frames = int(args.seconds * sr) // codec_hop(cfg)
-    tokens = torch.randint(0, cfg.model.codec_decoder.codebook_size,
-                           (args.num_samples, n_frames),
-                           generator=torch.Generator().manual_seed(args.seed))
+    vocab = cfg.model.codec_decoder.codebook_size
+    if args.random:
+        tokens = torch.randint(0, vocab, (args.num_samples, n_frames),
+                               generator=torch.Generator().manual_seed(args.seed))
+    else:
+        from ..models.token_lm import token_lm_config, token_lm_generate_kv
+        from .train_token_lm import load_token_lm
+
+        lm = load_token_lm(args.lm_ckpt, token_lm_config(cfg), device=device)
+        tokens = token_lm_generate_kv(
+            lm, batch_size=args.num_samples, length=n_frames, temperature=args.temperature,
+            generator=torch.Generator(device=device).manual_seed(args.seed))
+        tokens = tokens.clamp(0, vocab - 1).cpu()  # a sampled BOS / EOS is no code
     if args.streaming:
         from ..models.streaming import stream_decode
 

@@ -71,6 +71,26 @@ def _load_file(path: Path, *, mmap: bool = False):
     return torch.load(path, map_location="cpu", weights_only=True, mmap=mmap)
 
 
+def save_state(directory, step: int, obj, *, max_to_keep: int):
+    """Write ``obj`` as ``<directory>/ckpt/<step>/state.pt`` through a
+    temporary dir, synced and renamed, and keep the ``max_to_keep`` newest
+    steps: the rolling window, written on the caller's thread."""
+    ckpt = Path(directory).resolve() / "ckpt"
+    _write_step(ckpt, step, lambda p: _save_file(obj, p))
+    for old in _steps(ckpt)[:-max_to_keep]:
+        shutil.rmtree(ckpt / str(old))
+
+
+def load_latest(directory) -> dict:
+    """The newest ``ckpt/<step>/state.pt`` of a run dir, on the CPU; raises
+    FileNotFoundError without one."""
+    ckpt = Path(directory).resolve() / "ckpt"
+    steps = _steps(ckpt)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    return _load_file(ckpt / str(steps[-1]) / STATE_FILE)
+
+
 def _load_train_state(state: TrainState, path: Path):
     """Load a full train state's file into ``state``; a generator-only file
     (an inference run dir) raises."""
@@ -147,9 +167,7 @@ class CheckpointManager:
                 done.synchronize()
             ckpt, ckpt_best = self.directory / "ckpt", self.directory / "ckpt_best"
             if rolling:
-                _write_step(ckpt, step, lambda p: _save_file(host, p))
-                for old in _steps(ckpt)[:-self.max_to_keep]:
-                    shutil.rmtree(ckpt / str(old))
+                save_state(self.directory, step, host, max_to_keep=self.max_to_keep)
             if best:
                 def write_best(p: Path):
                     try:  # the rolling file of the same step, linked rather than written twice

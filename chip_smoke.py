@@ -220,6 +220,35 @@ Phases, each fatal on failure:
     a step, finite, audio-s/s, peak memory) and a torch.profiler split of
     one more step (teacher, bottleneck and fc_prior forward, K1, K2, the
     rest, idle). Prints the bigcodec_semantic line and phase_17_s.
+18. the stage-2 token LM at the reference's full width (vocabulary 8194,
+    hidden 256, intermediate 1024, 4 layers of 4 heads, 1,024 positions,
+    8.39 M parameters), random from seed 0, on phase 5's flagship codec,
+    and the causal training step (token_lm_path, causal_train_path): (a)
+    token_lm_apply at 2 x 1,024 positions against the CPU (rtol / atol 1e-4
+    x max |logit|) and against a float64 forward on the card (no more than
+    4x the CPU fp32 forward's error), token_lm_loss at 16 x 81 positions
+    within 1e-5 relative of the CPU's; (b) greedy and temperature-1
+    sampling (the same Gumbel draws on both sides) of 160 tokens at B 2:
+    the KV sampler against the full re-forward and the CPU's KV sampler,
+    token for token up to the first step whose top-2 gap is under 1e-5
+    (reported); both samplers timed at B 2 and 32 (ms a token, tokens/s),
+    one KV run profiled (busy, idle share, kernels a token); (c) one LM step
+    at 16 x 1 s against the CPU's, with phase 8b's AdamW eps 1 and no
+    warmup: the frozen tokens but at top-2 gaps under 1e-5, the loss
+    within 1e-5 relative, each leaf's update within 1e-2 x its max |update|
+    (phase 8b's rule); then 2 warm-ups and 5 timed steps with the CLI's
+    optimizer (ms, audio-s/s, peak memory, the tokenize / LM split by CUDA
+    events), K1 1 / K2 15 a step; (d) on 16 WAVs under
+    build/: cli.train_token_lm for 3 steps at batch 16 from a port run dir
+    of phase 5's codec (K1 1 / K2 15 a step, a finite loss each step, the
+    checkpoint), then cli.synthesize --lm_ckpt of 2 x 2 s (2 WAVs,
+    tokens.npy (2, 160) int16 in [0, 8192), K1 0 / K2 15), their wall
+    times (the token_lm line); (e) one fp32_strict step of
+    configs/bigcodec_causal.yaml and of its causal + anti-aliased variant
+    at 2 x 8000 against the CPU's (phase 8b's tolerances), then bf16 steps
+    of bigcodec_causal.yaml at 32 x 1 s (2 warm-ups, 5 timed, K1 1 / K2 0
+    a step, finite, audio-s/s, peak memory) (the causal_train line), and
+    the phase's seconds (phase_18_s).
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -228,6 +257,7 @@ prints no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -813,6 +843,31 @@ def _leaves(state):
             **{"disc." + k: v.detach().cpu().clone() for k, v in state.disc.state_dict().items()}}
 
 
+def hold_updates(what, before, after_cpu, after_card, *, every_leaf_moves=False):
+    """Each leaf's update on the card (after - before) within UPDATE_TOL x
+    the CPU's max |update| of that leaf, plus twice the parameters' fp32
+    spacing: AdamW rounds each parameter twice an update (the decay, then
+    the step), so each side's update is good to 1 spacing. An update may
+    round to 0 unless ``every_leaf_moves``. Returns (worst error over max
+    |update|, its leaf)."""
+    import numpy as np
+    import torch
+
+    worst, worst_at = 0.0, ""
+    for name, b in before.items():
+        want, got = after_cpu[name] - b, after_card[name] - b
+        scale = want.abs().max().item()
+        spacing = torch.from_numpy(np.asarray(2 * np.spacing(np.maximum(
+            b.abs().numpy(), after_cpu[name].abs().numpy()))))  # 0-d leaves too
+        err = (got - want).abs()
+        if (every_leaf_moves and scale == 0) or bool((err > UPDATE_TOL * scale + spacing).any()):
+            fail(f"{what}: update of {name} off by {err.max().item():.3g} against "
+                 f"max |update| {scale:.3g}")
+        if scale > 0 and err.max().item() / scale > worst:
+            worst, worst_at = err.max().item() / scale, name
+    return worst, worst_at
+
+
 def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu", teacher=None):
     """(b) One fp32_strict step at full width on the card against the same
     step on the CPU, from the same weights and batch; prints the ``line``
@@ -870,20 +925,7 @@ def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu", teacher=None):
         if not (np.isfinite(got) and abs(got - want) <= STEP_RTOL * abs(want)):
             fail(f"fp32_strict step: {key} {got!r} on the card against {want!r} on the CPU")
     after_card, after_cpu = _leaves(card), _leaves(ref)
-    worst_update, worst_at = 0.0, ""
-    for name, b in before.items():
-        want, got = after_cpu[name] - b, after_card[name] - b
-        scale = want.abs().max().item()
-        # AdamW rounds each parameter twice an update (the decay, then the step):
-        # each side's (after - before) is good to 1 spacing of the parameter
-        spacing = torch.from_numpy(np.asarray(2 * np.spacing(np.maximum(
-            b.abs().numpy(), after_cpu[name].abs().numpy()))))  # 0-d leaves too
-        err = (got - want).abs()
-        if bool((err > UPDATE_TOL * scale + spacing).any()):  # an update may round to 0
-            fail(f"fp32_strict step: update of {name} off by {err.max().item():.3g} against "
-                 f"max |update| {scale:.3g}")
-        if scale > 0 and err.max().item() / scale > worst_update:
-            worst_update, worst_at = err.max().item() / scale, name
+    worst_update, worst_at = hold_updates("fp32_strict step", before, after_cpu, after_card)
     out = {"card_s": t1 - t0, "cpu_s": t2 - t1, "worst_metric_rel": worst_metric,
            "worst_update_rel": worst_update, "worst_update_leaf": worst_at,
            "hist_bins_differing": flips, "leaves": len(before)}
@@ -4065,6 +4107,415 @@ def semantic_path(card):
     return line
 
 
+# ---------------------------------------------------------------------------
+# 18. the stage-2 token LM on the flagship's tokens, and the causal step
+# ---------------------------------------------------------------------------
+
+LM_VOCAB = 8192 + 2                # Config()'s codebook + BOS, EOS
+LM_FWD_B, LM_FWD_T = 2, 1024       # the forward at the LM's whole context
+LM_FWD_TOL = 1e-4                  # card against CPU logits: rtol and atol x max |logit|
+LM_LOSS_B, LM_LOSS_T = 16, 80      # 16 x 81 positions: a 1 s crop's 80 frames + BOS
+LM_LOSS_RTOL = 1e-5
+LM_TOKENS = 160                    # 2 s of audio at hop 200
+LM_SAMPLE_B = (2, 32)
+LM_TRAIN_B = 16                    # cli/train_token_lm.py's default batch of 1 s crops
+LM_CLI_FILES, LM_CLI_STEPS = 16, 3
+
+
+def lm_logits64(lm, tokens):
+    """The LM's logits in float64 on ``tokens``' device, written out from the
+    JAX package's token_lm_apply (RMS norm, interleaved RoPE from float64
+    angles, causal softmax attention, SwiGLU, untied head): the reference
+    of the precision rule."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    c = lm.cfg
+    B, T = tokens.shape
+    nh, D = c.num_heads, c.head_dim
+    p = {k: v.detach().to(tokens.device, torch.float64) for k, v in lm.state_dict().items()}
+    ang = torch.tensor(np.outer(np.arange(T), 1.0 / c.rope_theta ** (np.arange(0, D, 2) / D)),
+                       dtype=torch.float64, device=tokens.device)
+    cos, sin = ang.cos()[None, :, None, :], ang.sin()[None, :, None, :]
+
+    def rope(x):
+        xe, xo = x[..., 0::2], x[..., 1::2]
+        return torch.stack([xe * cos - xo * sin, xe * sin + xo * cos], -1).reshape(x.shape)
+
+    def norm(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * w
+
+    future = ~torch.ones(T, T, dtype=torch.bool, device=tokens.device).tril()
+    h = p["embed"][tokens]
+    for i in range(c.num_layers):
+        w = {k[len(f"layers.{i}."):]: v for k, v in p.items() if k.startswith(f"layers.{i}.")}
+        x = norm(h, w["attn_norm"])
+        q, k, v = ((x @ w[f"{n}.w"].T).reshape(B, T, nh, D) for n in "qkv")
+        s = torch.einsum("bqhd,bkhd->bhqk", rope(q), rope(k)) / D ** 0.5
+        a = torch.softmax(s.masked_fill(future, float("-inf")), -1)
+        h = h + torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, T, -1) @ w["o.w"].T
+        x = norm(h, w["mlp_norm"])
+        h = h + (F.silu(x @ w["gate.w"].T) * (x @ w["up.w"].T)) @ w["down.w"].T
+    return norm(h, p["norm"]) @ p["lm_head.w"].T
+
+
+def lm_forward(lm_cpu, lm_card):
+    """18a. token_lm_apply at 2 x 1,024 positions on the card against the CPU
+    (rtol / atol 1e-4 x max |logit|) and against a float64 forward on the
+    card (no more than 4x the CPU fp32 forward's error); token_lm_loss at
+    16 x 81 positions within 1e-5 relative of the CPU's; the forward's time."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import token_lm as TL
+
+    rng = np.random.RandomState(20)
+    tokens = torch.from_numpy(rng.randint(0, LM_VOCAB - 2, (LM_FWD_B, LM_FWD_T)))
+    with torch.no_grad():
+        got = TL.token_lm_apply(lm_card, tokens.cuda())
+        want = TL.token_lm_apply(lm_cpu, tokens)
+        ref = lm_logits64(lm_card, tokens.cuda())
+    scale = want.abs().max().item()
+    err = (got.cpu() - want).abs()
+    if not bool((err <= LM_FWD_TOL * want.abs() + LM_FWD_TOL * scale).all()):
+        fail(f"token LM forward: logits off the CPU's by {err.max().item():.3g} "
+             f"(max |logit| {scale:.3g}; rtol / atol {LM_FWD_TOL:g} x max |logit|)")
+    card64 = (got.double() - ref).abs().max().item()
+    cpu64 = (want.cuda().double() - ref).abs().max().item()
+    if card64 > F64_RATIO * cpu64:
+        fail(f"token LM forward: {card64:.3g} off float64 on the card, the CPU fp32 {cpu64:.3g} "
+             f"(rule {F64_RATIO:g}x)")
+    idx = torch.from_numpy(rng.randint(0, LM_VOCAB - 2, (LM_LOSS_B, LM_LOSS_T)))
+    with torch.no_grad():
+        loss_card = TL.token_lm_loss(lm_card, idx.cuda()).item()
+        loss_cpu = TL.token_lm_loss(lm_cpu, idx).item()
+    if not abs(loss_card - loss_cpu) <= LM_LOSS_RTOL * abs(loss_cpu):
+        fail(f"token LM loss {loss_card!r} on the card against {loss_cpu!r} on the CPU")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: TL.token_lm_apply(lm_card, tokens.cuda()), iters=5)
+    return {"positions": [LM_FWD_B, LM_FWD_T], "max_abs_err_vs_cpu": err.max().item(),
+            "max_abs_logit": scale, "err_vs_float64_card": card64, "err_vs_float64_cpu": cpu64,
+            "float64_ratio": card64 / cpu64, "loss_card": loss_card, "loss_cpu": loss_cpu,
+            "loss_rel_diff": abs(loss_card - loss_cpu) / abs(loss_cpu), "forward_ms": ms}
+
+
+def sample_gaps(lm, tokens, temperature: float, gumbel=None):
+    """(L,) the smallest top-2 gap over the batch of each step's selection
+    score (the logits, or gumbel + logits / T) along ``tokens`` (B, L)."""
+    import torch
+    from audiotokenization_tpu_torch.models import token_lm as TL
+
+    bos = torch.full((tokens.shape[0], 1), lm.cfg.bos_token_id, dtype=torch.long,
+                     device=tokens.device)
+    with torch.no_grad():
+        score = TL.token_lm_apply(lm, torch.cat([bos, tokens[:, :-1]], dim=1))
+    if temperature != 0.0:
+        score = gumbel.to(score.device).transpose(0, 1) + score / temperature
+    top = score.topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).amin(0).cpu()
+
+
+def hold_samples(name, got, want, gaps):
+    """Fail unless ``got`` equals ``want`` (B, L) token for token up to the
+    first step whose top-2 gap is under GAP. Returns (the first step that
+    differs, the first near tie), None where there is none."""
+    differ = (got.cpu() != want.cpu()).any(0).nonzero()
+    first = int(differ[0]) if len(differ) else None
+    near = (gaps < GAP).nonzero()
+    tie = int(near[0]) if len(near) else None
+    if first is not None and (tie is None or tie > first):
+        fail(f"{name}: tokens differ from step {first} on, no top-2 gap under {GAP:g} before it")
+    return first, tie
+
+
+def lm_sampling(lm_cpu, lm_card):
+    """18b. Greedy and temperature-1 sampling (the same Gumbel draws on both
+    sides) from BOS for LM_TOKENS tokens at B 2: the card's KV sampler
+    against its full re-forward and the CPU's KV sampler; then both
+    samplers timed at B 2 and 32, and one KV run profiled (device busy,
+    idle share)."""
+    import torch
+    from audiotokenization_tpu_torch.models import token_lm as TL
+
+    b = LM_SAMPLE_B[0]
+    out = {"tokens": LM_TOKENS}
+    gumbel = TL.gumbel_noise((LM_TOKENS, b, LM_VOCAB), generator=torch.Generator().manual_seed(1),
+                             device="cpu")
+    for temperature, draws in ((0.0, None), (1.0, gumbel)):
+        kw = dict(batch_size=b, length=LM_TOKENS, temperature=temperature)
+        card_kv = TL.token_lm_generate_kv(lm_card, gumbel=None if draws is None else draws.cuda(),
+                                          **kw)
+        card_full = TL.token_lm_generate(lm_card, gumbel=None if draws is None else draws.cuda(),
+                                         **kw)
+        cpu_kv = TL.token_lm_generate_kv(lm_cpu, gumbel=draws, **kw)
+        gaps = sample_gaps(lm_card, card_kv, temperature, draws)
+        label = "greedy" if temperature == 0.0 else "temperature_1"
+        first_full, tie = hold_samples(f"{label} KV against full re-forward", card_kv, card_full,
+                                       gaps)
+        first_cpu, _ = hold_samples(f"{label} card KV against CPU KV", card_kv, cpu_kv, gaps)
+        if not ((card_kv >= 0) & (card_kv < LM_VOCAB)).all():
+            fail(f"{label} sampling: tokens outside the vocabulary")
+        out[label] = {"first_differing_step_vs_full": first_full,
+                      "first_differing_step_vs_cpu": first_cpu, "first_near_tie_step": tie,
+                      "smallest_gap": gaps.min().item()}
+    for batch in LM_SAMPLE_B:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        times = {}
+        for name, fn in (("kv", TL.token_lm_generate_kv), ("full", TL.token_lm_generate)):
+            fn(lm_card, batch_size=batch, length=8, temperature=1.0, generator=g)  # warm-up
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn(lm_card, batch_size=batch, length=LM_TOKENS, temperature=1.0, generator=g)
+            end.record()
+            torch.cuda.synchronize()
+            times[name] = start.elapsed_time(end)
+        out[f"B{batch}"] = {"kv_ms_per_token": times["kv"] / LM_TOKENS,
+                            "kv_tokens_per_s": batch * LM_TOKENS / (times["kv"] / 1e3),
+                            "full_ms_per_token": times["full"] / LM_TOKENS,
+                            "full_tokens_per_s": batch * LM_TOKENS / (times["full"] / 1e3)}
+    events, wall_ms = device_events(lambda: TL.token_lm_generate_kv(
+        lm_card, batch_size=b, length=LM_TOKENS, temperature=1.0,
+        generator=torch.Generator(device="cuda").manual_seed(3)))
+    busy = _busy_ms(events)
+    out["kv_profile"] = {"batch": b, "wall_ms": wall_ms, "busy_ms": busy,
+                         "idle_share": 1 - busy / wall_ms, "kernels": len(events),
+                         "kernels_per_token": len(events) / LM_TOKENS}
+    return out
+
+
+def lm_train(cfg, codec, lm_cpu):
+    """18c. One LM step at 16 x 1 s over the frozen flagship's tokens on the
+    card against the CPU's from the same weights and batch, with phase 8b's
+    optimizer setting (AdamW eps 1, no warmup: an update close to lr·g, not
+    lr·sign(g), whose sign flips where |g| is near eps): tokens but at top-2
+    gaps under GAP, loss within 1e-5 relative, each leaf's update within
+    UPDATE_TOL x its max |update| plus twice the parameters' fp32 spacing;
+    then TRAIN_WARMUP + TRAIN_STEPS steps with the CLI's optimizer, the
+    first one's loss and ppl against the CPU's, the last TRAIN_STEPS timed,
+    K1 1 / K2 15 launches a step, the tokenize / LM split by CUDA events,
+    peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.config import OptimParams
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models import token_lm as TL
+    from audiotokenization_tpu_torch.train.state import ClippedAdamW
+
+    codec_cpu = copy.deepcopy(codec).cpu()
+    lm_card = copy.deepcopy(lm_cpu).cuda()
+    wav_np = (np.random.RandomState(21).randn(LM_TRAIN_B, SR) * 0.1).astype(np.float32)
+    wav = torch.from_numpy(wav_np)
+    with C.full_fp32(), torch.no_grad():
+        lat = C.encode(codec, wav.cuda())
+    tok_card = C.tokenize(codec, wav.cuda()).cpu()
+    tok_cpu = C.tokenize(codec_cpu, wav)
+    flips, near = hold_codes("token LM step tokens", tok_card, tok_cpu, frame_gaps(codec, lat).cpu())
+    lm_cfg = lm_cpu.cfg
+    steps = {}
+    for side, lm, cdc, w in (("card", lm_card, codec, wav.cuda()), ("cpu", lm_cpu, codec_cpu, wav)):
+        before = {k: v.detach().cpu().clone() for k, v in lm.state_dict().items()}
+        smooth = ClippedAdamW(lm, OptimParams(betas=(0.8, 0.9), eps=1.0,
+                                              weight_decay=TL.LM_WEIGHT_DECAY),
+                              dataclasses.replace(cfg.train.gen_schedule_params, warmup_step=0),
+                              cfg.train.gen_grad_clip)
+        step = TL.make_token_lm_train_step(cfg, lm_cfg, cdc, smooth)
+        t0 = time.perf_counter()
+        logs = step(lm, {"wav": w})
+        loss = logs["loss"].item()
+        steps[side] = (loss, before, {k: v.detach().cpu() for k, v in lm.state_dict().items()},
+                       time.perf_counter() - t0)
+    (loss_card, b, after_card, card_s), (loss_cpu, _, after_cpu, cpu_s) = steps["card"], steps["cpu"]
+    if not abs(loss_card - loss_cpu) <= LM_LOSS_RTOL * abs(loss_cpu):
+        fail(f"token LM step: loss {loss_card!r} on the card against {loss_cpu!r} on the CPU")
+    worst, worst_at = hold_updates("token LM step", b, after_cpu, after_card,
+                                   every_leaf_moves=True)
+    vs_cpu = {"loss_card": loss_card, "loss_cpu": loss_cpu,
+              "loss_rel_diff": abs(loss_card - loss_cpu) / abs(loss_cpu),
+              "worst_update_rel": worst, "worst_update_leaf": worst_at,
+              "tokens_differ": flips, "near_ties": near, "card_s": card_s, "cpu_s": cpu_s}
+
+    # the CLI's optimizer from here on: its first step's loss and ppl against the
+    # CPU's (they precede its update, so eps 1e-8's sign-like updates do not reach
+    # them), then the warm-ups and the timed steps, the tokenize / LM split by CUDA
+    # events around the codec's part
+    step = TL.make_token_lm_train_step(cfg, lm_cfg, codec, TL.make_token_lm_optimizer(cfg, lm_card))
+    w = wav.cuda()
+    first = {k: v.item() for k, v in step(lm_card, {"wav": w}).items()}
+    first_cpu = {k: v.item() for k, v in TL.make_token_lm_train_step(
+        cfg, lm_cfg, codec_cpu, TL.make_token_lm_optimizer(cfg, lm_cpu))(lm_cpu, {"wav": wav}).items()}
+    ppl_rtol = math.expm1(LM_LOSS_RTOL * abs(first_cpu["loss"]))  # what the loss's bound allows
+    for key, rtol in (("loss", LM_LOSS_RTOL), ("ppl", ppl_rtol)):
+        if not abs(first[key] - first_cpu[key]) <= rtol * abs(first_cpu[key]):
+            fail(f"token LM step at the CLI's optimizer: {key} {first[key]!r} on the card "
+                 f"against {first_cpu[key]!r} on the CPU")
+    vs_cpu["cli_optimizer_first_step"] = {
+        **{f"{k}_card": v for k, v in first.items()}, **{f"{k}_cpu": v for k, v in first_cpu.items()},
+        "loss_rel_diff": abs(first["loss"] - first_cpu["loss"]) / abs(first_cpu["loss"])}
+    for _ in range(TRAIN_WARMUP - 1):
+        step(lm_card, {"wav": w})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spans, tokenize = [], TL.tokenize
+
+    def timed_tokenize(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = tokenize(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    TL.tokenize = timed_tokenize
+    try:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def run():
+            start.record()
+            for _ in range(TRAIN_STEPS):
+                logs = step(lm_card, {"wav": w})
+            end.record()
+            return logs
+
+        logs, launches = counted(run)
+    finally:
+        TL.tokenize = tokenize
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    tok_ms = sum(s.elapsed_time(e) for s, e in spans) / TRAIN_STEPS
+    per_step = (launches[0] / TRAIN_STEPS, launches[1] / TRAIN_STEPS)
+    expect_launches("token LM training step", per_step, (1, 15))
+    if not np.isfinite(logs["loss"].item()):
+        fail("token LM training: the loss is not finite")
+    return {"vs_cpu": vs_cpu, "batch": [LM_TRAIN_B, SR], "ms_per_step": ms,
+            "audio_s_per_s": LM_TRAIN_B / (ms / 1e3), "tokenize_ms": tok_ms,
+            "lm_ms": ms - tok_ms, "tokenize_share": tok_ms / ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": {"vq_argmin": per_step[0], "residual_unit": per_step[1]},
+            "steps_timed": TRAIN_STEPS, "loss": logs["loss"].item(), "ppl": logs["ppl"].item()}
+
+
+def lm_clis(cfg):
+    """18d. On LM_CLI_FILES synthetic WAVs under build/ (deleted after):
+    cli.train_token_lm for LM_CLI_STEPS steps at batch 16 from a port run dir
+    of phase 5's codec (K1 1 / K2 15 a step, a finite loss logged every
+    step, the checkpoint), then cli.synthesize --lm_ckpt of 2 x 2 s (2 WAVs,
+    tokens.npy (2, 160) int16 in [0, 8192), K1 0 / K2 15, the waveforms
+    within WAV_RTOL / WAV_ATOL of the CPU's decode of tokens.npy); wall
+    times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import synthesize, train_token_lm
+    from audiotokenization_tpu_torch.data.audio_io import write_wav
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_token_lm_", dir=build_dir))
+    try:
+        rng = np.random.RandomState(22)
+        files = []
+        for i in range(LM_CLI_FILES):
+            n = int(rng.uniform(1.1, 3.0) * SR)
+            t = np.arange(n) / SR
+            w = np.sin(2 * np.pi * rng.uniform(100, 250) * t) * 0.15 + rng.randn(n) * 0.05
+            write_wav(root / f"u{i}.wav", w.astype(np.float32), SR)
+            files.append(str(root / f"u{i}.wav"))
+        (root / "filelist.txt").write_text("\n".join(files))
+        run = root / "codec"
+        codec_cpu = write_gen_run(run, cfg)
+        lm_dir, out_dir = root / "lm", root / "synth"
+        t0 = time.perf_counter()
+        _, train_launches = counted(lambda: train_token_lm.main(
+            ["--codec_ckpt", str(run), "--filelist", str(root / "filelist.txt"), "--run_dir",
+             str(lm_dir), "--max_steps", str(LM_CLI_STEPS), "--batch_size", "16",
+             "--log_every", "1"]))
+        train_s = time.perf_counter() - t0
+        expect_launches("cli.train_token_lm", train_launches, (LM_CLI_STEPS, 15 * LM_CLI_STEPS))
+        logs = [json.loads(line) for line in (lm_dir / "metrics.jsonl").read_text().splitlines()]
+        if [r["step"] for r in logs] != list(range(1, LM_CLI_STEPS + 1)) \
+                or not all(np.isfinite(r["loss"]) for r in logs) \
+                or not (lm_dir / "ckpt" / str(LM_CLI_STEPS) / "state.pt").exists():
+            fail(f"cli.train_token_lm: metrics {logs}, checkpoints "
+                 f"{sorted(p.name for p in (lm_dir / 'ckpt').iterdir())}")
+        t0 = time.perf_counter()
+        wav, synth_launches = counted(lambda: synthesize.main(
+            ["--codec_ckpt", str(run), "--lm_ckpt", str(lm_dir), "--seconds", "2",
+             "--num_samples", "2", "--out_dir", str(out_dir)]))
+        synth_s = time.perf_counter() - t0
+        expect_launches("cli.synthesize --lm_ckpt", synth_launches, (0, 15))
+        tokens = np.load(out_dir / "tokens.npy")
+        if tokens.dtype != np.int16 or tokens.shape != (2, LM_TOKENS) or tokens.min() < 0 \
+                or tokens.max() >= LM_VOCAB - 2 or len(list(out_dir.glob("sample_*.wav"))) != 2 \
+                or not np.isfinite(wav).all():
+            fail(f"cli.synthesize --lm_ckpt: tokens {tokens.dtype} {tokens.shape} in "
+                 f"[{tokens.min()}, {tokens.max()}], wavs {sorted(out_dir.glob('*.wav'))}")
+        want = synthesize.decode_tokens(codec_cpu, torch.from_numpy(tokens.astype(np.int64)))
+        want = want.numpy()
+        wav_err = float(np.abs(wav - want).max())
+        if wav.shape != want.shape or not np.allclose(wav, want, rtol=WAV_RTOL, atol=WAV_ATOL):
+            fail(f"cli.synthesize --lm_ckpt: waveform outside rtol {WAV_RTOL:g} / atol "
+                 f"{WAV_ATOL:g} of the CPU's decode of its tokens.npy (max |d| {wav_err:.3g})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"train_token_lm_s": train_s, "train_steps": LM_CLI_STEPS,
+            "train_launches": {"vq_argmin": train_launches[0],
+                               "residual_unit": train_launches[1]},
+            "losses": [r["loss"] for r in logs], "synthesize_s": synth_s,
+            "synthesize_launches": {"vq_argmin": synth_launches[0],
+                                    "residual_unit": synth_launches[1]},
+            "synthesized_tokens": list(tokens.shape), "codes_used": int(len(np.unique(tokens))),
+            "synthesize_wav_max_abs_err_vs_cpu": wav_err}
+
+
+def token_lm_path(cfg, card):
+    """18a-d. The token LM at the reference's full width (vocabulary 8194,
+    hidden 256, 4 layers of 4 heads, 1,024 positions), random from seed 0,
+    on phase 5's flagship codec. Prints the token_lm line."""
+    import torch
+    from audiotokenization_tpu_torch.models import token_lm as TL
+
+    lm_cpu = TL.init_token_lm(TL.token_lm_config(cfg), generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    if lm_cpu.cfg.vocab_size != LM_VOCAB:
+        fail(f"the flagship's LM vocabulary is {lm_cpu.cfg.vocab_size}, not {LM_VOCAB}")
+    lm_card = copy.deepcopy(lm_cpu).cuda()
+    out = {"parameters": sum(p.numel() for p in lm_cpu.parameters())}
+    out["forward"] = lm_forward(lm_cpu, lm_card)
+    print(json.dumps({"token_lm_forward": out["forward"]}))
+    out["sampling"] = lm_sampling(lm_cpu, lm_card)
+    print(json.dumps({"token_lm_sampling": out["sampling"]}))
+    codec = seeded_codec(cfg)
+    out["train"] = lm_train(cfg, codec, lm_cpu)
+    del codec
+    torch.cuda.empty_cache()
+    out["cli"] = lm_clis(cfg)
+    print(json.dumps({"token_lm": out, "card": card}))
+    return out
+
+
+def causal_train_path(card):
+    """18e. One fp32_strict step of configs/bigcodec_causal.yaml and of its
+    causal + anti-aliased variant at 2 x 8000 against the CPU's (phase 8b's
+    tolerances), then bf16 steps of bigcodec_causal.yaml at 32 x 1 s (2
+    warm-ups, 5 timed, K1 1 / K2 0 a step, finite). Prints the causal_train
+    line."""
+    import torch
+
+    cfg = repo_config("bigcodec_causal.yaml")
+    aa = copy.deepcopy(cfg)
+    aa.model.codec_encoder.antialias = aa.model.codec_decoder.antialias = True
+    out = {"causal_vs_cpu": train_step_vs_cpu(cfg, line="causal_train_step_vs_cpu"),
+           "causal_antialias_vs_cpu": train_step_vs_cpu(
+               aa, line="causal_antialias_train_step_vs_cpu")}
+    out["train"] = timed_training("bigcodec_causal", cfg, card, (1, 0))
+    torch.cuda.empty_cache()
+    print(json.dumps({"causal_train": out, "card": card}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4137,10 +4588,17 @@ def main() -> int:
     t0 = time.perf_counter()
     semantic = semantic_path(card)
     print(json.dumps({"phase_17_s": time.perf_counter() - t0, "card": card}))
+    t0 = time.perf_counter()
+    token_lm = token_lm_path(cfg, card)
+    causal_train = causal_train_path(card)
+    print(json.dumps({"phase_18_s": time.perf_counter() - t0, "card": card}))
 
     def path_launches(kernel):
-        """A kernel's launches per call on the paths of phases 10-16."""
+        """A kernel's launches per call on the paths of phases 10-18."""
         return {
+            "token_lm_train_per_step": token_lm["train"]["launches_per_step"][kernel],
+            "token_lm_synthesize_per_call": token_lm["cli"]["synthesize_launches"][kernel],
+            "causal_train_per_step": causal_train["train"]["launches_per_step"][kernel],
             "modes_per_call": {m: r["launches"][kernel] for m, r in modes.items()},
             "extract_fast": ext["extract_fast"]["launches"][kernel],
             "causal_per_tokenize": causal["offline"]["launches_per_tokenize"][kernel],
@@ -4224,7 +4682,11 @@ def main() -> int:
                               "bigcodec_lfq: per LFQ BigCodec tokenize, decode and bf16 "
                               "training step; bigcodec_semantic: per semantic codec tokenize "
                               "(the teacher's output given), decode, extraction device batch, "
-                              "evaluation device batch and bf16 training step; K2's "
+                              "evaluation device batch and bf16 training step; token_lm_train_per_step: "
+                              "the token LM's step over the frozen flagship's tokens (16 x 1 "
+                              "s); token_lm_synthesize_per_call: cli.synthesize --lm_ckpt "
+                              "(2 x 2 s); causal_train_per_step: the causal flagship's bf16 "
+                              "step; K2's "
                               "semantic_path: summed over the semantic codec's 30 units "
                               "(C 16-256) at 32 x 1 s"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,6 +23,8 @@ from audiotokenization_tpu_torch.convert import params_from_jax
 from audiotokenization_tpu_torch.models import codec as TC
 from audiotokenization_tpu_torch.ops.conv import fold_weight_norm
 
+from test_torch_conformer_train import jax_tree
+
 LAT_RTOL, LAT_ATOL = 1e-3, 2e-4
 WAV_RTOL, WAV_ATOL = 1e-3, 2e-5
 GAP = 1e-5
@@ -42,8 +44,8 @@ def _port(jcfg, params):
 def _decode_both(jcfg, params, codec, codes):
     """codes (Nq, B, Tf) -> (JAX wav, port wav), both through codes_to_emb."""
     c = np.array(codes).transpose(1, 2, 0).copy()
-    ref = JC.decode(params, jcfg, JC.apply_fc_post_a(params, jcfg,
-                                                    JC.codes_to_emb(params, jcfg, jnp.asarray(c))))
+    ref = jax.jit(lambda p, x: JC.decode(p, jcfg, JC.apply_fc_post_a(
+        p, jcfg, JC.codes_to_emb(p, jcfg, x))))(params, jnp.asarray(c))
     with TC.full_fp32(), torch.no_grad():
         emb = TC.apply_fc_post_a(codec, TC.codes_to_emb(codec, torch.from_numpy(c)))
         got = TC.decode(codec, emb)
@@ -53,12 +55,13 @@ def _decode_both(jcfg, params, codec, codes):
 @pytest.mark.parametrize("folded", [False, True])
 def test_tiny_tokenize_is_byte_exact_and_decode_matches(folded):
     jcfg = GE._tiny_config()
-    params = JC.init_codec(jax.random.key(0), jcfg)
+    params = jax.jit(lambda k: JC.init_codec(k, jcfg))(jax.random.key(0))
     if folded:
         params = jax_fold(params)
     codec = _port(jcfg, params)
     wav = (np.random.RandomState(0).randn(3, 1600) * 0.1).astype(np.float32)
-    ref = np.asarray(JC.tokenize(params, jcfg, jnp.asarray(wav), mode="conformant"))
+    ref = np.asarray(jax.jit(lambda p, w: JC.tokenize(p, jcfg, w, mode="conformant"))(
+        params, jnp.asarray(wav)))
     got = TC.tokenize(codec, wav, mode="conformant")
     assert got.dtype == torch.int32 and got.shape == ref.shape == (1, 3, 160)
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -69,12 +72,17 @@ def test_tiny_tokenize_is_byte_exact_and_decode_matches(folded):
 
 @pytest.fixture(scope="module")
 def flagship():
+    """Config() with the port's initial weights from seed 0 and the JAX tree
+    holding the same values (``jax_tree``: no JAX init), JAX's encode and
+    quantize each jitted once (op by op, every primitive compiles at full
+    width)."""
     jcfg = JaxConfig()
-    params = JC.init_codec(jax.random.key(0), jcfg)
-    codec = _port(jcfg, params)
+    codec = TC.init_codec(PC.from_dict(dataclasses.asdict(jcfg)),
+                          generator=torch.Generator().manual_seed(0), device="cpu")
+    params = jax_tree(codec.state_dict())
     wav = (np.random.RandomState(0).randn(1, 3200) * 0.1).astype(np.float32)
-    lat = JC.encode(params, jcfg, jnp.asarray(wav))
-    _, codes, _ = JC.quantize(params, jcfg, lat)
+    lat = jax.jit(lambda p, w: JC.encode(p, jcfg, w))(params, jnp.asarray(wav))
+    _, codes, _ = jax.jit(lambda p, x: JC.quantize(p, jcfg, x))(params, lat)
     return jcfg, params, codec, wav, np.asarray(lat), np.asarray(codes)
 
 

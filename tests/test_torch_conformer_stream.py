@@ -287,13 +287,14 @@ def test_extract_cli_uses_the_conformer_hop(models, conformer_run):
          "--dataset_path", "LibriSpeech", "--ext_audio", ".wav", "--subsets", "test-clean",
          "--batch_size", "2", "--device", "cpu"])
     assert summary["saved"] == len(CORPUS) and summary["errors"] == 0
+    jax_tokenize = jax.jit(lambda p, w: JC.tokenize(p, jcfg, w))  # one compile a length
     for name, (d, _) in files.items():
         spk, chap, _ = name.split("-")
         got = np.load(tmp / "run" / "extracted_indices" / "test-clean" / spk / chap / f"{name}.npy")
         w = read_audio(d / f"{name}.wav")[0][0]  # the file as the CLI reads it (PCM16)
         assert got.dtype == np.int16 and got.shape == (-(-len(w) // HOP),), name
         padded = np.pad(w, (0, -len(w) % HOP))
-        want = np.asarray(JC.tokenize(params, jcfg, jnp.asarray(padded)[None]))[0, 0]
+        want = np.asarray(jax_tokenize(params, padded[None]))[0, 0]
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 

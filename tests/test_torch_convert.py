@@ -152,7 +152,8 @@ def write_jax_run(path, tree, jcfg, step=1):
 @pytest.fixture(scope="module")
 def jax_tree():
     jcfg = tiny()
-    return jcfg, jax.tree.map(np.asarray, JC.init_codec(jax.random.key(7), jcfg))
+    return jcfg, jax.tree.map(np.asarray, jax.jit(lambda k: JC.init_codec(k, jcfg))(
+        jax.random.key(7)))
 
 
 def _assert_trees_equal(got, want, path="params"):
