@@ -6,8 +6,9 @@ spectrogram discriminator use).
   n_fft zero-padded to it, centred; complex (..., n_fft//2 + 1, frames).
 - ``stft_magnitude``: the discriminator's sqrt(clip(re² + im², 1e-7, 1e3)),
   (B, frames, F).
-- ``mel_filterbank``: slaney scale and slaney area norm (torchaudio's
-  ``melscale_fbanks(norm='slaney', mel_scale='slaney')``), built in numpy.
+- ``mel_filterbank``: slaney scale and slaney area norm by default
+  (torchaudio's ``melscale_fbanks(norm='slaney', mel_scale='slaney')``),
+  or the HTK scale without a norm (``htk=True, norm=None``), built in numpy.
 - ``mel_spectrogram``: the magnitude mel of ``torchaudio.transforms.
   MelSpectrogram(center=True, norm/scale slaney)``, for the eval images;
 - ``stft_same_constant_pad``: the Conformer encoder's front, center=False
@@ -100,18 +101,33 @@ def _mel_to_hz_slaney(m):
     return np.where(m >= 15.0, 1000.0 * np.exp(logstep * (m - 15.0)), 200.0 * m / 3.0)
 
 
-def mel_filterbank(*, sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
-    """Slaney-scale, slaney-normed mel matrix (n_mels, n_fft // 2 + 1) from 0
-    Hz to Nyquist, fp32."""
+def _hz_to_mel_htk(f):
+    return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
+
+
+def _mel_to_hz_htk(m):
+    return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
+
+
+def mel_filterbank(*, sample_rate: int, n_fft: int, n_mels: int, fmin: float = 0.0,
+                   fmax: float | None = None, htk: bool = False,
+                   norm: str | None = "slaney") -> np.ndarray:
+    """Mel matrix (n_mels, n_fft // 2 + 1) from ``fmin`` to ``fmax``
+    (default Nyquist), fp32, built in float64. Default: slaney scale and
+    slaney area norm; ``htk=True, norm=None`` is torchaudio's
+    MelSpectrogram / MFCC default (``mel_scale='htk'``), ECAPA's frontends."""
+    fmax = fmax if fmax is not None else sample_rate / 2.0
+    to_mel, to_hz = (_hz_to_mel_htk, _mel_to_hz_htk) if htk else (_hz_to_mel_slaney,
+                                                                  _mel_to_hz_slaney)
     all_freqs = np.linspace(0, sample_rate / 2.0, n_fft // 2 + 1)
-    f_pts = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(0.0),
-                                          _hz_to_mel_slaney(sample_rate / 2.0), n_mels + 2))
+    f_pts = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     f_diff = np.diff(f_pts)
     slopes = f_pts[None, :] - all_freqs[:, None]  # (n_freqs, n_mels + 2)
     down = -slopes[:, :-2] / f_diff[None, :-1]
     up = slopes[:, 2:] / f_diff[None, 1:]
     fb = np.maximum(0.0, np.minimum(down, up))
-    fb = fb * (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
+    if norm == "slaney":
+        fb = fb * (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
     return fb.T.astype(np.float32)
 
 

@@ -2,7 +2,7 @@
 ``audiotokenization_tpu/ops/transformer.py``, the dense layers).
 
 - ``rms_norm``: fp32 RMS norm over the last dim (eps 1e-6), cast back, then
-  the weight;
+  the weight; ``layer_norm``: LayerNorm with the biased variance;
 - RoPE: ``precompute_rope`` builds the cos/sin tables in float64 (stored
   fp32), ``apply_rope`` rotates the interleaved pairs (x[2i], x[2i+1]) in
   fp32 — not the half-split ``rotate_half`` of most PyTorch code;
@@ -67,6 +67,15 @@ def rms_norm(x, weight=None, *, eps: float = 1e-6):
     xf = x.float()
     normed = (xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)).to(x.dtype)
     return normed if weight is None else normed * weight
+
+
+def layer_norm(x, gain, bias, *, eps: float = 1e-5):
+    """torch nn.LayerNorm over the last dim: the biased (population)
+    variance, then ``gain`` and ``bias``. The SSL upstreams' norm
+    (``models/wavlm.py``, ``models/wav2vec2.py``)."""
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, correction=0)
+    return (x - mu) * torch.rsqrt(var + eps) * gain + bias
 
 
 @functools.lru_cache(maxsize=16)

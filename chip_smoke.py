@@ -249,6 +249,30 @@ Phases, each fatal on failure:
     of bigcodec_causal.yaml at 32 x 1 s (2 warm-ups, 5 timed, K1 1 / K2 0
     a step, finite, audio-s/s, peak memory) (the causal_train line), and
     the phase's seconds (phase_18_s).
+19. speaker verification at full width on random weights from seed 0
+    (speaker_verification_path): (a) ECAPA-TDNN at init_ecapa_tdnn's
+    defaults (channels 512, emb 192, scale 8, attention 128) on fbank (80)
+    and MFCC (40), 4 x 3 s: embeddings within rtol / atol 1e-4 x max |emb|
+    of the CPU's, and against a float64 forward on the card (its frontend
+    in float64 too) no more than 4x as far off as the CPU fp32's; ms per
+    utterance; (b) WavLM-Large (microsoft/wavlm-large's config: 1024 wide,
+    24 layers, 16 heads, layer-norm extractor, stable pre-LN, 320 buckets)
+    and a HuBERT base layout (768 / 12 / 12, group norm, post-LN) as
+    transformers state dicts of numpy draws, written and loaded through
+    load_ssl_upstream (the inferred config checked): every hidden state
+    within rtol 2e-3 / atol 3e-4 x max |h| of the CPU's at 1 x 4 s, and at
+    1 x 10 s against float64 on the card by the 4x rule; ms per 10 s
+    utterance and a torch.profiler split (conv encoder, pos conv,
+    attention, FFN, GEMMs, idle), the conv encoder also timed alone by CUDA
+    events; ECAPA over the WavLM-Large frontend (1024
+    mels, 25 layer weights) against the CPU; (c) phase 5's flagship codec
+    tokenizes and decodes 4 x 3 s (K1 1 / K2 15, K2 15), (a)'s fbank ECAPA
+    scores each original against its reconstruction (no launch), within
+    1e-4 of the CPU's on the same waveforms; (d) cli.verification --smoke
+    on WAVs under build/ (fbank at 16 and 22.05 kHz, MFCC at 22.05 kHz,
+    --feat_type ssl --ssl_family wavlm_large on (b)'s file), each within
+    1e-4 of the same run with --device cpu, no launch, wall times. Prints
+    the speaker_verification line and phase_19_s.
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -4516,6 +4540,462 @@ def causal_train_path(card):
     return out
 
 
+SV_B, SV_SECONDS = 4, 3            # phase 19's utterances: 4 x 3 s
+SV_TOL = 1e-4                      # ECAPA embeddings, card against CPU: rtol, atol x max |emb|;
+                                   # similarities: atol (card against CPU, CLI card against cpu)
+SSL_RTOL, SSL_ATOL = 2e-3, 3e-4    # SSL hidden states, card against CPU (atol x max |h|): the
+                                   # tests' tolerance (tests/test_wavlm.py), scaled to the state
+SSL_CPU_SECONDS, SSL_F64_SECONDS = 4, 10
+# microsoft/wavlm-large's config.json (conv stages, pos conv and the rest at
+# WavLMConfig's defaults: seven 512-channel stages, k 128 in 16 groups)
+WAVLM_LARGE = dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+                   intermediate_size=4096, feat_extract_norm="layer", conv_bias=True,
+                   do_stable_layer_norm=True, num_buckets=320, max_bucket_distance=800)
+# a base layout (facebook/hubert-base-ls960's config.json)
+HUBERT_BASE = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                   intermediate_size=3072, feat_extract_norm="group", conv_bias=False,
+                   do_stable_layer_norm=False)
+
+
+def sv_features64(wav, feat_type: str):
+    """ECAPA's fbank / MFCC frontend in float64 on ``wav``'s device, the
+    reference of the precision rule: models/ecapa_tdnn.py's framing
+    (reflection padding, a 25 ms Hann window centred in 512, 10 ms hop) with
+    torch.stft in float64, and its fp32 mel and DCT matrices as constants
+    (ops/stft.py::stft computes in fp32 whatever the input)."""
+    import torch
+    import torch.nn.functional as F
+    from audiotokenization_tpu_torch.models import ecapa_tdnn as E
+    from audiotokenization_tpu_torch.ops.stft import hann_window, reflect_pad
+
+    dev = wav.device
+    window = F.pad(hann_window(400, device=dev).double(), (56, 56))
+    s = torch.stft(reflect_pad(wav.double(), 256), 512, hop_length=160, win_length=512,
+                   window=window, center=False, return_complex=True)
+    power = s.real ** 2 + s.imag ** 2
+    if feat_type == "fbank":
+        mel = torch.einsum("mf,bft->bmt", E._htk_mels(SR, 512, 80, float(SR // 2), dev).double(),
+                           power)
+        return torch.log(mel + 1e-6)
+    mel = torch.einsum("mf,bft->bmt", E._htk_mels(SR, 512, 128, SR / 2.0, dev).double(), power)
+    db = 10.0 * torch.log10(mel.clamp_min(1e-10))
+    db = torch.maximum(db, db.amax(dim=(-2, -1), keepdim=True) - 80.0)
+    return torch.einsum("km,bmt->bkt", E._dct_ortho(40, 128, dev).double(), db) + 1e-6
+
+
+def sv_wavs(seed: int = 19):
+    """Seeded speech-like waveforms (SV_B, SV_SECONDS x 16 kHz): a voiced
+    tone under a syllable-rate envelope, in noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(SV_SECONDS * SR) / SR
+    rows = []
+    for _ in range(SV_B):
+        env = np.clip(np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6)), 0, None) ** 2
+        rows.append(env * (0.5 * np.sin(2 * np.pi * rng.uniform(100, 250) * t)
+                           + 0.5 * rng.randn(t.size)) * 0.3 + 0.003 * rng.randn(t.size))
+    return np.asarray(rows, np.float32)
+
+
+def ecapa_embed(model, wav, feat_type: str, **kw):
+    """Embeddings of ``wav`` through the frontend, fp32 with TF32 off."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models import ecapa_tdnn as E
+
+    with torch.no_grad(), C.full_fp32():
+        return E.ecapa_tdnn_embed(model, E.extract_features(wav, feat_type=feat_type, **kw))
+
+
+def hold_embeddings(name, got, want):
+    """Fatal unless ``got`` is finite and within rtol / atol SV_TOL x max
+    |want| of ``want``; returns max |got - want|."""
+    import torch
+
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or not torch.allclose(
+            got, want, rtol=SV_TOL, atol=SV_TOL * want.abs().max().item()):
+        fail(f"{name}: embeddings off the CPU's by {err:.3g} (rtol / atol {SV_TOL:g} x max |emb|)")
+    return err
+
+
+def sv_ecapa(wav_np):
+    """19a. ECAPA-TDNN at init_ecapa_tdnn's defaults (channels 512, emb 192,
+    scale 8, attention 128) from seed 0 on fbank (80) and MFCC (40): the
+    card's embeddings against the CPU's, and against a float64 forward on
+    the card (frontend included) no more than F64_RATIO times as far off as
+    the CPU's fp32; ms per utterance. Returns (rows, {feat: (cpu, card)})."""
+    import torch
+    from audiotokenization_tpu_torch.models import ecapa_tdnn as E
+
+    wav_cpu = torch.from_numpy(wav_np)
+    wav = wav_cpu.cuda()
+    rows, models = {}, {}
+    for feat, n_mels in (("fbank", 80), ("mfcc", 40)):
+        cpu = E.init_ecapa_tdnn(torch.Generator().manual_seed(0), n_mels=n_mels, device="cpu")
+        card_model = copy.deepcopy(cpu).cuda()
+        got = ecapa_embed(card_model, wav, feat).cpu()
+        want = ecapa_embed(cpu, wav_cpu, feat)
+        err = hold_embeddings(f"ECAPA {feat}", got, want)
+        m64 = copy.deepcopy(cpu).double().cuda()
+        with torch.no_grad():
+            ref = E.ecapa_tdnn_embed(m64, sv_features64(wav, feat)).cpu()
+        del m64
+        card_err = (got.double() - ref).abs().max().item()
+        cpu_err = (want.double() - ref).abs().max().item()
+        print(f"ECAPA {feat}: max |card - cpu| = {err:.3g}, max |card - f64| = {card_err:.3g}, "
+              f"max |cpu32 - f64| = {cpu_err:.3g}")
+        if card_err > F64_RATIO * cpu_err:
+            fail(f"ECAPA {feat}: {card_err:.3g} off float64 on the card, more than "
+                 f"{F64_RATIO:g}x the CPU fp32's {cpu_err:.3g}")
+        ms = cuda_ms(lambda: ecapa_embed(card_model, wav, feat), iters=5)
+        rows[feat] = {"n_mels": n_mels, "parameters": sum(p.numel() for p in cpu.parameters()),
+                      "max_abs_err_vs_cpu": err, "max_abs_emb": want.abs().max().item(),
+                      "max_abs_err_card_vs_f64": card_err, "max_abs_err_cpu32_vs_f64": cpu_err,
+                      "ratio": card_err / cpu_err, "ms_per_utterance": ms / SV_B,
+                      "batch_ms": ms}
+        models[feat] = (cpu, card_model)
+    return rows, models
+
+
+def ssl_hf_state_dict(family: str, shape: dict, seed: int) -> dict:
+    """Random weights of ``family`` (wavlm | wav2vec2 | hubert |
+    unispeech_sat) at ``shape`` under the transformers names (the pos conv's
+    weight norm as ``parametrizations.weight.original0/1``), CPU tensors
+    from numpy draws of ``seed``: linear and conv weights N(0, 1 / fan_in),
+    biases N(0, 0.02²), norms 1 + N(0, 0.1²) / N(0, 0.1²), the relative
+    position embedding N(0, 0.1²)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from audiotokenization_tpu_torch.models.wavlm import WavLMConfig
+
+    cfg = (WavLMConfig if family == "wavlm" else Wav2Vec2Config)(**shape)
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def normal(*shape, std):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+
+    def lin(name, n_out, n_in):
+        sd[name + ".weight"] = normal(n_out, n_in, std=n_in ** -0.5)
+        sd[name + ".bias"] = normal(n_out, std=0.02)
+
+    def ln(name, n):
+        sd[name + ".weight"] = 1 + normal(n, std=0.1)
+        sd[name + ".bias"] = normal(n, std=0.1)
+
+    cin = 1
+    for i, (c, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        pre = f"feature_extractor.conv_layers.{i}"
+        sd[pre + ".conv.weight"] = normal(c, cin, k, std=(cin * k) ** -0.5)
+        if cfg.conv_bias:
+            sd[pre + ".conv.bias"] = normal(c, std=0.02)
+        if cfg.feat_extract_norm == "layer" or i == 0:
+            ln(pre + ".layer_norm", c)
+        cin = c
+    H, heads = cfg.hidden_size, cfg.num_attention_heads
+    ln("feature_projection.layer_norm", cin)
+    lin("feature_projection.projection", H, cin)
+    pc = "encoder.pos_conv_embed.conv"
+    k, groups = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
+    sd[pc + ".parametrizations.weight.original0"] = torch.from_numpy(
+        rng.uniform(0.5, 1.5, (1, 1, k)).astype(np.float32))
+    sd[pc + ".parametrizations.weight.original1"] = normal(H, H // groups, k, std=1.0)
+    sd[pc + ".bias"] = normal(H, std=0.02)
+    ln("encoder.layer_norm", H)
+    for i in range(cfg.num_hidden_layers):
+        pre = f"encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(f"{pre}.attention.{n}", H, H)
+        if family == "wavlm":
+            lin(f"{pre}.attention.gru_rel_pos_linear", 8, H // heads)
+            sd[f"{pre}.attention.gru_rel_pos_const"] = 1 + normal(1, heads, 1, 1, std=0.1)
+            if i == 0:
+                sd[f"{pre}.attention.rel_attn_embed.weight"] = normal(cfg.num_buckets, heads,
+                                                                      std=0.1)
+        ln(f"{pre}.layer_norm", H)
+        lin(f"{pre}.feed_forward.intermediate_dense", cfg.intermediate_size, H)
+        lin(f"{pre}.feed_forward.output_dense", H, cfg.intermediate_size)
+        ln(f"{pre}.final_layer_norm", H)
+    return sd
+
+
+def ssl_split(fn):
+    """torch.profiler split of one call of ``fn`` through an SSL upstream:
+    device ms of the kernels inside the device-side spans of the conv
+    feature encoder, the positional conv, the attention (projections, gate,
+    softmax) and the FFN (models/wavlm.py's functions), of every GEMM
+    kernel, the rest, and the idle share of the call's wall time (the
+    profiler's overhead included). Late in the whole script the profiler
+    has shown none of the conv encoder's kernels: sv_ssl also times the
+    encoder alone with CUDA events."""
+    import torch
+    from audiotokenization_tpu_torch.models import wavlm as W
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = ("feature_encoder", "_pos_conv_embed", "_attention", "_feed_forward")
+    with annotated([(W, n) for n in parts]):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    dev = [e for e in events if not e[0].startswith("cs.")]
+
+    def inside(n):
+        """The kernels whose midpoint lies in a device-side span of range n."""
+        spans = [(a, b) for name, a, b in events if name == f"cs.{n}"]
+        return [e for e in dev if any(a <= (e[1] + e[2]) / 2 <= b for a, b in spans)]
+
+    ranged = {n: _busy_ms(inside(n)) for n in parts}
+    busy = _busy_ms(dev)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "conv_encoder_ms": ranged["feature_encoder"], "pos_conv_ms": ranged["_pos_conv_embed"],
+            "attention_ms": ranged["_attention"], "ffn_ms": ranged["_feed_forward"],
+            "gemm_ms": _busy_ms([e for e in dev if "gemm" in e[0].lower()
+                                 or "xmma" in e[0].lower()]),
+            "other_ms": max(busy - sum(ranged.values()), 0.0), "idle_share": 1 - busy / wall_ms,
+            "device_kernels": len(dev)}
+
+
+def hold_hiddens(name, got, want):
+    """Each hidden state of ``got`` within rtol SSL_RTOL / atol SSL_ATOL x
+    max |h| of ``want``'s (fatal); returns the largest error relative to
+    that state's max |h|."""
+    import torch
+
+    worst = 0.0
+    if len(got) != len(want):
+        fail(f"{name}: {len(got)} hidden states, the CPU {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.abs().max().item()
+        worst = max(worst, (g - w).abs().max().item() / scale)
+        if g.shape != w.shape or not torch.isfinite(g).all() or not torch.allclose(
+                g, w, rtol=SSL_RTOL, atol=SSL_ATOL * scale):
+            fail(f"{name}: hidden state {i} off the CPU's ({tuple(g.shape)}, "
+                 f"max |d| / max |h| = {(g - w).abs().max().item() / scale:.3g})")
+    return worst
+
+
+def sv_ssl(root: Path, wav_np):
+    """19b. WavLM-Large and a HuBERT base layout at published widths from
+    numpy draws, written as transformers state dicts and loaded through
+    load_ssl_upstream: every hidden state on the card against the CPU's
+    (1 x 4 s) and against float64 on the card (1 x 10 s, no more than
+    F64_RATIO x the CPU fp32's error); ms per 10 s utterance and a
+    torch.profiler split; then ECAPA over the WavLM-Large frontend (1024
+    mels, 25 layer weights) on 4 x 3 s against the CPU. Returns (rows, the
+    WavLM-Large file)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models import ecapa_tdnn as E
+    from audiotokenization_tpu_torch.models import wav2vec2 as V
+    from audiotokenization_tpu_torch.models import wavlm as W
+
+    rows, large_file = {}, None
+    rng = np.random.RandomState(23)
+    x4 = torch.from_numpy((rng.randn(1, SSL_CPU_SECONDS * SR) * 0.1).astype(np.float32))
+    x10 = torch.from_numpy((rng.randn(1, SSL_F64_SECONDS * SR) * 0.1).astype(np.float32))
+    for name, family, shape, seed in (("wavlm_large", "wavlm", WAVLM_LARGE, 1),
+                                      ("hubert_base", "hubert", HUBERT_BASE, 2)):
+        sd = ssl_hf_state_dict(family, shape, seed)
+        path = root / f"{name}.bin"
+        t0 = time.perf_counter()
+        torch.save(sd, path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn, cfg = V.load_ssl_upstream(torch.load(path, map_location="cpu", weights_only=True),
+                                      family)
+        load_s = time.perf_counter() - t0
+        fn_cpu, _ = V.load_ssl_upstream(sd, family, device="cpu")
+        del sd
+        if any(getattr(cfg, k) != v for k, v in shape.items()):
+            fail(f"{name}: the config inferred from its state dict, {cfg}, is not {shape}")
+        with torch.no_grad(), C.full_fp32():
+            got = [h.cpu() for h in fn(x4.cuda())]
+            want = fn_cpu(x4)
+            err4 = hold_hiddens(f"{name} 1 x {SSL_CPU_SECONDS} s", got, want)
+            got10 = [h.cpu() for h in fn(x10.cuda())]
+            cpu10 = fn_cpu(x10)
+            conv_card = W.feature_encoder(fn.model, x10.cuda()).cpu()
+            conv_cpu = W.feature_encoder(fn_cpu.model, x10)
+        m64 = copy.deepcopy(fn_cpu.model).double().cuda()
+        with torch.no_grad():
+            ref = [h.cpu() for h in W.encoder_apply(m64, x10.double().cuda())]
+            conv_ref = W.feature_encoder(m64, x10.double().cuda()).cpu()
+        del m64
+        card_errs = [(g.double() - r).abs().max().item() for g, r in zip(got10, ref)]
+        cpu_errs = [(c.double() - r).abs().max().item() for c, r in zip(cpu10, ref)]
+        card_err, cpu_err = max(card_errs), max(cpu_errs)
+        conv_ratio = ((conv_card.double() - conv_ref).abs().max().item()
+                      / (conv_cpu.double() - conv_ref).abs().max().item())
+        print(f"{name}: max |card - cpu| / max |h| = {err4:.3g} at {SSL_CPU_SECONDS} s; at "
+              f"{SSL_F64_SECONDS} s max |card - f64| = {card_err:.3g}, max |cpu32 - f64| = "
+              f"{cpu_err:.3g}")
+        if card_err > F64_RATIO * cpu_err:
+            fail(f"{name} at {SSL_F64_SECONDS} s: {card_err:.3g} off float64 on the card, more "
+                 f"than {F64_RATIO:g}x the CPU fp32's {cpu_err:.3g}")
+        x10c = x10.cuda()
+
+        def run():
+            with torch.no_grad(), C.full_fp32():
+                return fn(x10c)
+
+        def conv_encoder():
+            with torch.no_grad(), C.full_fp32():
+                return W.feature_encoder(fn.model, x10c)
+
+        row = {"family": family, "config": {k: getattr(cfg, k) for k in shape},
+               "parameters": sum(p.numel() for p in fn.model.parameters()),
+               "frames_10s": got10[0].shape[1], "hidden_states": len(got10),
+               "max_rel_err_vs_cpu": err4, "max_abs_err_card_vs_f64": card_err,
+               "max_abs_err_cpu32_vs_f64": cpu_err, "ratio": card_err / cpu_err,
+               "ratio_by_hidden_state": [a / b for a, b in zip(card_errs, cpu_errs)],
+               "conv_encoder_ratio": conv_ratio,
+               "ms_per_10s_utterance": cuda_ms(run, iters=3),
+               "conv_encoder_event_ms": cuda_ms(conv_encoder, iters=3),
+               "state_dict_write_s": write_s, "load_s": load_s, "profile": ssl_split(run)}
+        if family == "wavlm":
+            large_file = path
+            layers = cfg.num_hidden_layers + 1
+            ecapa_cpu = E.init_ecapa_tdnn(torch.Generator().manual_seed(0),
+                                          n_mels=cfg.hidden_size, device="cpu")
+            ecapa_card = copy.deepcopy(ecapa_cpu).cuda()
+            fw = torch.from_numpy(np.random.RandomState(29).randn(layers).astype(np.float32))
+            wav_cpu = torch.from_numpy(wav_np)
+            wav = wav_cpu.cuda()
+            got = ecapa_embed(ecapa_card, wav, "ssl", ssl_fn=fn, feature_weight=fw.cuda()).cpu()
+            want = ecapa_embed(ecapa_cpu, wav_cpu, "ssl", ssl_fn=fn_cpu, feature_weight=fw)
+            ms = cuda_ms(lambda: ecapa_embed(ecapa_card, wav, "ssl", ssl_fn=fn,
+                                             feature_weight=fw.cuda()), iters=3)
+            row["ecapa"] = {"n_mels": cfg.hidden_size, "layer_weights": layers,
+                            "max_abs_err_vs_cpu": hold_embeddings(f"ECAPA over {name}", got, want),
+                            "max_abs_emb": want.abs().max().item(),
+                            "ms_per_utterance": ms / SV_B, "batch_ms": ms}
+            del ecapa_card
+        rows[name] = row
+        del fn, fn_cpu
+        torch.cuda.empty_cache()
+    return rows, large_file
+
+
+def sv_codec_leg(cfg, wav_np, models):
+    """19c. Phase 5's flagship codec tokenizes and decodes 4 x 3 s (K1 1 /
+    K2 15 a tokenize, K2 15 a decode); the fbank ECAPA of 19a scores each
+    original against its reconstruction on the card, no launch, within
+    SV_TOL of the CPU's on the same waveforms."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.models import ecapa_tdnn as E
+
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    codec = seeded_codec(cfg)
+    wav = torch.from_numpy(wav_np).cuda()
+    t0 = time.perf_counter()
+    codes, tok = counted(lambda: C.tokenize(codec, wav, mode="conformant"))
+    recon, dec = counted(lambda: offline_decode(codec, codes))
+    cpu_model, card_model = models["fbank"]
+    sim, score = counted(lambda: E.speaker_similarity(card_model, wav, recon[:, 0]))
+    wall_s = time.perf_counter() - t0
+    expect_launches("phase 19 codec leg: tokenize", tok, (nq, n_units))
+    expect_launches("phase 19 codec leg: decode", dec, (0, n_units))
+    expect_launches("phase 19 codec leg: scoring", score, (0, 0))
+    if tuple(recon.shape) != (SV_B, 1, SV_SECONDS * SR) or not torch.isfinite(recon).all():
+        fail(f"phase 19 codec leg: reconstruction {tuple(recon.shape)}")
+    sim = sim.cpu()
+    want = E.speaker_similarity(cpu_model, wav.cpu(), recon[:, 0].cpu())
+    err = (sim - want).abs().max().item()
+    print(f"codec leg similarities {sim.tolist()}, the CPU's {want.tolist()}")
+    if not torch.isfinite(sim).all() or err > SV_TOL:
+        fail(f"phase 19 codec leg: similarities off the CPU's by {err:.3g}")
+    score_ms = cuda_ms(lambda: E.speaker_similarity(card_model, wav, recon[:, 0]), iters=5)
+    del codec
+    torch.cuda.empty_cache()
+    return {"similarity": sim.tolist(), "similarity_cpu": want.tolist(),
+            "max_abs_err_vs_cpu": err, "score_ms": score_ms, "wall_s": wall_s,
+            "launches": {"vq_argmin": tok[0] + dec[0], "residual_unit": tok[1] + dec[1]},
+            "launches_per_tokenize": {"vq_argmin": tok[0], "residual_unit": tok[1]},
+            "launches_per_decode": {"vq_argmin": dec[0], "residual_unit": dec[1]}}, recon
+
+
+def sv_cli(root: Path, wav_np, recon, large_file):
+    """19d. cli.verification --smoke on WAVs of an original and its
+    reconstruction (16 kHz, and both resampled to 22.05 kHz): fbank on both
+    pairs, MFCC at 22.05 kHz, and --feat_type ssl --ssl_family wavlm_large
+    on 19b's file, each within SV_TOL of the same run with --device cpu, no
+    launch; wall times."""
+    import torch
+    from audiotokenization_tpu_torch.cli import verification
+    from audiotokenization_tpu_torch.data.audio_io import write_wav
+    from audiotokenization_tpu_torch.ops.resample import resample
+
+    orig, rec = wav_np[0], recon[0, 0].cpu().numpy()
+    pairs = {}
+    for rate in (SR, 22050):
+        paths = []
+        for tag, x in (("orig", orig), ("recon", rec)):
+            p = root / f"{tag}_{rate}.wav"
+            write_wav(p, x if rate == SR else resample(torch.from_numpy(x), SR, rate).numpy(),
+                      rate)
+            paths.append(str(p))
+        pairs[rate] = paths
+    runs = (("fbank", SR, []), ("fbank", 22050, []), ("mfcc", 22050, ["--feat_type", "mfcc"]),
+            ("ssl_wavlm_large", SR, ["--feat_type", "ssl", "--ssl_family", "wavlm_large",
+                                     "--ssl_checkpoint", str(large_file)]))
+    rows = []
+    for name, rate, extra in runs:
+        argv = ["--wav1", pairs[rate][0], "--wav2", pairs[rate][1], "--smoke", *extra]
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: verification.main(argv))
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = verification.main(argv + ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        expect_launches(f"cli.verification {name} at {rate} Hz", launches, (0, 0))
+        err = abs(got["similarity"] - want["similarity"])
+        if got["trained_weights"] or err > SV_TOL or not -1.0 <= got["similarity"] <= 1.0:
+            fail(f"cli.verification {name} at {rate} Hz: {got} on the card, {want} on the CPU")
+        rows.append({"feat": name, "rate": rate, "similarity": got["similarity"],
+                     "similarity_cpu": want["similarity"], "abs_err_vs_cpu": err,
+                     "card_wall_s": card_s, "cpu_wall_s": cpu_s})
+    return {"runs": rows, "launches": {"vq_argmin": 0, "residual_unit": 0}}
+
+
+def speaker_verification_path(cfg, card):
+    """19. Speaker verification (models/ecapa_tdnn.py, models/wavlm.py,
+    models/wav2vec2.py, cli/verification.py) at full width on random weights
+    from seed 0: 19a-d. Prints the speaker_verification line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sv_", dir=build_dir))
+    wav_np = sv_wavs()
+    out = {"utterances": SV_B, "seconds": SV_SECONDS}
+    try:
+        out["ecapa"], models = sv_ecapa(wav_np)
+        out["ssl"], large_file = sv_ssl(root, wav_np)
+        out["codec_leg"], recon = sv_codec_leg(cfg, wav_np, models)
+        out["cli"] = sv_cli(root, wav_np, recon, large_file)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"speaker_verification": out, "card": card}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4592,10 +5072,15 @@ def main() -> int:
     token_lm = token_lm_path(cfg, card)
     causal_train = causal_train_path(card)
     print(json.dumps({"phase_18_s": time.perf_counter() - t0, "card": card}))
+    t0 = time.perf_counter()
+    sv = speaker_verification_path(cfg, card)
+    print(json.dumps({"phase_19_s": time.perf_counter() - t0, "card": card}))
 
     def path_launches(kernel):
-        """A kernel's launches per call on the paths of phases 10-18."""
+        """A kernel's launches per call on the paths of phases 10-19."""
         return {
+            "speaker_verification_cli_per_call": sv["cli"]["launches"][kernel],
+            "speaker_verification_codec_leg": sv["codec_leg"]["launches"][kernel],
             "token_lm_train_per_step": token_lm["train"]["launches_per_step"][kernel],
             "token_lm_synthesize_per_call": token_lm["cli"]["synthesize_launches"][kernel],
             "causal_train_per_step": causal_train["train"]["launches_per_step"][kernel],
@@ -4686,7 +5171,9 @@ def main() -> int:
                               "the token LM's step over the frozen flagship's tokens (16 x 1 "
                               "s); token_lm_synthesize_per_call: cli.synthesize --lm_ckpt "
                               "(2 x 2 s); causal_train_per_step: the causal flagship's bf16 "
-                              "step; K2's "
+                              "step; speaker_verification_cli_per_call: cli.verification (fbank, "
+                              "MFCC, WavLM-Large); speaker_verification_codec_leg: phase 19's "
+                              "tokenize + decode of 4 x 3 s before the ECAPA scoring; K2's "
                               "semantic_path: summed over the semantic codec's 30 units "
                               "(C 16-256) at 32 x 1 s"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

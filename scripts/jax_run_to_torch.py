@@ -23,6 +23,13 @@ the port's ``cli/train_token_lm.py::load_token_lm`` and ``cli/synthesize.py
 
     python scripts/jax_run_to_torch.py --jax_run runs/jax_lm --out runs/torch_lm --token_lm 8194
 
+With ``--ecapa``, ``--jax_run`` is a JAX Orbax ECAPA-TDNN checkpoint (the
+JAX ``cli/verification.py``'s ``--checkpoint``) and ``--out`` the ``.pt``
+to write: ``models/ecapa_tdnn.py::EcapaTdnn``'s state dict, no numeric
+change, which the port's ``cli/verification.py --checkpoint`` reads.
+
+    python scripts/jax_run_to_torch.py --jax_run ecapa_ckpt --out ecapa.pt --ecapa
+
 Unlike the port, this script imports the JAX package (and so jax), as the
 tests do.
 """
@@ -89,15 +96,43 @@ def convert_token_lm_run(jax_run, out, vocab_size: int) -> Path:
     return target
 
 
+def convert_ecapa(jax_ckpt, out) -> Path:
+    """Write the port's ``EcapaTdnn`` state dict ``out`` from the Orbax
+    checkpoint ``jax_ckpt`` of a JAX ECAPA-TDNN parameter tree; returns
+    ``out``. Raises if the tree does not load into ``EcapaTdnn``."""
+    import jax
+    import numpy as np
+    import orbax.checkpoint as ocp
+    import torch
+
+    from audiotokenization_tpu_torch.convert import params_from_jax
+    from audiotokenization_tpu_torch.models.ecapa_tdnn import ecapa_from_state_dict
+
+    tree = ocp.StandardCheckpointer().restore(Path(jax_ckpt).resolve())
+    sd = params_from_jax(jax.tree.map(np.asarray, tree))
+    ecapa_from_state_dict(sd, device="cpu")  # every key in place, every shape right
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, out)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--jax_run", required=True, help="JAX run dir (config.json + ckpt/)")
-    p.add_argument("--out", required=True, help="the port's run dir to write")
+    p.add_argument("--jax_run", required=True,
+                   help="JAX run dir (config.json + ckpt/), or with --ecapa an Orbax "
+                        "ECAPA-TDNN checkpoint")
+    p.add_argument("--out", required=True,
+                   help="the port's run dir to write, or with --ecapa the .pt file")
     p.add_argument("--token_lm", type=int, default=0, metavar="VOCAB_SIZE",
                    help="the run dir is a token-LM run of this vocabulary (codebook + 2)")
+    p.add_argument("--ecapa", action="store_true",
+                   help="--jax_run is an Orbax ECAPA-TDNN checkpoint; write its state dict")
     args = p.parse_args(argv)
-    if args.token_lm:
+    if args.ecapa:
+        print(convert_ecapa(args.jax_run, args.out))
+    elif args.token_lm:
         print(convert_token_lm_run(args.jax_run, args.out, args.token_lm))
     else:
         print(convert_run(args.jax_run, args.out))

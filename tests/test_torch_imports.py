@@ -42,4 +42,5 @@ def test_scan_sees_the_port():
             "logging.py", "ragged.py", "train.py", "pesq_p862.py", "pesq_tables.py",
             "convert.py", "extract_indices.py", "inference_full.py", "synthesize.py",
             "streaming.py", "alias_free.py", "chunked.py", "sp.py", "transformer.py",
-            "conformer.py"} <= names
+            "conformer.py", "ecapa_tdnn.py", "wavlm.py", "wav2vec2.py", "verification.py",
+            "aux_blocks.py", "tome.py"} <= names
