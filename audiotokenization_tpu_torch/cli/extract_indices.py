@@ -35,8 +35,16 @@ A ``concat_semantic`` checkpoint's tokens depend on the teacher:
 ``--semantic_dir`` (required for it) holds each file's precomputed teacher
 output (``<fileid>.npy``, (1024, Tf), ``cli/precompute_semantic.py``),
 zero-padded or trimmed to the file's frames and, on the ragged route,
-zero past them in its row. Sequence and tensor parallelism raise
-``NotImplementedError``.
+zero past them in its row.
+
+``--sequence_parallel`` tokenizes each file sharded by time over every
+visible card (``parallel/sp.py``, the exact halo + LSTM relay tokenizer;
+``parallel/mesh.py::visible_devices``), token for token the plain path;
+``balanced`` has no such form and runs as conformant. ``--tensor_parallel
+[N]`` splits a Conformer's attention and FFN weights over N cards (bare:
+every visible card; ``parallel/tp.py``). Both take the per-file route
+(each hop-padded file alone); they exclude each other, and
+``--semantic_dir`` turns them off, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -74,9 +82,11 @@ def build_argparser():
                         "cli/precompute_semantic.py); required for concat_semantic "
                         "checkpoints (tokens depend on the teacher)")
     p.add_argument("--sequence_parallel", action="store_true",
-                   help="shard each utterance across devices (not ported)")
+                   help="shard each utterance across every visible card (parallel/sp.py exact "
+                        "halo + LSTM-relay tokenizer); token-identical to one device")
     p.add_argument("--tensor_parallel", type=int, nargs="?", const=-1, default=0, metavar="N",
-                   help="shard conformer weights over N devices (not ported)")
+                   help="conformer checkpoints: shard the attention/FFN weights over an "
+                        "N-device model axis (parallel/tp.py); bare flag = every visible card")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     return p
@@ -125,10 +135,48 @@ def parse_fileid(fileid: str):
     return "unknown", "unknown"
 
 
-def _refuse_unported(args):
-    if args.sequence_parallel or args.tensor_parallel:
-        raise NotImplementedError("--sequence_parallel and --tensor_parallel are not ported yet "
-                                  "(ROADMAP Queue 1 item 18)")
+def parallel_tokenizer(args, cfg, codec, device):
+    """``fn(wav (T,)) -> codes (Nq, T // hop)`` for ``--sequence_parallel``
+    or ``--tensor_parallel`` (after the JAX CLI's notes and exits), else
+    None."""
+    from ..parallel import mesh
+
+    if args.sequence_parallel and args.semantic_dir:
+        print("note: --semantic_dir has no sequence-parallel path (the "
+              "teacher target is per-frame); ignoring --sequence_parallel")
+        args.sequence_parallel = False
+    if args.sequence_parallel and args.exact:
+        print("note: --sequence_parallel zero-pads to its chunk bucket and "
+              "floors to T//hop frames; the --exact length contract does "
+              "not apply on this path")
+    if args.tensor_parallel and args.sequence_parallel:
+        raise SystemExit("--tensor_parallel and --sequence_parallel shard "
+                         "different axes of the same devices; pick one")
+    if args.tensor_parallel and args.semantic_dir:
+        print("note: --semantic_dir has no tensor-parallel path; ignoring "
+              "--tensor_parallel")
+        args.tensor_parallel = 0
+    if args.sequence_parallel:
+        from ..parallel.sp import make_sp_tokenizer
+
+        sp_mode = "conformant" if args.mode == "balanced" else args.mode
+        if sp_mode != args.mode:
+            print(f"note: --mode {args.mode} has no sequence-parallel "
+                  f"variant; using {sp_mode}")
+        tok = make_sp_tokenizer(cfg, mesh.visible_devices(device), mode=sp_mode)
+        return lambda wav: tok(codec, wav)
+    if args.tensor_parallel:
+        from ..parallel.tp import make_dp_tp_mesh, tp_tokenize
+
+        cards = mesh.visible_devices(device)
+        tp_n = len(cards) if args.tensor_parallel < 0 else args.tensor_parallel
+        if tp_n > len(cards):
+            raise SystemExit(f"--tensor_parallel {tp_n} exceeds the {len(cards)} attached devices")
+        # per-file batches are B = 1: the grid spans exactly tp_n devices
+        # (one data row)
+        run = tp_tokenize(codec, cfg, make_dp_tp_mesh(tp_n, cards[:tp_n]), mode=args.mode)
+        return lambda wav: run(wav[None])[:, 0]
+    return None
 
 
 def load_semantic_target(sem_dir: Path, fileid: str, frames: int) -> np.ndarray:
@@ -162,7 +210,6 @@ def main(argv=None):
     from ..utils.ragged import make_ragged_tokenizer
 
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
     device = C.resolve_device(args.device)
     cfg, codec = load_model(args.save_path, device=device)
     concat = cfg.train.use_semantic and cfg.train.concat_semantic
@@ -180,7 +227,8 @@ def main(argv=None):
     # int16 is the reference's contract; larger codebooks would overflow it
     dtype = np.int16 if cfg.model.codec_decoder.codebook_size <= 32767 else np.int32
     C.check_mode(type(codec.encoder), args.mode)
-    per_file = args.exact or C.uses_moe(cfg)
+    parallel = parallel_tokenizer(args, cfg, codec, device)
+    per_file = args.exact or C.uses_moe(cfg) or parallel is not None
     ragged = None if per_file else make_ragged_tokenizer(cfg, mode=args.mode, device=device)
     quantum = max(args.sample_rate // hop * hop, hop)
     split = {"read_s": 0.0, "resample_s": 0.0, "device_s": 0.0, "save_s": 0.0}
@@ -279,9 +327,12 @@ def main(argv=None):
             else:
                 t0 = time.perf_counter()
                 x = torch.from_numpy(np.asarray(wav, np.float32))[None].to(device)
-                codes = C.tokenize(codec, x, mode=args.mode, semantic_target=(
-                    None if sem is None else torch.from_numpy(sem)[None].to(device)))
-                codes = codes.cpu().numpy()[:, 0]
+                if parallel is not None:
+                    codes = parallel(x[0]).cpu().numpy()
+                else:
+                    codes = C.tokenize(codec, x, mode=args.mode, semantic_target=(
+                        None if sem is None else torch.from_numpy(sem)[None].to(device)))
+                    codes = codes.cpu().numpy()[:, 0]
                 split["device_s"] += time.perf_counter() - t0
                 stats["device_batches"] += 1
                 save_one(subset, fileid, codes)

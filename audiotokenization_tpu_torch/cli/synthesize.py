@@ -3,7 +3,8 @@
 
     python -m audiotokenization_tpu_torch.cli.synthesize --codec_ckpt runs/my_run \\
         --random [--seconds 2 --num_samples 2 --seed 0 --out_dir synthesized] \\
-        [--streaming CHUNK_FRAMES] [--device cpu]
+        [--streaming CHUNK_FRAMES | --sequence_parallel | --pipeline_parallel N] \\
+        [--device cpu]
 
     python -m audiotokenization_tpu_torch.cli.synthesize --codec_ckpt runs/my_run \\
         --lm_ckpt runs/token_lm [--temperature 1.0 ...]
@@ -23,8 +24,12 @@ and written as ``sample_<i>.wav`` and the tokens as int16 ``tokens.npy``.
 reads. ``--streaming CHUNK_FRAMES`` (causal checkpoints) decodes through
 the streaming synthesizer in chunks of that many frames
 (``models/streaming.py::stream_decode``, equal to the plain decode to fp32
-rounding). Sequence and pipeline parallelism are not ported and raise
-``NotImplementedError``.
+rounding). ``--sequence_parallel`` decodes each sample sharded by frames
+over every visible card (``parallel/sp.py::make_sp_synthesizer``; the
+non-causal BigCodec decoder), ``--pipeline_parallel N`` pipelines a
+Conformer decoder's backbone over N cards with one microbatch a sample
+(``parallel/pp.py::pp_synthesize``); both equal the plain decode to fp32
+rounding. The three modes exclude each other.
 """
 from __future__ import annotations
 
@@ -60,8 +65,12 @@ def main(argv=None):
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out_dir", type=str, default="synthesized")
-    p.add_argument("--sequence_parallel", action="store_true", help="not ported")
-    p.add_argument("--pipeline_parallel", type=int, default=0, metavar="N", help="not ported")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="shard each sample's decode across every visible card "
+                        "(parallel/sp.py halo + LSTM-relay synthesizer)")
+    p.add_argument("--pipeline_parallel", type=int, default=0, metavar="N",
+                   help="conformer decoders: pipeline the backbone over N stage devices "
+                        "(parallel/pp.py GPipe schedule; n_layers must divide by N)")
     p.add_argument("--streaming", type=int, default=0, metavar="CHUNK_FRAMES",
                    help="causal checkpoints: decode through the streaming synthesizer "
                         "in CHUNK_FRAMES-frame chunks")
@@ -72,9 +81,6 @@ def main(argv=None):
     if sum(map(bool, (args.sequence_parallel, args.pipeline_parallel, args.streaming))) > 1:
         raise SystemExit("--sequence_parallel / --pipeline_parallel / --streaming are "
                          "distinct execution modes; pick one")
-    if args.sequence_parallel or args.pipeline_parallel:
-        raise NotImplementedError("--sequence_parallel and --pipeline_parallel are not ported "
-                                  "yet (ROADMAP Queue 1 item 18)")
     if not (args.random or args.lm_ckpt):
         raise SystemExit("no --lm_ckpt given; pass --random for uniform tokens")
 
@@ -106,6 +112,21 @@ def main(argv=None):
         # tokens (B, Tf) -> the stream layout (Nq = 1, B, Tf)
         wav = stream_decode(codec, tokens[None].to(device), chunk_frames=args.streaming,
                             device=device).cpu().numpy()
+    elif args.sequence_parallel:
+        from ..parallel.mesh import visible_devices
+        from ..parallel.sp import make_sp_synthesizer
+
+        syn = make_sp_synthesizer(cfg, visible_devices(device))
+        wav = torch.stack([syn(codec, tokens[i][None]) for i in range(args.num_samples)])
+        wav = wav.cpu().numpy()
+    elif args.pipeline_parallel:
+        from ..parallel.mesh import visible_devices
+        from ..parallel.pp import make_pipe_mesh, pp_synthesize
+
+        syn = pp_synthesize(codec, cfg, make_pipe_mesh(args.pipeline_parallel,
+                                                       visible_devices(device)),
+                            n_micro=max(args.num_samples, 1))
+        wav = syn(tokens[None]).cpu().numpy()
     else:
         wav = decode_tokens(codec, tokens.to(device)).cpu().numpy()
     out = Path(args.out_dir)

@@ -19,6 +19,9 @@ mask (its zero padding is the batch's zero tail), the backbone masks, the
 ISTFT takes each sample's own envelope. The FFTs run in fp32 whatever the
 parameters' dtype; the backbone runs in the parameters' dtype.
 
+Both take ``backbone_fn``, a replacement for the sequential backbone: the
+hook ``parallel/pp.py`` runs the layers through as a GPipe pipeline.
+
 ``ffn_type: moe`` (configs/conformer_moe.yaml) makes the encoder's FFNs
 MoE layers (``ops/moe.py``); the encoder's ``forward`` then appends their
 aux losses to its ``aux`` list. The decoder's FFNs are dense whatever its
@@ -106,13 +109,24 @@ def encode_output(p: ConformerEncoder, h):
     return h.transpose(1, 2)
 
 
-def conformer_encode(p: ConformerEncoder, x, *, valid=None, aux=None):
+def _run_backbone(h, backbone, *, valid, aux, backbone_fn):
+    if backbone_fn is None:
+        return conformer_backbone(h, backbone, valid=valid, aux=aux)
+    if valid is not None:
+        raise ValueError("a backbone_fn takes no ragged valid frame counts")
+    return backbone_fn(h, backbone)
+
+
+def conformer_encode(p: ConformerEncoder, x, *, valid=None, aux=None, backbone_fn=None):
     """x (B, 1, T) -> latents (B, out_channels, T / hop); ``valid``: (B,)
     frame counts of a ragged batch (latents past them are meaningless);
-    ``aux``: the list the MoE layers append their aux losses to."""
+    ``aux``: the list the MoE layers append their aux losses to.
+    ``backbone_fn``: a (h (B, T, dim), backbone) -> h replacement for the
+    sequential backbone, the hook ``parallel/pp.py`` pipelines it through."""
     spec = stft_same_constant_pad(x[:, 0], n_fft=p.n_fft, hop_length=p.hop_length,
                                   win_length=p.window_size)
-    h = conformer_backbone(encode_features(p, spec), p.backbone, valid=valid, aux=aux)
+    h = _run_backbone(encode_features(p, spec), p.backbone, valid=valid, aux=aux,
+                      backbone_fn=backbone_fn)
     return encode_output(p, h)
 
 
@@ -149,14 +163,16 @@ def head_spectrum(p: ConformerDecoder, h):
     return torch.complex(mag * torch.cos(phase).float(), mag * torch.sin(phase).float())
 
 
-def conformer_decode(p: ConformerDecoder, x, *, valid=None):
+def conformer_decode(p: ConformerDecoder, x, *, valid=None, backbone_fn=None):
     """x (B, in_channels, Tf) -> (B, 1, Tf · hop); ``valid``: (B,) frame
     counts of a ragged batch (pad frames add nothing to the overlap-add,
-    each sample's envelope is its own)."""
+    each sample's envelope is its own); ``backbone_fn`` as in
+    ``conformer_encode``."""
     h = x.transpose(1, 2)
     if hasattr(p, "input_proj"):
         h = pointwise(h, p.input_proj)
-    h = rms_norm(conformer_backbone(h, p.backbone, valid=valid), p.norm)
+    h = rms_norm(_run_backbone(h, p.backbone, valid=valid, aux=None, backbone_fn=backbone_fn),
+                 p.norm)
     spec = head_spectrum(p, h).transpose(1, 2)
     return istft_same(spec, n_fft=p.n_fft, hop_length=p.hop_length, win_length=p.n_fft,
                       valid=valid)[:, None, :]

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tp import constrain_heads, tp_model_shards, tp_shard
 from .conv import init_linear, kaiming_uniform_fan_in
 
 
@@ -129,11 +130,25 @@ def dispatch(xt, r: Routing):
     return buf[:-1].reshape(E, r.capacity, d), token, flat, r.gates.reshape(-1) * keep
 
 
-def experts_apply(buf, p: MoEFeedForward):
-    """Every expert's SwiGLU over its slots: (E, C, d) -> (E, C, d)."""
-    w1, w2, w3 = (w.to(buf.dtype) for w in (p.w1, p.w2, p.w3))
+def _swiglu_experts(buf, w1, w2, w3):
+    w1, w2, w3 = (w.to(buf.dtype) for w in (w1, w2, w3))
     h = F.silu(torch.bmm(buf, w1.transpose(1, 2))) * torch.bmm(buf, w3.transpose(1, 2))
     return torch.bmm(h, w2.transpose(1, 2))
+
+
+def experts_apply(buf, p: MoEFeedForward):
+    """Every expert's SwiGLU over its slots: (E, C, d) -> (E, C, d). Under
+    a TP context (``parallel/tp.py``) the experts are split over the model
+    devices, each running its share's slots on its device (expert
+    parallelism; an expert's output is computed whole, so the numbers are
+    the same)."""
+    n = tp_model_shards()
+    if not n:
+        return _swiglu_experts(buf, p.w1, p.w2, p.w3)
+    outs = [_swiglu_experts(constrain_heads(part, s), *(tp_shard(w, 0, s)
+                                                        for w in (p.w1, p.w2, p.w3)))
+            for s, part in enumerate(torch.tensor_split(buf, n))]
+    return torch.cat([o.to(buf.device) for o in outs])
 
 
 def combine(expert_out, token, flat, gates, n_tokens: int):

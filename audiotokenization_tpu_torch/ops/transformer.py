@@ -42,8 +42,13 @@ as a GShard MoE with the backbone's (``moe_top_k``,
 ``moe_capacity_factor``), pad frames under ``valid`` claiming no expert
 slot; ``conformer_layer`` / ``conformer_backbone`` append each MoE layer's
 aux losses to the ``aux`` list a caller passes (the JAX package collects
-them through a thread-local context instead). Remat and the
-tensor/pipeline parallel hooks are not ported.
+them through a thread-local context instead). Remat is not ported.
+
+Tensor parallelism (``parallel/tp.py``): inside its context
+``self_attention`` splits the heads and ``feed_forward`` the SwiGLU
+hidden width over the model devices, each with a row-parallel sum;
+outside one they run as above. The pipeline's hook is
+``models/conformer.py``'s ``backbone_fn``.
 """
 from __future__ import annotations
 
@@ -54,6 +59,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tp import (constrain_heads, row_parallel_sum, tp_model_shards, tp_qkv_heads,
+                           tp_shard)
 from .conv import causal_conv1d, conv1d, get_weight, init_conv1d, init_linear, linear, pointwise
 from .moe import MoEFeedForward, moe_ffn
 
@@ -168,20 +175,36 @@ class Attention(nn.Module):
         self.out = init_linear(dim, dim, bias=False, generator=generator)
 
 
-def qkv_heads(x, p: Attention, cos, sin, n_head: int):
+def qkv_heads(x, p: Attention, cos, sin, n_head: int, shard: int | None = None):
     """x (B, T, C) -> q, k, v (B, T, H, D): q and k RMS-normed (no weight)
-    and rotated."""
+    and rotated. ``shard``: under a TP context, only that model shard's
+    H / n heads, on its device (``parallel/tp.py::tp_qkv_heads``)."""
     B, T, C = x.shape
-    q, k, v = linear(x, p.qkv).reshape(B, T, 3, n_head, C // n_head).unbind(2)
+    if shard is None:
+        q, k, v = linear(x, p.qkv).reshape(B, T, 3, n_head, C // n_head).unbind(2)
+    else:
+        q, k, v = tp_qkv_heads(x, get_weight(p.qkv), n_head, shard).unbind(2)
     return apply_rope(rms_norm(q), cos, sin), apply_rope(rms_norm(k), cos, sin), v
 
 
 def self_attention(x, p: Attention, cos, sin, *, n_head: int, bias=None,
                    causal: bool = False):
-    """x (B, T, C) -> (B, T, C); ``bias`` from ``attention_bias``."""
+    """x (B, T, C) -> (B, T, C); ``bias`` from ``attention_bias``. Under a
+    TP context each model shard attends with its heads on its device and
+    applies its columns of ``out``; the partial sums are added in order
+    (``parallel/tp.py``)."""
     B, T, C = x.shape
-    q, k, v = qkv_heads(x, p, cos, sin, n_head)
-    return linear(attend(q, k, v, bias, causal=causal).reshape(B, T, C), p.out)
+    n = tp_model_shards(n_head)
+    if not n:
+        q, k, v = qkv_heads(x, p, cos, sin, n_head)
+        return linear(attend(q, k, v, bias, causal=causal).reshape(B, T, C), p.out)
+    partials = []
+    for s in range(n):
+        q, k, v = qkv_heads(x, p, constrain_heads(cos, s), constrain_heads(sin, s), n_head,
+                            shard=s)
+        o = attend(q, k, v, constrain_heads(bias, s), causal=causal)
+        partials.append(F.linear(o.reshape(B, T, C // n), tp_shard(get_weight(p.out), 1, s)))
+    return row_parallel_sum(partials)
 
 
 def swiglu_hidden_dim(dim: int, mult: int = 4) -> int:
@@ -199,8 +222,19 @@ class FeedForward(nn.Module):
 
 
 def feed_forward(x, p: FeedForward):
-    """SwiGLU: w2(silu(w1 x) · w3 x), x (..., C)."""
-    return linear(F.silu(linear(x, p.w1)) * linear(x, p.w3), p.w2)
+    """SwiGLU: w2(silu(w1 x) · w3 x), x (..., C). Under a TP context each
+    model shard takes its rows of w1 and w3 and its columns of w2, and the
+    partial sums are added in order (``parallel/tp.py``)."""
+    n = tp_model_shards()
+    if not n:
+        return linear(F.silu(linear(x, p.w1)) * linear(x, p.w3), p.w2)
+    partials = []
+    for s in range(n):
+        xs = constrain_heads(x, s)
+        h = (F.silu(F.linear(xs, tp_shard(get_weight(p.w1), 0, s)))
+             * F.linear(xs, tp_shard(get_weight(p.w3), 0, s)))
+        partials.append(F.linear(h, tp_shard(get_weight(p.w2), 1, s)))
+    return row_parallel_sum(partials)
 
 
 class ConformerConvModule(nn.Module):

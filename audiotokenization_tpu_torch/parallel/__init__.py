@@ -1,1 +1,3 @@
-"""Parallel paths (``parallel/sp.py``: the anti-aliasing window helpers)."""
+"""Parallel serving paths over a list of devices (``mesh.py``): sequence
+parallelism for the BigCodec (``sp.py``), tensor and pipeline parallelism
+for the Conformer (``tp.py``, ``pp.py``)."""

@@ -273,6 +273,34 @@ Phases, each fatal on failure:
     --feat_type ssl --ssl_family wavlm_large on (b)'s file), each within
     1e-4 of the same run with --device cpu, no launch, wall times. Prints
     the speaker_verification line and phase_19_s.
+20. the parallel serving paths (parallel_path), their devices the one card
+    listed several times ([cuda:0] * n: one codec copy, each shard queued
+    on it in turn, no speedup to show): (a) on phase 5's flagship weights,
+    one seeded 60 s file through parallel/sp.py's exact tokenizer over 4
+    shards and over 1, each against one-device tokenize (tokens but at
+    top-2 gaps under 1e-5), K1 1 / K2 15 a shard; lstm="reset" and
+    mode="fast" over 4, their agreement with the conformant tokens printed
+    and held above 0.9 (the CPU tests' rule); ms a call beside one-device
+    tokenize and tokenize_chunked at 10 s; K1 at a shard's 1,200 frames
+    against its plain version, K2 at the 15 encoder and 15 decoder window
+    shapes (B = 1, C 48-768) against its plain version and float64 as in
+    phase 4; (b) make_sp_synthesizer of those 4,800 frames over 4 shards
+    (K2 60) against one-device decode (rtol 1e-3 / atol 2e-5); (c)
+    configs/bigcodec_antialias.yaml: SP tokenize and synthesize of 10 s
+    against one-device (K1 4, K2 0); (d) configs/conformer.yaml at 4 x
+    10 s: tp_tokenize over 2 and 4 model shards, pp_tokenize and
+    pp_synthesize over 2 and 3 stages with 4 microbatches, against
+    one-device tokenize and decode (K1 1 / K2 0 a tokenize, none a
+    synthesize), ms beside one-device; configs/conformer_moe.yaml under TP
+    2, its routing compared layer by layer with one device's
+    (routing_differences) and its tokens where no difference reached the
+    request; (e) on 4 WAVs under build/ from port run dirs of random
+    weights, cli.extract_indices --sequence_parallel (flagship) and
+    --tensor_parallel 2 (Conformer) against the plain CLI's .npy (tokens
+    but at top-2 gaps under 1e-5), cli.synthesize --sequence_parallel and
+    --pipeline_parallel 2 against the plain CLI's waveforms, with
+    parallel/mesh.py's card enumeration listing the card 4 times. Prints
+    the parallel line and phase_20_s.
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -434,14 +462,14 @@ def check_k1():
     return worst
 
 
-def unit_inputs(C, T, d, seed=0):
+def unit_inputs(C, T, d, seed=0, batch=B):
     """A ResidualUnit's tensors as the main path feeds K2, on the card:
     torch-default conv init and non-trivial snake parameters."""
     import torch
     from audiotokenization_tpu_torch.ops.conv import kaiming_uniform_fan_in, uniform_fan_in_bias
 
     g = torch.Generator().manual_seed(seed + 1000 * d + C)
-    x = torch.randn((B, C, T), generator=g)
+    x = torch.randn((batch, C, T), generator=g)
     w7 = kaiming_uniform_fan_in((C, C, 7), generator=g)
     w1 = kaiming_uniform_fan_in((C, C, 1), generator=g)
     b7 = uniform_fan_in_bias((C,), 7 * C, generator=g)
@@ -482,17 +510,17 @@ def hold(name, got, plain, plain64):
     return err
 
 
-def check_k2(shapes):
+def check_k2(shapes, *, batch=B, what="K2"):
     from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import (
         fused_residual_unit, residual_unit_plain)
 
     worst = 0.0
     for C, T, d in shapes:
-        args = unit_inputs(C, T, d)
+        args = unit_inputs(C, T, d, batch=batch)
         got = fused_residual_unit(*args, dilation=d)
         want = residual_unit_plain(*args, dilation=d)
         want64 = residual_unit_plain(*(a.double() for a in args), dilation=d)
-        worst = max(worst, hold(f"K2 C={C} T={T} d={d}", got, want, want64))
+        worst = max(worst, hold(f"{what} C={C} T={T} d={d}", got, want, want64))
         del want64
     return worst
 
@@ -4996,6 +5024,335 @@ def speaker_verification_path(cfg, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 20: the parallel serving paths (sequence, tensor and pipeline parallelism)
+# ---------------------------------------------------------------------------
+
+SP_SECONDS, SP_SHARDS = 60, 4        # one long file, shards on the one card
+SP_AA_SECONDS = 10                   # configs/bigcodec_antialias.yaml's file
+PAR_REQUESTS, PAR_SECONDS = 4, 10    # the Conformer's TP / PP batch
+PAR_MICRO = 4                        # PP's microbatches
+PARALLEL_FILES = (2.3, 3.7, 5.15, 6.05)  # the CLIs' WAVs, seconds
+SP_AGREEMENT = 0.9                   # reset / fast against the exact tokens (JAX's tests' rule)
+
+
+def sp_window_shapes(length: int, strides, dilations, widths, *, up: bool = False):
+    """(C, T, d) of K2's calls in one SP shard's window: the encoder's units
+    at the window's length ``length`` per stride scale, or (``up``) the
+    decoder's, whose window at each block is its chunk times the stride plus
+    the units' margin (``parallel/sp.py::_sp_block_margins``)."""
+    from audiotokenization_tpu_torch.parallel.sp import _sp_block_margins
+
+    shapes = []
+    for c, s in zip(widths, strides):
+        if up:
+            M, _ = _sp_block_margins(s, dilations, False)
+            length *= s
+            shapes += [(c, length + 2 * M, d) for d in dilations]
+        else:
+            shapes += [(c, length, d) for d in dilations]
+            length //= s
+    return shapes
+
+
+def hold_k1_shard(codec, lat, m: int):
+    """K1 against its plain version on one shard's ``m`` frames of the
+    quantizer's input (the codec's own book): equal but at top-2 gaps under
+    GAP."""
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.ops.conv import linear
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin, vq_argmin_plain
+
+    layer = codec.quantizer.layers[0]
+    with C.full_fp32(), torch.no_grad():
+        z = linear(lat[0, :, :m].t(), layer.in_proj).contiguous()
+        book = layer.codebook.contiguous()
+        got, want = vq_argmin(z, book).long(), vq_argmin_plain(z, book).long()
+        gap = top2_gap(plain_dist(z, book))
+    if ((got != want) & (gap >= GAP)).any():
+        fail(f"K1 at the SP shard's {m} x 8192: rows differ at a top-2 gap >= {GAP:g}")
+    return int((got != want).sum())
+
+
+def timed(fn, iters: int = 3):
+    return cuda_ms(fn, iters=iters, warmup=1)
+
+
+def sp_flagship(cfg, dev):
+    """20a-b: the flagship's SP tokenize of one SP_SECONDS file over
+    SP_SHARDS and over 1 shard on the card, its reset and fast modes, and
+    SP synthesize of its codes, against one-device tokenize and decode."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.config import codec_hop
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.parallel.sp import make_sp_synthesizer, make_sp_tokenizer
+    from audiotokenization_tpu_torch.utils.chunked import (make_chunked_tokenizer,
+                                                           receptive_field_samples)
+
+    codec = seeded_codec(cfg)  # phase 5's weights
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    n_units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    wav = torch.from_numpy((np.random.RandomState(20).randn(SP_SECONDS * SR) * 0.1)
+                           .astype(np.float32)).cuda()
+    with C.full_fp32(), torch.no_grad():
+        lat = C.encode(codec, wav[None])
+        _, ref, _ = C.quantize(codec, lat)
+    gap = frame_gaps(codec, lat)
+    out = {"seconds": SP_SECONDS, "shards": SP_SHARDS, "frames": int(ref.shape[-1])}
+    for n in (SP_SHARDS, 1):
+        tok = make_sp_tokenizer(cfg, [dev] * n)
+        codes, launches = counted(lambda: tok(codec, wav))
+        expect_launches(f"SP tokenize {SP_SECONDS} s over {n} shard(s)", launches,
+                        (n * nq, n * n_units))
+        differ, near = hold_codes(f"SP tokenize over {n} shard(s) vs one-device tokenize",
+                                  codes[:, None], ref, gap)
+        out[f"tokenize_{n}_shards"] = {
+            "ms": timed(lambda: tok(codec, wav)), "tokens_differ": differ, "near_ties": near,
+            "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]},
+            "chunk_samples": sorted(tok.buckets)[0]}
+    out["one_device_tokenize_ms"] = timed(lambda: C.tokenize(codec, wav[None]))
+    chunked = make_chunked_tokenizer(codec, chunk_seconds=CHUNK_SECONDS)
+    out["chunked_10s_ms"] = timed(lambda: chunked(wav))
+    for lstm, mode in (("reset", "conformant"), ("exact", "fast")):
+        tok = make_sp_tokenizer(cfg, [dev] * SP_SHARDS, lstm=lstm, mode=mode)
+        codes, launches = counted(lambda: tok(codec, wav))
+        expect_launches(f"SP tokenize {lstm} {mode}", launches,
+                        (SP_SHARDS * nq, SP_SHARDS * n_units))
+        agree = float((codes == ref[:, 0]).float().mean())
+        print(f"SP tokenize lstm={lstm} mode={mode}: {agree:.4f} of the tokens agree with "
+              "one-device conformant")
+        if agree <= SP_AGREEMENT:
+            fail(f"SP tokenize lstm={lstm} mode={mode}: agreement {agree:.4f} <= {SP_AGREEMENT}")
+        out[f"{lstm}_{mode}"] = {"agreement": agree, "ms": timed(lambda: tok(codec, wav))}
+
+    # K1 at a shard's frames; K2 at the windows' shapes (B = 1)
+    chunk = out[f"tokenize_{SP_SHARDS}_shards"]["chunk_samples"]
+    hop = codec_hop(cfg)
+    ctx = -(-receptive_field_samples(cfg) // hop) * hop
+    e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
+    widths = [e.ngf * 2 ** i for i in range(len(e.up_ratios))]
+    enc_shapes = sp_window_shapes(chunk + 2 * ctx, e.up_ratios, e.dilations, widths)
+    out["k1_shard_rows_differ"] = hold_k1_shard(codec, lat, chunk // hop)
+
+    # 20b: SP synthesize of the codes
+    syn = make_sp_synthesizer(cfg, [dev] * SP_SHARDS)
+    codes = ref[:, 0]
+    got, launches = counted(lambda: syn(codec, codes))
+    expect_launches(f"SP synthesize {out['frames']} frames over {SP_SHARDS} shards", launches,
+                    (0, SP_SHARDS * n_units))
+    want = offline_decode(codec, ref)[0, 0]
+    err = hold_wav("SP synthesize vs one-device decode", got, want)
+    L = sorted(syn.buckets)[0]
+    dec_widths = [d.upsample_initial_channel // 2 ** (i + 1) for i in range(len(d.up_ratios))]
+    dec_shapes = sp_window_shapes(L, d.up_ratios, d.dilations, dec_widths, up=True)
+    out["synthesize"] = {"ms": timed(lambda: syn(codec, codes)),
+                         "one_device_decode_ms": timed(lambda: offline_decode(codec, ref)),
+                         "max_abs_err_wav": err, "chunk_frames": L,
+                         "launches": {"vq_argmin": launches[0], "residual_unit": launches[1]}}
+    del codec, lat, wav
+    torch.cuda.empty_cache()
+    out["k2_window_max_abs_err"] = check_k2(enc_shapes + dec_shapes, batch=1,
+                                            what="K2 at an SP window, B=1,")
+    out["k2_window_shapes"] = {"tokenize": enc_shapes, "synthesize": dec_shapes}
+    return out
+
+
+def sp_antialias(dev):
+    """20c: configs/bigcodec_antialias.yaml, SP tokenize and synthesize of
+    SP_AA_SECONDS (no K2: its units are anti-aliased)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.parallel.sp import make_sp_synthesizer, make_sp_tokenizer
+
+    cfg = repo_config("bigcodec_antialias.yaml")
+    codec = seeded_codec(cfg)
+    wav = torch.from_numpy((np.random.RandomState(21).randn(SP_AA_SECONDS * SR) * 0.1)
+                           .astype(np.float32)).cuda()
+    with C.full_fp32(), torch.no_grad():
+        lat = C.encode(codec, wav[None])
+        _, ref, _ = C.quantize(codec, lat)
+    tok = make_sp_tokenizer(cfg, [dev] * SP_SHARDS)
+    codes, launches = counted(lambda: tok(codec, wav))
+    expect_launches("antialias SP tokenize", launches, (SP_SHARDS, 0))
+    differ, near = hold_codes("antialias SP tokenize vs one-device tokenize", codes[:, None],
+                              ref, frame_gaps(codec, lat))
+    syn = make_sp_synthesizer(cfg, [dev] * SP_SHARDS)
+    got, syn_launches = counted(lambda: syn(codec, ref[:, 0]))
+    expect_launches("antialias SP synthesize", syn_launches, (0, 0))
+    err = hold_wav("antialias SP synthesize vs one-device decode", got,
+                   offline_decode(codec, ref)[0, 0])
+    return {"seconds": SP_AA_SECONDS, "tokens_differ": differ, "near_ties": near,
+            "tokenize_ms": timed(lambda: tok(codec, wav)),
+            "synthesize_ms": timed(lambda: syn(codec, ref[:, 0])), "max_abs_err_wav": err,
+            "launches": {"tokenize": list(launches), "synthesize": list(syn_launches)}}
+
+
+def tp_pp_conformer(dev):
+    """20d: configs/conformer.yaml under TP at 2 and 4 model shards and PP
+    at 2 and 3 stages (PAR_MICRO microbatches), configs/conformer_moe.yaml
+    under TP 2, against one-device tokenize and decode on the card."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.config import codec_hop
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.parallel.pp import make_pipe_mesh, pp_synthesize, pp_tokenize
+    from audiotokenization_tpu_torch.parallel.tp import make_dp_tp_mesh, tp_tokenize
+
+    cfg = repo_config("conformer.yaml")
+    codec = seeded_codec(cfg)
+    wav = torch.from_numpy((np.random.RandomState(22).randn(PAR_REQUESTS, PAR_SECONDS * SR) * 0.1)
+                           .astype(np.float32)).cuda()
+    with C.full_fp32(), torch.no_grad():
+        lat = C.encode(codec, wav)
+        _, ref, _ = C.quantize(codec, lat)
+    gap = frame_gaps(codec, lat)
+    want = offline_decode(codec, ref)[:, 0]
+    out = {"requests": PAR_REQUESTS, "seconds": PAR_SECONDS,
+           "one_device_tokenize_ms": timed(lambda: C.tokenize(codec, wav)),
+           "one_device_decode_ms": timed(lambda: offline_decode(codec, ref))}
+    for n in (2, 4):
+        run = tp_tokenize(codec, cfg, make_dp_tp_mesh(n, [dev] * n))
+        codes, launches = counted(lambda: run(wav))
+        expect_launches(f"TP {n} tokenize", launches, (1, 0))
+        differ, near = hold_codes(f"TP {n} tokenize vs one-device tokenize", codes, ref, gap)
+        out[f"tp{n}_tokenize"] = {"ms": timed(lambda: run(wav)), "tokens_differ": differ,
+                                  "near_ties": near, "launches": list(launches)}
+    for n in (2, 3):
+        devices = make_pipe_mesh(n, [dev] * n)
+        run = pp_tokenize(codec, cfg, devices, n_micro=PAR_MICRO)
+        codes, launches = counted(lambda: run(wav))
+        expect_launches(f"PP {n} tokenize", launches, (1, 0))
+        differ, near = hold_codes(f"PP {n} tokenize vs one-device tokenize", codes, ref, gap)
+        syn = pp_synthesize(codec, cfg, devices, n_micro=PAR_MICRO)
+        got, syn_launches = counted(lambda: syn(ref))
+        expect_launches(f"PP {n} synthesize", syn_launches, (0, 0))
+        err = hold_wav(f"PP {n} synthesize vs one-device decode", got, want)
+        out[f"pp{n}"] = {"tokenize_ms": timed(lambda: run(wav)), "tokens_differ": differ,
+                         "near_ties": near, "synthesize_ms": timed(lambda: syn(ref)),
+                         "max_abs_err_wav": err, "launches": {"tokenize": list(launches),
+                                                              "synthesize": list(syn_launches)}}
+    del codec
+    # the MoE Conformer under TP 2: routing against one device, tokens where
+    # no routing difference reached the request
+    moe_cfg = repo_config("conformer_moe.yaml")
+    moe = seeded_codec(moe_cfg)
+    run = tp_tokenize(moe, moe_cfg, make_dp_tp_mesh(2, [dev] * 2))
+    with C.full_fp32(), torch.no_grad():
+        with RouteRecorder() as one:
+            lat = C.encode(moe, wav)
+            _, ref, _ = C.quantize(moe, lat)
+    with RouteRecorder() as split:
+        codes, launches = counted(lambda: run(wav))
+    expect_launches("MoE TP 2 tokenize", launches, (1, 0))
+    layers, reached = routing_differences("MoE TP 2 tokenize", split.routes, one.routes,
+                                          PAR_SECONDS * SR // codec_hop(moe_cfg))
+    keep = [i for i in range(PAR_REQUESTS) if i not in reached]
+    differ = near = 0
+    if keep:
+        differ, near = hold_codes("MoE TP 2 tokenize vs one-device tokenize", codes[:, keep],
+                                  ref[:, keep], frame_gaps(moe, lat[keep]))
+    out["moe_tp2_tokenize"] = {
+        "ms": timed(lambda: run(wav)), "requests_reached_by_routing": len(reached),
+        "routing_differs": sum(r["choice_differs"] + r["kept_differs"] for r in layers),
+        "tokens_differ": differ, "near_ties": near, "launches": list(launches)}
+    return out
+
+
+def parallel_clis(cfg, dev):
+    """20e: the CLIs' parallel flags on PARALLEL_FILES WAVs under build/,
+    with the card listed SP_SHARDS times (``mesh.visible_devices``), against
+    the plain CLIs: extract_indices --sequence_parallel (flagship) and
+    --tensor_parallel 2 (configs/conformer.yaml), tokens but at top-2 gaps
+    under GAP; synthesize --sequence_parallel and --pipeline_parallel 2,
+    waveforms within the repo's tolerance."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.cli import extract_indices, synthesize
+    from audiotokenization_tpu_torch.config import codec_hop
+    from audiotokenization_tpu_torch.data.audio_io import read_audio, write_wav
+    from audiotokenization_tpu_torch.models import codec as C
+    from audiotokenization_tpu_torch.parallel import mesh
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=build_dir))
+    listed, mesh.visible_devices = mesh.visible_devices, lambda device="cuda": [dev] * SP_SHARDS
+    out = {}
+    try:
+        d = root / "LibriSpeech" / "test-clean" / "19" / "198"
+        d.mkdir(parents=True)
+        rng = np.random.RandomState(23)
+        for i, s in enumerate(PARALLEL_FILES):
+            write_wav(d / f"19-198-{i:04d}.wav",
+                      (rng.randn(int(s * SR)) * 0.1).astype(np.float32), SR)
+        for name, run_cfg, flag in (("flagship", cfg, ["--sequence_parallel"]),
+                                    ("conformer", repo_config("conformer.yaml"),
+                                     ["--tensor_parallel", "2"])):
+            run = root / name
+            write_gen_run(run, run_cfg)
+            codec = extract_indices.load_model(run, device="cuda")[1]
+            common = ["--dataset_root", str(root), "--save_path", str(run), "--dataset_path",
+                      "LibriSpeech", "--ext_audio", ".wav", "--subsets", "test-clean"]
+            t0 = time.perf_counter()
+            extract_indices.main(common + ["--output_folder", "plain"])
+            plain_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, launches = counted(lambda: extract_indices.main(
+                common + ["--output_folder", "parallel", *flag]))
+            par_s = time.perf_counter() - t0
+            differ = near = 0
+            for p in sorted((run / "plain").rglob("*.npy")):
+                w = read_audio(d / f"{p.stem}.wav")[0][0]
+                w = np.pad(w, (0, -len(w) % codec_hop(run_cfg)))  # as the CLI pads
+                with C.full_fp32(), torch.no_grad():
+                    lat = C.encode(codec, torch.from_numpy(w)[None].cuda())
+                f, n_ = hold_tokens(f"extract {' '.join(flag)} {p.stem} vs plain",
+                                    np.load(run / "parallel" / p.relative_to(run / "plain")),
+                                    np.load(p), frame_gaps(codec, lat)[0].cpu().numpy())
+                differ, near = differ + f, near + n_
+            out[f"extract_{name}"] = {"flag": " ".join(flag), "wall_s": par_s,
+                                      "plain_wall_s": plain_s, "tokens_differ": differ,
+                                      "near_ties": near, "launches": list(launches)}
+            flag = ["--sequence_parallel"] if name == "flagship" else ["--pipeline_parallel", "2"]
+            args = ["--codec_ckpt", str(run), "--random", "--seconds", "2", "--num_samples", "2",
+                    "--seed", "7"]
+            plain = synthesize.main(args + ["--out_dir", str(root / f"{name}_synth_plain")])
+            t0 = time.perf_counter()
+            got, launches = counted(lambda: synthesize.main(
+                args + ["--out_dir", str(root / f"{name}_synth_parallel"), *flag]))
+            par_s = time.perf_counter() - t0
+            err = hold_wav(f"synthesize {' '.join(flag)} vs plain", torch.from_numpy(got),
+                           torch.from_numpy(plain))
+            out[f"synthesize_{name}"] = {"flag": " ".join(flag), "wall_s": par_s,
+                                         "max_abs_err_wav": err, "launches": list(launches)}
+            del codec
+    finally:
+        mesh.visible_devices = listed
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def parallel_path(cfg, card, dev=None):
+    """20. The parallel serving paths on the one card (``dev``, by default
+    cuda:0), listed several times (module docstring). Prints the parallel
+    line."""
+    import torch
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    out = {"sp_flagship": sp_flagship(cfg, dev)}
+    out["sp_antialias"] = sp_antialias(dev)
+    out["conformer"] = tp_pp_conformer(dev)
+    out["clis"] = parallel_clis(cfg, dev)
+    print(json.dumps({"parallel": out, "card": card}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5075,10 +5432,24 @@ def main() -> int:
     t0 = time.perf_counter()
     sv = speaker_verification_path(cfg, card)
     print(json.dumps({"phase_19_s": time.perf_counter() - t0, "card": card}))
+    t0 = time.perf_counter()
+    par = parallel_path(cfg, card)
+    print(json.dumps({"phase_20_s": time.perf_counter() - t0, "card": card}))
+    sp, tp_pp = par["sp_flagship"], par["conformer"]
 
     def path_launches(kernel):
-        """A kernel's launches per call on the paths of phases 10-19."""
+        """A kernel's launches per call on the paths of phases 10-20."""
+        k = ("vq_argmin", "residual_unit").index(kernel)
         return {
+            f"sp_tokenize_{SP_SECONDS}s_{SP_SHARDS}_shards":
+                sp[f"tokenize_{SP_SHARDS}_shards"]["launches"][kernel],
+            f"sp_tokenize_{SP_SECONDS}s_1_shard": sp["tokenize_1_shards"]["launches"][kernel],
+            f"sp_synthesize_{sp['frames']}_frames_{SP_SHARDS}_shards":
+                sp["synthesize"]["launches"][kernel],
+            "tp_tokenize": {n: tp_pp[f"tp{n}_tokenize"]["launches"][k] for n in (2, 4)},
+            "moe_tp2_tokenize": tp_pp["moe_tp2_tokenize"]["launches"][k],
+            "pp_tokenize": {n: tp_pp[f"pp{n}"]["launches"]["tokenize"][k] for n in (2, 3)},
+            "pp_synthesize": {n: tp_pp[f"pp{n}"]["launches"]["synthesize"][k] for n in (2, 3)},
             "speaker_verification_cli_per_call": sv["cli"]["launches"][kernel],
             "speaker_verification_codec_leg": sv["codec_leg"]["launches"][kernel],
             "token_lm_train_per_step": token_lm["train"]["launches_per_step"][kernel],
@@ -5175,7 +5546,11 @@ def main() -> int:
                               "MFCC, WavLM-Large); speaker_verification_codec_leg: phase 19's "
                               "tokenize + decode of 4 x 3 s before the ECAPA scoring; K2's "
                               "semantic_path: summed over the semantic codec's 30 units "
-                              "(C 16-256) at 32 x 1 s"}))
+                              "(C 16-256) at 32 x 1 s; sp_*: per SP tokenize of one "
+                              f"{SP_SECONDS} s file and SP synthesize of its codes, the shards "
+                              "on the one card; tp_tokenize / pp_*: per Conformer call of "
+                              f"{PAR_REQUESTS} x {PAR_SECONDS} s at 2 / 4 model shards and 2 / "
+                              "3 stages"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -19,7 +19,8 @@ on the tiny config (CPU):
 - ``cli/synthesize.py``: the waveform of its tokens against JAX's
   ``decode`` within rtol 1e-3 / atol 2e-5, the repo's waveform tolerance;
 - ``ops/stft.py::mel_spectrogram`` against JAX's within 1e-5;
-- the refusals of what is not ported, and the validation spectrogram PNG.
+- the parallel flags on one listed device (tests/test_torch_parallel_cli.py
+  runs them over several), and the validation spectrogram PNG.
 """
 import dataclasses
 import json
@@ -221,21 +222,28 @@ def test_extract_cli_matches_jax(runs, jax_extracted, layout, mode, capsys):
 
 
 def test_extract_cli_refuses_what_is_not_ported(runs):
-    """Sequence and tensor parallelism raise; ``--semantic_dir`` is ported: a
-    checkpoint without ``concat_semantic`` reads no target and writes the
-    same tokens (tests/test_torch_semantic_cli.py runs a concat one)."""
+    """Sequence and tensor parallelism are ported (tests/test_torch_parallel_cli.py):
+    ``--sequence_parallel`` on the one listed CPU writes the plain tokens,
+    ``--tensor_parallel 2`` exits as JAX's CLI does when the degree exceeds
+    the devices; ``--semantic_dir`` is ported: a checkpoint without
+    ``concat_semantic`` reads no target and writes the same tokens
+    (tests/test_torch_semantic_cli.py runs a concat one)."""
     base = _extract_args(runs, runs["port"], "never", "batch1") + ["--device", "cpu"]
-    for extra, item in ((["--sequence_parallel"], "18"), (["--tensor_parallel", "2"], "18")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            extract_indices.main(base + extra)
+    with pytest.raises(SystemExit, match="--tensor_parallel 2 exceeds the 1 attached devices"):
+        extract_indices.main(base + ["--tensor_parallel", "2"])
     extract_indices.main(_extract_args(runs, runs["port"], "sem_plain", "batch1")
                          + ["--device", "cpu"])
     extract_indices.main(_extract_args(runs, runs["port"], "sem_dir", "batch1")
                          + ["--device", "cpu", "--semantic_dir", str(runs["tmp"] / "absent")])
-    got, want = _npy_tree(runs["port"] / "sem_dir"), _npy_tree(runs["port"] / "sem_plain")
-    assert len(want) == len(CORPUS) and got.keys() == want.keys()
-    for name in want:
-        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    extract_indices.main(_extract_args(runs, runs["port"], "sp_one", "batch1")
+                         + ["--device", "cpu", "--sequence_parallel"])
+    want = _npy_tree(runs["port"] / "sem_plain")
+    assert len(want) == len(CORPUS)
+    for folder in ("sem_dir", "sp_one"):
+        got = _npy_tree(runs["port"] / folder)
+        assert got.keys() == want.keys(), folder
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name], err_msg=f"{folder} {name}")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             extract_indices.main(base[:-2])  # the default device is the card
@@ -324,13 +332,27 @@ def test_synthesize_matches_jax_decode(runs):
         assert (out / f"sample_{i}.wav").exists()
 
 
-def test_synthesize_refuses_what_is_not_ported(runs):
-    base = ["--codec_ckpt", str(runs["port"]), "--random", "--device", "cpu"]
-    # --lm_ckpt is ported (tests/test_torch_token_lm_cli.py); the parallel modes are not
-    for extra in (["--sequence_parallel"], ["--pipeline_parallel", "2"],
-                  ["--lm_ckpt", "x", "--sequence_parallel"]):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            synthesize.main(base + extra)
+def test_synthesize_refuses_what_is_not_ported(runs, monkeypatch):
+    """--lm_ckpt (tests/test_torch_token_lm_cli.py) and the parallel modes
+    (tests/test_torch_parallel_cli.py) are ported: --sequence_parallel on
+    the one listed CPU decodes the plain waveform; --pipeline_parallel
+    refuses a BigCodec decoder with JAX's message (two CPUs listed, so that
+    the stages fit), and --lm_ckpt with --sequence_parallel reads the LM
+    first."""
+    base = ["--codec_ckpt", str(runs["port"]), "--random", "--device", "cpu", "--seconds",
+            "0.05", "--num_samples", "2"]
+    tmp = runs["tmp"]
+    plain = synthesize.main(base + ["--out_dir", str(tmp / "synth_plain")])
+    got = synthesize.main(base + ["--out_dir", str(tmp / "synth_sp"), "--sequence_parallel"])
+    np.testing.assert_allclose(got, plain, rtol=WAV_RTOL, atol=WAV_ATOL)
+    from audiotokenization_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "visible_devices", lambda device="cuda": [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="pipeline parallelism targets the conformer family"):
+        synthesize.main(base + ["--pipeline_parallel", "2"])
+    with pytest.raises(FileNotFoundError):
+        synthesize.main(base[:2] + ["--lm_ckpt", str(tmp / "absent_lm"), "--device", "cpu",
+                                    "--sequence_parallel"])
     # --streaming is ported (tests/test_torch_streaming.py); it excludes the others
     with pytest.raises(SystemExit, match="pick one"):
         synthesize.main(base + ["--streaming", "4", "--sequence_parallel"])

@@ -5,7 +5,8 @@ WAVs: ``cli.train_token_lm`` for 3 steps, then ``cli.synthesize
 ``test_stage2_pipeline_train_lm_then_synthesize``); a JAX token-LM run
 (Orbax, written from JAX's ``init_token_lm``, no training) converted by
 ``scripts/jax_run_to_torch.py --token_lm``, whose greedy samples equal
-JAX's; the refusals and the default device."""
+JAX's; ``--sequence_parallel`` after ``--lm_ckpt``; the refusals and the
+default device."""
 import dataclasses
 import json
 import sys
@@ -92,9 +93,13 @@ def test_train_token_lm_then_synthesize(stage1):
     want = TL.token_lm_generate_kv(lm, batch_size=2, length=160, temperature=1.0,
                                    generator=torch.Generator().manual_seed(0))
     np.testing.assert_array_equal(tokens, want.clamp(0, 63).numpy())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        synthesize.main(["--codec_ckpt", str(run), "--lm_ckpt", str(lm_dir),
-                         "--sequence_parallel", "--device", "cpu"])
+    # --sequence_parallel decodes the same samples (tests/test_torch_parallel_cli.py
+    # runs it over several devices), within the repo's waveform tolerance
+    sp = synthesize.main(["--codec_ckpt", str(run), "--lm_ckpt", str(lm_dir), "--seconds",
+                          "0.1", "--num_samples", "2", "--out_dir", str(tmp / "synth_sp"),
+                          "--sequence_parallel", "--device", "cpu"])
+    np.testing.assert_array_equal(np.load(tmp / "synth_sp" / "tokens.npy"), tokens)
+    np.testing.assert_allclose(sp, wav, rtol=1e-3, atol=2e-5)
 
 
 def test_checkpoints_keep_the_two_newest(tmp_path):
