@@ -10,6 +10,14 @@ and metrics.jsonl; running the command again with a higher --max_steps
 resumes from its latest checkpoint. One card (or the CPU with --device
 cpu, for small configs).
 
+Data parallelism and FSDP (``train.fsdp: true``), one process per card:
+  torchrun --nproc_per_node N -m audiotokenization_tpu_torch.cli.train \
+      --config ... [--override train.fsdp=true]
+Each rank trains on its stripe of the filelists (the batch size is per
+rank), on cuda:LOCAL_RANK under NCCL (gloo with --device cpu, or with
+--dist_backend gloo, which lets ranks share a card); rank 0 logs and
+writes the checkpoints, which resume on any number of ranks.
+
 The semantic branch (``train.use_semantic``, configs/bigcodec_semantic.yaml):
   - default: the loader computes the teacher's input features from each
     cropped clip (``ops/fbank.py``) and the frozen w2v-bert teacher runs in
@@ -25,18 +33,22 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import torch
+
 from ..config import Config, codec_hop
 from ..data.dataset import AudioDataset, DataLoader
 
 
 def make_loaders(cfg: Config, *, dataset_root=None, pin_memory: bool = False,
-                 skip_test: bool = False, semantic_dir=None, compute_feats: bool = False):
+                 skip_test: bool = False, semantic_dir=None, compute_feats: bool = False,
+                 process_index: int = 0, process_count: int = 1):
     """(train, val, test) loaders of the config's filelists, as the JAX CLI
     builds them: the train split shuffled from ``train.seed``, the val split
     in order, the test split full length and one file a batch (val and test
-    None without a filelist). ``semantic_dir`` / ``compute_feats``: the
-    train and val items' teacher targets or features (the test pass
-    computes its own)."""
+    None without a filelist), each striped over ``process_count`` ranks.
+    ``semantic_dir`` / ``compute_feats``: the train and val items' teacher
+    targets or features (the test pass computes its own)."""
+    stripe = dict(process_index=process_index, process_count=process_count)
     kw = dict(sample_rate=cfg.dataset.sample_rate, root=dataset_root)
     hop = codec_hop(cfg)
     sem = dict(semantic_dir=semantic_dir, compute_feats=compute_feats, hop_length=hop)
@@ -44,17 +56,18 @@ def make_loaders(cfg: Config, *, dataset_root=None, pin_memory: bool = False,
         AudioDataset(cfg.dataset.train, train=True,
                      pad_to_multiple_of=cfg.dataset.pad_to_multiple_of, **kw, **sem),
         batch_size=cfg.dataset.train.batch_size, shuffle=cfg.dataset.train.shuffle,
-        seed=cfg.train.seed, pin_memory=pin_memory)
+        seed=cfg.train.seed, pin_memory=pin_memory, **stripe)
     val_loader = None
     if cfg.dataset.val.filelist:
         val_loader = DataLoader(
             AudioDataset(cfg.dataset.val, pad_to_multiple_of=cfg.dataset.pad_to_multiple_of,
                          **kw, **sem),
-            batch_size=cfg.dataset.val.batch_size, shuffle=False, pin_memory=pin_memory)
+            batch_size=cfg.dataset.val.batch_size, shuffle=False, pin_memory=pin_memory,
+            **stripe)
     test_loader = None
     if cfg.dataset.test.filelist and not skip_test:
         test_loader = DataLoader(AudioDataset(cfg.dataset.test, pad_to_multiple_of=hop, **kw),
-                                 batch_size=1, shuffle=False, drop_last=False)
+                                 batch_size=1, shuffle=False, drop_last=False, **stripe)
     return train_loader, val_loader, test_loader
 
 
@@ -85,16 +98,24 @@ def main(argv=None):
     p.add_argument("--skip_test", action="store_true",
                    help="skip the full-length test pass after training")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda (the default; raises without a card) or cpu")
+                   help="cuda (the default; raises without a card; cuda:LOCAL_RANK under "
+                        "torchrun) or cpu")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="under torchrun: the process group's backend (default nccl on cards, "
+                        "gloo on the CPU; gloo lets several ranks share one card)")
     args = p.parse_args(argv)
 
     from ..config import load_config
     from ..models.codec import resolve_device
     from ..models.w2v_bert import build_teacher
+    from ..parallel.mesh import (initialize_distributed, local_device, process_count,
+                                 process_index)
     from ..train.loop import train
     from ..utils.logging import MetricsLogger
 
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
+    owned = not torch.distributed.is_initialized()
+    owned = initialize_distributed(device, backend=args.dist_backend) is not None and owned
     cfg = load_config(args.config, args.override)
     teacher, compute_feats = None, False
     if cfg.train.use_semantic:
@@ -112,7 +133,8 @@ def main(argv=None):
         cfg, dataset_root=args.dataset_root, pin_memory=device.type == "cuda",
         skip_test=args.skip_test,
         semantic_dir=args.semantic_dir if cfg.train.use_semantic else None,
-        compute_feats=compute_feats)
+        compute_feats=compute_feats, process_index=process_index(),
+        process_count=process_count())
     logger = MetricsLogger(run_dir, run_name=cfg.name, use_wandb=not args.no_wandb)
     try:
         return train(cfg, train_loader=train_loader, val_loader=val_loader,
@@ -122,6 +144,8 @@ def main(argv=None):
                      resume_from=args.resume_from, resume_best=args.resume_best, device=device)
     finally:
         logger.close()
+        if owned:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

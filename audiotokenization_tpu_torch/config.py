@@ -156,8 +156,12 @@ class ScheduleParams:
 @dataclass
 class TrainConfig:
     """Training settings: the step's (``train/step.py``) and the loop's
-    (``train/loop.py``: steps, logging, validation, checkpoints; the loop
-    runs on one card and refuses the parallel fields' other values)."""
+    (``train/loop.py``: steps, logging, validation, checkpoints). One
+    process a rank under ``torchrun`` trains data parallel; ``fsdp`` also
+    cuts the weights and AdamW moments at rest over the ranks, but gathers
+    a side's weights whole for the step, so a step's peak memory is not
+    below plain data parallelism's (``parallel/fsdp.py``). The loop refuses
+    ``tensor_parallel`` and ``pipeline_parallel`` above 1."""
     max_steps: int = 600000
     precision: str = "bf16"  # bf16 | fp32 | fp32_strict
     remat: Any = "auto"

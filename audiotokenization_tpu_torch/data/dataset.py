@@ -141,12 +141,23 @@ def _stack_padded(arrays, *, axis: int) -> torch.Tensor:
 
 
 class DataLoader:
-    """Batched, prefetching iterator with deterministic epoch shuffling; one
-    process (the JAX loader's striping across processes is not ported)."""
+    """Batched, prefetching iterator with deterministic epoch shuffling.
+
+    Over several processes (``process_index`` of ``process_count``, the
+    ranks of a data-parallel run) each takes the stripe i::N of the
+    shuffled file list, the permutation the same on every rank (seeded by
+    ``seed`` and the epoch). The list is first padded by repeating its
+    head until N divides it, as torch's ``DistributedSampler`` and the JAX
+    loader do, so that every rank yields the same number of batches:
+    unequal stripes would leave a rank waiting in a collective its peers
+    never reach."""
 
     def __init__(self, dataset: AudioDataset, *, batch_size: int,
                  shuffle: bool = False, seed: int = 0, num_workers: int = 8,
-                 drop_last: bool = True, prefetch: int = 4, pin_memory: bool = False):
+                 drop_last: bool = True, prefetch: int = 4, pin_memory: bool = False,
+                 process_index: int = 0, process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -155,16 +166,20 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.pin_memory = pin_memory
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.ds))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        return idx
+        if self.process_count > 1 and len(idx):
+            idx = np.resize(idx, -(-len(idx) // self.process_count) * self.process_count)
+        return idx[self.process_index::self.process_count]
 
     def __len__(self):
-        n = len(self.ds)
+        n = len(self._indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _item_seeds(self, indices: np.ndarray) -> dict:

@@ -3,6 +3,9 @@
 ``train.use_stft_loss``):
 
     L = Σ_res ‖|S(y)| - |S(x)|‖_F / ‖|S(y)|‖_F + mean |log|S(y)| - log|S(x)||
+
+The norms are over the whole batch: in a data-parallel step
+(``parallel/dp.py``) their squares are summed over the ranks.
 """
 from __future__ import annotations
 
@@ -11,6 +14,15 @@ from typing import Sequence
 import torch
 
 from ..ops.stft import power, stft
+from ..parallel import dp
+
+
+def _norm(t):
+    """‖t‖_F, over the global batch in a data-parallel step."""
+    group = dp.active_group()
+    if group is None:
+        return torch.linalg.vector_norm(t)
+    return torch.sqrt(dp.global_sum(torch.sum(torch.square(t)), group))
 
 
 def multi_resolution_stft_loss(x, y, *,
@@ -25,7 +37,6 @@ def multi_resolution_stft_loss(x, y, *,
                                                    win_length=wl)), eps))
         my = torch.sqrt(torch.clamp_min(power(stft(y, n_fft=nf, hop_length=hp,
                                                    win_length=wl)), eps))
-        sc = torch.linalg.vector_norm(my - mx) / torch.clamp_min(
-            torch.linalg.vector_norm(my), eps)
+        sc = _norm(my - mx) / torch.clamp_min(_norm(my), eps)
         loss = loss + sc + torch.mean(torch.abs(torch.log(my) - torch.log(mx)))
     return loss

@@ -55,6 +55,7 @@ from torch import nn
 from ..config import Config, quantizer_kind, resolve_remat
 from ..ops.moe import MoEFeedForward
 from ..ops.params import cast_parameters, parameters_as
+from ..parallel import dp
 from . import bigcodec, conformer
 from .quantizers import factorized_vq as fvq
 from .quantizers import fsq
@@ -229,10 +230,13 @@ def quantize(codec: Codec, latents, *, training: bool = False, step=None, draws=
     EMA VQ: ``state`` (default: the codec's buffers) is the state read;
     training draws ``draws(step, codes, vectors)`` (default ``ema_draws``;
     without a step, salted by the latents as JAX does); the loss is the mean
-    commitment. LFQ: the loss is mean(commit) + the entropy aux loss."""
+    commitment. LFQ: the loss is mean(commit) + the entropy aux loss. In a
+    data-parallel step (``parallel/dp.py``) the EMA statistics, its draws'
+    rows and LFQ's batch entropy are the global batch's."""
     d = codec.cfg.model.codec_decoder
     kind = quantizer_kind(codec.cfg)
     qstate = None
+    group = dp.active_group()  # a data-parallel step's ranks: global batch statistics
     with full_fp32():
         if kind == "fsq":
             zq, codes = fsq.fsq_apply(codec.quantizer, latents)
@@ -240,18 +244,20 @@ def quantize(codec: Codec, latents, *, training: bool = False, step=None, draws=
             loss = torch.zeros((1,), dtype=latents.dtype, device=latents.device)
         elif kind == "ema_vq":
             rows = None
-            if training:
-                n_vectors = latents.shape[0] * latents.shape[2]
+            if training:  # rows of the global batch's vectors
+                n_vectors = latents.shape[0] * latents.shape[2] * dp.world(group)
                 rows = (draws or ema_draws)(_salt(latents) if step is None else step,
                                             d.codebook_size, n_vectors)
             res = ema_vq_apply(codec.quantizer.state() if state is None else state, latents,
                                training=training, commitment=d.vq_commit_weight, draws=rows,
-                               use_cosine_sim=d.vq_cosine_sim, kmeans_init=False)
+                               use_cosine_sim=d.vq_cosine_sim, kmeans_init=False,
+                               process_group=group if training else None)
             zq, codes, loss = res.quantized, res.indices[None], res.loss.mean()[None]
             if training:
                 qstate = {k: v.detach() for k, v in res.state.items()}
         elif kind == "lfq":
-            res = lfq_apply(latents, commit_weight=d.vq_commit_weight, training=training)
+            res = lfq_apply(latents, commit_weight=d.vq_commit_weight, training=training,
+                            process_group=group if training else None)
             zq, codes = res.quantized, res.indices[None]
             loss = (res.commit_loss.mean() + res.entropy_aux_loss)[None]
         else:

@@ -23,8 +23,11 @@ Distances are fp32 ‖x‖² - 2x·e + ‖e‖² (negative cosine with
 ``use_cosine_sim``), lowest index on ties; the EMA's per-code counts and
 sums are ``bincount`` / ``index_add_`` (the JAX package's one-hot matmul,
 without its (M, N) one-hot). ``process_group`` (None: one process)
-all-reduces the counts, the sums and the affine batch moments, where JAX
-takes ``psum`` over ``axis_name``.
+all-reduces the counts, the sums, the affine batch moments and the
+diversity term's mean probabilities, where JAX takes ``psum`` over
+``axis_name``, and the kmeans seeds and expiry rows index the global
+batch's vectors (every rank's, gathered in rank order), as a data-mesh
+step over the whole batch picks them.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from typing import Mapping, NamedTuple, Optional
 
 import torch
 from torch import nn
+
+from ...parallel.dp import all_gather_rows
 
 STATE = ("embed", "embed_avg", "cluster_size", "initted")
 AFFINE = ("codebook_mean", "codebook_var", "batch_mean", "batch_var", "affine_initted")
@@ -168,12 +173,16 @@ def ema_vq_apply(state: Mapping[str, torch.Tensor], x, *, decay: float = 0.8,
     n_codes = state["embed"].shape[0]
     M = flat.shape[0]
 
+    # the global batch's vectors (rank order), where a draw picks rows of them
+    every = flat if not training else all_gather_rows(flat, process_group)
     if training and kmeans_init and float(state["initted"]) <= 0:
+        n_all = every.shape[0]
         seeds = _draw(draws, generator, "kmeans",
-                      lambda g: torch.randint(0, M, (n_codes,), generator=g))
+                      lambda g: torch.randint(0, n_all, (n_codes,), generator=g))
         if seeds is None:
-            seeds = torch.randint(0, M, (n_codes,), generator=torch.Generator().manual_seed(0))
-        means = _kmeans(seeds.to(flat.device), flat, n_codes, use_cosine_sim=use_cosine_sim)
+            seeds = torch.randint(0, n_all, (n_codes,),
+                                  generator=torch.Generator().manual_seed(0))
+        means = _kmeans(seeds.to(flat.device), every, n_codes, use_cosine_sim=use_cosine_sim)
         state.update(embed=means, embed_avg=means,
                      cluster_size=torch.zeros_like(state["cluster_size"]),
                      initted=torch.ones_like(state["initted"]))
@@ -233,10 +242,10 @@ def ema_vq_apply(state: Mapping[str, torch.Tensor], x, *, decay: float = 0.8,
             new_embed = _l2norm(new_embed)
         if threshold_ema_dead_code > 0:
             rows = _draw(draws, generator, "expiry",
-                         lambda g: torch.randint(0, M, (n_codes,), generator=g))
+                         lambda g: torch.randint(0, every.shape[0], (n_codes,), generator=g))
             if rows is not None:
                 dead = cluster_size < threshold_ema_dead_code
-                samples = flat[rows.to(flat.device).long()]
+                samples = every[rows.to(flat.device).long()]
                 new_embed = torch.where(dead[:, None], samples, new_embed)
                 embed_avg = torch.where(dead[:, None], samples, embed_avg)
                 cluster_size = torch.where(dead, torch.full_like(cluster_size,
@@ -248,7 +257,9 @@ def ema_vq_apply(state: Mapping[str, torch.Tensor], x, *, decay: float = 0.8,
     loss = commitment * torch.mean(
         (flat.reshape(B, T, D) - quantized.detach().reshape(B, T, D)) ** 2, dim=(1, 2))
     if training and diversity_weight > 0:
-        avg_prob = torch.softmax(-dist * diversity_temperature, dim=-1).mean(0)
+        avg_prob = (_psum(torch.softmax(-dist * diversity_temperature, dim=-1).sum(0),
+                          process_group) / _psum(torch.tensor(float(M), device=dist.device),
+                                                 process_group))
         loss = loss + diversity_weight * torch.sum(avg_prob * torch.log(avg_prob.clamp_min(1e-12)))
     if training and orthogonal_reg_weight > 0:
         normed = _l2norm(embed)

@@ -18,7 +18,12 @@ Routing, as the JAX package routes (``route``):
   row-major (B, T) order, then every token's second, ...; a (token,
   choice) past its expert's capacity is dropped, and a pad token under
   ``token_mask`` claims no slot. A token that all its choices drop gets
-  zero from the layer (the residual carries it).
+  zero from the layer (the residual carries it);
+- in a data-parallel step (``parallel/dp.py``) N, the order of the claims
+  and the load balance's f and P are the global batch's, rank 0's tokens
+  first, as JAX's data-mesh step routes the whole batch: each rank offsets
+  its slots by the all-gathered (top_k, E) claim counts of the ranks and
+  choices before it.
 
 Dispatch is by index, not by the JAX package's (N, E, C) one-hot einsums
 (65 MB a tensor and 8.4 GFLOP a layer at 32 x 1 s of configs/conformer_moe.yaml):
@@ -42,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dp
 from ..parallel.tp import constrain_heads, tp_model_shards, tp_shard
 from .conv import init_linear, kaiming_uniform_fan_in
 
@@ -96,7 +102,8 @@ def route(xt, router_w, *, top_k: int, capacity_factor: float, token_mask=None) 
     with _fp32_matmul():
         logits = xt.float() @ router_w.float().t()
     probs = torch.softmax(logits, dim=-1)
-    capacity = max(1, int(capacity_factor * N * top_k / E))
+    group = dp.active_group()  # a data-parallel step: the global batch's tokens
+    capacity = max(1, int(capacity_factor * (N * dp.world(group)) * top_k / E))
     gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, experts = gates[:, :top_k], experts[:, :top_k]
     # choice-major claims: column c * N + n is token n's choice c. The
@@ -109,10 +116,27 @@ def route(xt, router_w, *, top_k: int, capacity_factor: float, token_mask=None) 
         claims = claims & token_mask.repeat(top_k)[None, :]
     slots = (torch.cumsum(claims, dim=1) - 1).gather(0, flat[None, :])[0]
     slots = slots.reshape(top_k, N).t()
+    if group is not None:
+        offsets = _global_slot_offsets(claims, top_k, group)
+        slots = slots + offsets[torch.arange(top_k, device=xt.device)[None, :], experts]
     keep = slots < capacity
     if token_mask is not None:
         keep = keep & token_mask[:, None]
     return Routing(logits, probs, gates, experts, slots, keep, capacity)
+
+
+def _global_slot_offsets(claims, top_k: int, group):
+    """(k, E): what to add to this rank's slot of a claim of choice c on
+    expert e to give its slot in the global batch's choice-major order, in
+    which rank 0's tokens come first: every rank's claims of the choices
+    before c, plus the earlier ranks' claims of choice c, less this rank's
+    own claims of the earlier choices (its local count holds them)."""
+    E = claims.shape[0]
+    local = claims.reshape(E, top_k, -1).sum(-1).t()  # (k, E)
+    every = dp.all_gather_rows(local[None], group)  # (ranks, k, E)
+    total = every.sum(0)
+    return (torch.cumsum(total, 0) - total + every[:dp.rank(group)].sum(0)
+            - (torch.cumsum(local, 0) - local))
 
 
 def dispatch(xt, r: Routing):
@@ -171,18 +195,14 @@ def aux_losses(r: Routing, token_mask=None) -> dict:
     E, k = r.probs.shape[1], r.experts.shape[1]
     top1 = (r.experts[:, :1] == torch.arange(E, device=r.experts.device)).float()
     lse2 = torch.logsumexp(r.logits, dim=-1) ** 2
-    if token_mask is None:
-        f, pmean, z = top1.mean(0), r.probs.mean(0), lse2.mean()
-        with torch.no_grad():
-            dropped = 1.0 - r.keep.float().mean()
-    else:
-        w = token_mask.float()
-        n_valid = torch.clamp(w.sum(), min=1.0)
-        f = (top1 * w[:, None]).sum(0) / n_valid
-        pmean = (r.probs * w[:, None]).sum(0) / n_valid
-        z = (lse2 * w).sum() / n_valid
-        with torch.no_grad():
-            dropped = 1.0 - r.keep.float().sum() / (n_valid * k)
+    group = dp.active_group()  # a data-parallel step: f and P over the global batch
+    w = torch.ones_like(lse2) if token_mask is None else token_mask.float()
+    n_valid = torch.clamp(dp.global_sum(w.sum(), group), min=1.0)
+    f = dp.global_sum((top1 * w[:, None]).sum(0), group) / n_valid
+    pmean = dp.global_sum((r.probs * w[:, None]).sum(0), group) / n_valid
+    z = dp.global_sum((lse2 * w).sum(), group) / n_valid
+    with torch.no_grad():
+        dropped = 1.0 - dp.global_sum(r.keep.float().sum(), group) / (n_valid * k)
     return {"load_balance_loss": E * torch.sum(f * pmean), "router_z_loss": z,
             "dropped_frac": dropped}
 

@@ -6,8 +6,11 @@ The run-dir layout is the JAX package's: ``config.json``; ``ckpt/<step>/``,
 the rolling window (``max_to_keep`` newest); ``ckpt_best/<step>/``, one deep,
 the step with the lowest monitored metric (``mel_loss``), with ``best.json``
 naming it. Each step dir holds ``state.pt``, ``torch.save`` of
-``TrainState.state_dict()``. A save is written into a temporary dir, synced
-to disk and renamed, so a crash never leaves a half checkpoint.
+``TrainState.state_dict()``, in the one-card layout whatever the world
+size (rank 0 writes it, after FSDP gathers the cuts), so a run restores on
+any number of ranks, each reading the file (a run dir every rank sees). A
+save is written into a temporary dir, synced to disk and renamed, so a
+crash never leaves a half checkpoint.
 
 Saving is asynchronous. On the caller's thread, ``save`` copies the state
 into pinned host buffers (reused from save to save) with copies queued on
@@ -104,10 +107,21 @@ def _load_train_state(state: TrainState, path: Path):
 
 
 class CheckpointManager:
-    def __init__(self, directory, cfg: Config, *, max_to_keep: int = 3):
+    """The run dir's checkpoints (module docstring). Over the ranks of
+    ``group`` every rank calls ``save`` and ``wait`` (under FSDP the state
+    dict gathers the cuts, a collective), rank 0 alone writes, and ``wait``
+    is where the others wait for its write: a barrier that also carries a
+    failed write's error to every rank."""
+
+    def __init__(self, directory, cfg: Config, *, max_to_keep: int = 3, group=None):
+        from ..parallel import dp
+
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
-        save_config(cfg, self.directory / "config.json")
+        self.group = group
+        self.rank = dp.rank(group)
+        if self.rank == 0:
+            self.directory.mkdir(parents=True, exist_ok=True)
+            save_config(cfg, self.directory / "config.json")
         self.max_to_keep = max_to_keep
         self.best_metric = None
         best_file = self.directory / "best.json"
@@ -145,18 +159,22 @@ class CheckpointManager:
         if not (rolling or best):
             return False
         self.wait()  # the previous write still reads the buffers
-        host = self._host_copy(state.state_dict())
-        done = None
-        if next(state.gen.parameters()).is_cuda:
-            done = torch.cuda.Event()
-            done.record()
+        sd = state.state_dict()  # every rank: FSDP gathers the cuts
         if rolling:
             self._queued.add(step)
         if best:
             self.best_metric = float(metric)
-        self._writer = threading.Thread(target=self._write, args=(host, done, step, rolling, best),
-                                        name="checkpoint-writer", daemon=True)
-        self._writer.start()
+        if self.rank == 0:
+            host = self._host_copy(sd)
+            done = None
+            if next(state.gen.parameters()).is_cuda:
+                done = torch.cuda.Event()
+                done.record()
+            self._writer = threading.Thread(target=self._write,
+                                            args=(host, done, step, rolling, best),
+                                            name="checkpoint-writer", daemon=True)
+            self._writer.start()
+        del sd
         self.last_save = {"stall_s": time.perf_counter() - t0,
                           "bytes": sum(b.numel() * b.element_size() for b in self._buffers.values())}
         return True
@@ -186,12 +204,16 @@ class CheckpointManager:
             self._error = e
 
     def wait(self):
-        """Join the write in flight; raise what it raised."""
+        """Join the write in flight; raise what it raised (on every rank)."""
+        from ..parallel import dp
+
         if self._writer is not None:
             self._writer.join()
             self._writer = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self.group is not None and not dp.all_agree(err is None, self.group):
+            raise RuntimeError("writing a checkpoint failed on rank 0") from err
+        if err is not None:
             raise RuntimeError("writing a checkpoint failed") from err
 
     def latest_step(self) -> Optional[int]:

@@ -19,9 +19,17 @@ precomputed ``semantic_target`` batches; validation logs
 the teacher per file (``make_test_teacher``), and without a teacher it
 is skipped with a ``test_skipped_concat_semantic`` marker, as in JAX.
 
-Data parallelism, tensor and pipeline parallelism and FSDP are not ported:
-their settings raise ``NotImplementedError`` (ROADMAP Queue 1 item 18). As
-in the JAX loop, a resumed run restarts the loader at its first epoch.
+Data parallelism and FSDP run one process per rank (``torchrun``; the
+group from ``parallel/mesh.py::initialize_distributed``): each rank steps
+on its loader's stripe (``train/step.py`` with the group; ``train.fsdp``
+shards the weights and moments, ``parallel/fsdp.py``), the validation and
+test passes run on the stripes and sum their aggregates over the ranks
+(``reduce_validation_aggregates``), and rank 0 alone logs, dumps the
+validation artifacts and writes the checkpoints, which every rank restores
+from. Tensor and pipeline parallel training are not ported: their settings
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 18, its TP / PP / EP
+remainder). As in the JAX loop, a resumed run restarts the loader at its
+first epoch.
 """
 from __future__ import annotations
 
@@ -42,20 +50,27 @@ from .state import init_train_state
 from .step import make_train_step
 
 
-def _single_device(cfg: Config, device) -> torch.device:
-    """The one card (or the CPU) the loop runs on; parallel settings raise."""
+def _placement(cfg: Config, device):
+    """(the device, the group): the rank's card (or the CPU) and the
+    data-parallel group of a multi-process launch (None in one process).
+    Tensor and pipeline parallel settings raise, and so does a device list
+    of more than one (one process per rank, under ``torchrun``)."""
+    from ..parallel.mesh import local_device, process_group
+
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise NotImplementedError(
-                f"the loop runs on one device, {len(device)} were requested: data "
-                "parallelism is not ported yet (ROADMAP Queue 1 item 18)")
+                f"the loop runs one device a process, {len(device)} were requested: launch "
+                "one process per device (torchrun) for data parallelism or FSDP")
         device = device[0]
     t = cfg.train
-    if int(t.tensor_parallel) > 1 or int(t.pipeline_parallel) > 1 or t.fsdp:
+    if int(t.tensor_parallel) > 1 or int(t.pipeline_parallel) > 1:
         raise NotImplementedError(
-            "tensor_parallel, pipeline_parallel and fsdp are not ported yet "
-            "(ROADMAP Queue 1 item 18)")
-    return C.resolve_device(device)
+            "tensor_parallel and pipeline_parallel training are not ported yet "
+            "(ROADMAP Queue 1 item 18: the TP / PP / EP training steps)")
+    group = process_group()
+    device = C.resolve_device(device)  # raises without a card unless the CPU is asked for
+    return (local_device(device) if group is not None else device), group
 
 
 def _device_of(module: torch.nn.Module) -> torch.device:
@@ -101,8 +116,11 @@ def run_validation(cfg: Config, gen, val_loader, *, compute_stoi: bool = True,
     device forward (up to the metrics on the host) as ``forward_s`` and in
     STOI/PESQ as ``quality_s``. ``teacher``: a semantic codec's, for
     batches that carry ``feats``."""
+    from ..parallel.mesh import process_index
+
     eval_step = eval_step if eval_step is not None else make_eval_step(cfg)
     device = _device_of(gen)
+    rank = process_index()
     sr = cfg.dataset.sample_rate
     agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": [], "quality_items": [],
            "semantic_recon_loss": []}
@@ -125,7 +143,7 @@ def run_validation(cfg: Config, gen, val_loader, *, compute_stoi: bool = True,
         if "semantic_recon_loss" in out:
             agg["semantic_recon_loss"].append(float(out["semantic_recon_loss"]))
         hist = out["codebook_hist"] if hist is None else hist + out["codebook_hist"]
-        dump = artifact_dir is not None and i in log_idxs
+        dump = artifact_dir is not None and i in log_idxs and rank == 0
         if compute_stoi or dump:
             gt = out["gt_wav"][:, 0].float().cpu().numpy()
             est = out["gen_wav"][:, 0].float().cpu().numpy()
@@ -183,10 +201,20 @@ def _finalize_validation(agg, hist, codebook_size):
     return results
 
 
-def reduce_validation_aggregates(local: np.ndarray) -> np.ndarray:
-    """The sum of the aggregate vector over processes: one process here, so
-    the identity (the JAX loop all-gathers across hosts)."""
-    return local
+def reduce_validation_aggregates(local: np.ndarray, group=None) -> np.ndarray:
+    """The sum of the aggregate vector over the ranks (``group``, by default
+    the process group; the identity in one process), in float64: every rank
+    reports the same metrics. Its length never depends on the batches a
+    rank saw, so a rank whose stripe gave none still joins."""
+    from ..parallel import dp
+    from ..parallel.mesh import process_group
+
+    group = process_group() if group is None else group
+    if group is None:
+        return local
+    t = torch.from_numpy(np.ascontiguousarray(local, np.float64)).to(dp.collective_device(group))
+    torch.distributed.all_reduce(t, group=group)
+    return t.cpu().numpy()
 
 
 def _dump_val_artifacts(artifact_dir, batch_idx, step, gt, gen, sr):
@@ -309,11 +337,17 @@ def train(cfg: Config, *, train_loader, val_loader=None, test_loader=None, run_d
     ``teacher``: a semantic codec's frozen w2v-bert, for the step, the
     validation and the test pass (never checkpointed). Raises without a
     card unless ``device="cpu"``.
+
+    Under ``torchrun`` (a process group made, ``parallel/mesh.py::
+    initialize_distributed``) each rank trains on its loaders' stripes
+    (``DataLoader(process_index=, process_count=)``) on ``cuda:LOCAL_RANK``
+    (module docstring); ``train.fsdp`` shards the state.
     """
-    device = _single_device(cfg, device)
+    device, group = _placement(cfg, device)
     t = cfg.train
-    state = init_train_state(cfg, generator=torch.Generator().manual_seed(t.seed), device=device)
-    ckpt = CheckpointManager(run_dir, cfg)
+    state = init_train_state(cfg, generator=torch.Generator().manual_seed(t.seed), device=device,
+                             group=group)
+    ckpt = CheckpointManager(run_dir, cfg, group=group)
     if resume_from is not None:
         restore_train_state(resume_from, state, best=resume_best)
     elif ckpt.latest_step() is not None:
@@ -324,15 +358,16 @@ def train(cfg: Config, *, train_loader, val_loader=None, test_loader=None, run_d
         return _train(cfg, state, ckpt, logger, train_loader=train_loader,
                       val_loader=val_loader, test_loader=test_loader, run_dir=run_dir,
                       max_steps=max_steps, profile_steps=profile_steps, device=device,
-                      teacher=teacher)
+                      teacher=teacher, group=group)
 
 
 def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *,
            train_loader, val_loader, test_loader, run_dir, max_steps, profile_steps, device,
-           teacher):
+           teacher, group=None):
     """The loop of ``train`` from a restored state."""
     t = cfg.train
-    step_fn = make_train_step(cfg, device=device)
+    step_fn = make_train_step(cfg, device=device, group=group)
+    gen_weights = state.gen_opt.gathered  # FSDP: the generator's full weights for an eval pass
     eval_step = make_eval_step(cfg) if val_loader is not None else None
     max_steps = max_steps if max_steps is not None else t.max_steps
 
@@ -341,8 +376,10 @@ def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *
         raise ValueError("the training loader yields no batch (fewer files than batch_size?)")
     if val_loader is not None and t.num_sanity_val_steps > 0:
         # a fault in the eval path shows at step 0, not at val_every_n_steps
-        run_validation(cfg, state.gen, val_loader, eval_step=eval_step,
-                       max_batches=t.num_sanity_val_steps, compute_stoi=False, teacher=teacher)
+        with gen_weights():
+            run_validation(cfg, state.gen, val_loader, eval_step=eval_step,
+                           max_batches=t.num_sanity_val_steps, compute_stoi=False,
+                           teacher=teacher)
         logger.log({"sanity_val_ok": 1.0}, step)
     t_last = time.perf_counter()
     hist_accum = None
@@ -383,9 +420,10 @@ def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *
                 logger.log(logs, step)
             if val_loader is not None and step % t.val_every_n_steps == 0:
                 timings: dict = {}
-                val = run_validation(cfg, state.gen, val_loader, artifact_dir=run_dir,
-                                     step=step, eval_step=eval_step, timings=timings,
-                                     teacher=teacher)
+                with gen_weights():
+                    val = run_validation(cfg, state.gen, val_loader, artifact_dir=run_dir,
+                                         step=step, eval_step=eval_step, timings=timings,
+                                         teacher=teacher)
                 logger.log({**val, "val_forward_s": timings["forward_s"],
                             "val_quality_s": timings["quality_s"]}, step)
             if step % t.checkpoint_every_n_steps == 0 or step == max_steps:
@@ -396,5 +434,7 @@ def _train(cfg: Config, state, ckpt: CheckpointManager, logger: MetricsLogger, *
     ckpt.save(state)
     ckpt.wait()
     if test_loader is not None:
-        logger.log(run_test(cfg, state.gen, test_loader, teacher=teacher), step)
+        with gen_weights():
+            test = run_test(cfg, state.gen, test_loader, teacher=teacher)
+        logger.log(test, step)
     return state

@@ -40,6 +40,16 @@ on bf16 copies of its weights. A batch carries the teacher's input
 ``feats`` (B, Tf', 160) or its precomputed ``semantic_target`` (B, 1024,
 Tf) beside ``wav``.
 
+Over ranks (``group``, ``parallel/dp.py``) each rank steps on its own rows
+of the global batch: the gradients are reduced once an update (all-reduced,
+or reduce-scattered under FSDP), after the backward and before the clip;
+the batch-global terms (the EMA statistics, LFQ's entropy, the MoE router,
+the STFT loss's spectral convergence) reduce across the ranks inside the
+forward; the guard's verdict is the ranks' common one; and the metrics come
+back as the global batch's (means, the histogram summed). Under FSDP each
+side's full weights are gathered for the step and the discriminator's again
+after its update, which the generator's loss reads.
+
 K1 runs once per generator forward with the factorized VQ (FSQ, the EMA
 VQ and LFQ have none) and K2 once per fused ResidualUnit (30 in the
 flagship, none in the Conformer) on CUDA tensors; K2's backward recomputes
@@ -59,26 +69,29 @@ from ..losses.stft_loss import multi_resolution_stft_loss
 from ..models import codec as C
 from ..models.discriminators import discriminator_apply
 from ..ops.params import cast_parameters, checkpointed, parameters_as
+from ..parallel import dp
 from .metrics import codebook_histogram
 from .schedule import warmup_lr_schedule
 from .state import ClippedAdamW, TrainState
 
 
-def _finite(total, grads) -> bool:
-    return bool(torch.stack([torch.isfinite(total).all()]
-                            + [torch.isfinite(g).all() for g in grads]).all())
+def _finite(total, grads, group=None) -> bool:
+    ok = torch.stack([torch.isfinite(total).all()] + [torch.isfinite(g).all() for g in grads])
+    return dp.all_agree(ok.all(), group)
 
 
-def make_train_step(cfg: Config, *, device="cuda", draws=None):
+def make_train_step(cfg: Config, *, device="cuda", draws=None, group=None):
     """``step(state, batch, teacher=None) -> metrics`` for ``batch =
     {"wav": (B, T)}`` (a semantic codec's with ``feats`` for the frozen
     ``teacher``, or ``semantic_target``) on ``device`` (the state's):
     updates ``state`` in place and returns the JAX step's metrics as
     tensors (``gen_lr`` a float). ``draws``: the EMA
     quantizer's, a callable ``(step, codes, vectors) -> {"expiry": rows}``
-    (default ``models.codec.ema_draws``). Raises without a card unless
-    ``device="cpu"``, and for a config the port does not build
-    (``models.codec.check_config``)."""
+    (default ``models.codec.ema_draws``). ``group``: the ranks of a
+    data-parallel step (the state's optimizers made over the same group,
+    ``train.state.train_state``; ``batch`` this rank's rows); None: one
+    process. Raises without a card unless ``device="cpu"``, and for a
+    config the port does not build (``models.codec.check_config``)."""
     C.resolve_device(device)
     C.check_config(cfg)
     cfg = copy.deepcopy(cfg)
@@ -151,8 +164,10 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
         return total, logs
 
     def update(opt: ClippedAdamW, total) -> bool:
-        """Apply the side's update; False where the guard skipped it."""
-        if tcfg.guard_nonfinite and not _finite(total, opt.grads()):
+        """Reduce the side's gradients over the ranks and apply its update;
+        False where the guard skipped it."""
+        opt.reduce_grads()
+        if tcfg.guard_nonfinite and not _finite(total, opt.grads(), group):
             return False
         opt.step()
         return True
@@ -165,6 +180,7 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
         disc_total, disc_logs = disc_losses(state.disc, y, out.gen_wav)
         disc_total.backward()
         ok_d = update(state.disc_opt, disc_total)
+        state.disc_opt.refresh()
         state.gen_opt.zero_grad()
         gen_total, gen_logs = gen_losses(state.disc, y, out)
         gen_total.backward()
@@ -195,6 +211,7 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
             (total / n).backward()
             mean_logs(disc_logs, logs)
         ok_d = update(state.disc_opt, disc_logs["disc_loss"])
+        state.disc_opt.refresh()
 
         gen_logs: Dict[str, Any] = {}
         hist = torch.zeros(codebook_size, device=batch["wav"].device)
@@ -216,13 +233,16 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None):
     body = accumulated_step if n_accum > 1 else fused_step
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], teacher=None) -> Dict[str, Any]:
-        with C.precision_scope(cfg):
+        with C.precision_scope(cfg), dp.batch_group(group), state.gen_opt.gathered(), \
+                state.disc_opt.gathered():
             logs, hist, ok_d, ok_g = body(state, batch, teacher)
         metrics = {k: v.detach() for k, v in logs.items()}
         if tcfg.guard_nonfinite:
-            metrics["nonfinite_skipped"] = torch.tensor(float(not (ok_d and ok_g)))
-        metrics["gen_lr"] = gen_sched(state.step)
+            metrics["nonfinite_skipped"] = torch.tensor(float(not (ok_d and ok_g)),
+                                                        device=hist.device)
         metrics["codebook_hist"] = hist
+        metrics = dp.reduce_metrics(metrics, group)
+        metrics["gen_lr"] = gen_sched(state.step)
         state.step += 1
         return metrics
 

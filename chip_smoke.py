@@ -6,7 +6,8 @@ serving and training paths on one GPU.
 
 Phases, each fatal on failure:
  1. the card's name and power limit (nvidia-smi);
- 2. build every kernel (one nvcc per source, started together);
+ 2. build every kernel (one nvcc per source, started together), while the
+    CPU runs its side of phase 8b' (``bf16_cpu_reference``);
  3. K1 (vq_argmin) against its plain version at the flagship shape, the
     semantic codec's (1,600 x 8 against 8192 x 8), the cases of
     tests/test_pallas_vq.py and the edges of its cluster layout;
@@ -39,8 +40,8 @@ Phases, each fatal on failure:
     lr·g): metrics within rtol 1e-3, each leaf's update within 1e-2 x its
     max |update| plus twice the parameters' fp32 spacing (AdamW rounds a
     parameter twice an update); (b') the same step in bf16 (Config()'s
-    precision) on the card against the CPU's with oneDNN off: every metric
-    within rtol 5e-2, the codebook histograms compared and printed
+    precision) at 2 x 4000 on the card against the CPU's with oneDNN off:
+    every metric within rtol 5e-2, the codebook histograms compared and printed
     (train_step_bf16_vs_cpu line); (c) Config() in bf16 at
     32 x 1 s: 2 warm-up steps, 5 timed (CUDA events), finite losses, fp32
     masters, exactly K1 1 and K2 30 launches a step, then the train_step
@@ -301,6 +302,30 @@ Phases, each fatal on failure:
     --pipeline_parallel 2 against the plain CLI's waveforms, with
     parallel/mesh.py's card enumeration listing the card 4 times. Prints
     the parallel line and phase_20_s.
+21. data parallelism and FSDP (dp_path) on Config() at full width, random
+    weights from seed 0, one global batch of 32 x 1 s: (a) one rank under
+    NCCL: the bf16 DP step against the step without a group (cuDNN
+    deterministic): its reduction leaves every gradient and metric bit for
+    bit (the identity at world size 1), its metrics and update hold the
+    bare step's by phase 8b's rule (AdamW eps 1, no warmup); then bare and DP
+    steps in turns (bare, DP, DP, bare; 3 timed each) with the reduction's
+    share of the DP step (CUDA events around the gradient buckets and the
+    metrics); the fp32_strict one-process step (phase 8b's setting, no
+    recomputation) and FSDP over the one NCCL rank against it by phase
+    8b's rule; (b)-(d) in one torchrun launch of two rank processes on the
+    one card, under gloo on CUDA tensors (NCCL refuses two ranks on one
+    device): (b) each rank on its 16 rows, over a group of its own:
+    the DP step's metrics and update against the one-process step by phase
+    8b's rule, K1 1 and K2 30 launches per rank; (c) FSDP over those ranks
+    (leaves of 2^14 elements or more cut in two): against the one-process
+    step and against (b)'s update, each rank's memory at rest and peak
+    beside (b)'s; (d) then, in the same rank processes, cli.train
+    (--dist_backend gloo, its own group from torchrun's environment), 2
+    bf16 steps at 2 x 1 s a rank on 8 WAVs under build/ with a sanity
+    batch, validation and a checkpoint (K1 1 / K2 30
+    per step and per validation batch on each rank, one validation line, no
+    non-finite value), then a resume on one process to step 3. Prints the
+    data_parallel line and phase_21_s.
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -311,9 +336,11 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the
@@ -333,6 +360,7 @@ LAT_RTOL, LAT_ATOL = 1e-3, 2e-4   # the repo's latent tolerance
 WAV_RTOL, WAV_ATOL = 1e-3, 2e-5   # the repo's waveform tolerance
 GRAD_RTOL = 1e-4           # K2's gradients against autograd of its plain version
 REF_B, REF_T = 2, 8000     # the fp32_strict step held against the CPU: 2 x 0.5 s
+BF16_REF_T = 4000          # the bf16 one's 2 x 0.25 s (the CPU's bf16 step, oneDNN off, is slow)
 STEP_RTOL = 1e-3           # that step's metrics, card against CPU
 BF16_RTOL = 5e-2           # the bf16 step's metrics, card against CPU (the CPU test's)
 UPDATE_TOL = 1e-2          # its updates, x each leaf's max |update|
@@ -1000,29 +1028,48 @@ def train_step_vs_cpu(cfg, line: str = "train_step_vs_cpu", teacher=None):
     return out
 
 
-def train_step_bf16_vs_cpu(cfg):
-    """(b') One bf16 step at the same small shape on the card against the
-    same step on the CPU (oneDNN off: this CPU build's bf16 conv2d is wrong
-    where the kernel is wider than the padded input), from the same weights
-    and batch: every metric within rtol 5e-2, the CPU test's bf16 tolerance;
-    the two codebook histograms compared (codes used, total count)."""
+def bf16_cpu_reference(cfg):
+    """The CPU side of (b'): the bf16 step at 2 x 4000 samples (BF16_REF_T)
+    on the CPU with oneDNN off, from seed 0. It needs no kernel, so ``main``
+    runs it while nvcc builds them. Returns (the initial generator and
+    discriminators, the step's metrics, its seconds)."""
     import numpy as np
     import torch
-    from audiotokenization_tpu_torch.train.state import init_train_state, train_state
+    from audiotokenization_tpu_torch.train.state import init_train_state
     from audiotokenization_tpu_torch.train.step import make_train_step
 
     if cfg.train.precision != "bf16":
         fail(f"the bf16 comparison runs Config()'s bf16, got {cfg.train.precision}")
     ref = init_train_state(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    card = train_state(cfg, copy.deepcopy(ref.gen).cuda(), copy.deepcopy(ref.disc).cuda())
-    wav = (np.random.RandomState(1).randn(REF_B, REF_T) * 0.1).astype(np.float32)
+    start = (copy.deepcopy(ref.gen), copy.deepcopy(ref.disc))
+    wav = (np.random.RandomState(1).randn(REF_B, BF16_REF_T) * 0.1).astype(np.float32)
+    t0 = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=False):
+        m_cpu = make_train_step(cfg, device="cpu")(ref, {"wav": torch.from_numpy(wav)})
+    return start, m_cpu, time.perf_counter() - t0
+
+
+def train_step_bf16_vs_cpu(cfg, cpu_ref):
+    """(b') One bf16 step at 2 x 4000 samples (BF16_REF_T: half (b)'s, the
+    CPU's bf16 step being slow) on the card against the same step on the
+    CPU (``cpu_ref``, from ``bf16_cpu_reference``; oneDNN off: this CPU
+    build's bf16 conv2d is wrong where the kernel is wider than the padded
+    input), from the same weights and batch: every metric within rtol 5e-2,
+    the CPU test's bf16 tolerance; the two codebook histograms compared
+    (codes used, total count)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.train.state import train_state
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    (gen, disc), m_cpu, cpu_s = cpu_ref
+    m_cpu = dict(m_cpu)
+    card = train_state(cfg, copy.deepcopy(gen).cuda(), copy.deepcopy(disc).cuda())
+    wav = (np.random.RandomState(1).randn(REF_B, BF16_REF_T) * 0.1).astype(np.float32)
     t0 = time.perf_counter()
     m_card = make_train_step(cfg)(card, {"wav": torch.from_numpy(wav).cuda()})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with torch.backends.mkldnn.flags(enabled=False):
-        m_cpu = make_train_step(cfg, device="cpu")(ref, {"wav": torch.from_numpy(wav)})
-    t2 = time.perf_counter()
     hists = {"card": m_card.pop("codebook_hist").cpu(), "cpu": m_cpu.pop("codebook_hist")}
     hist = {k: {"codes_used": int((h > 0).sum()), "count": float(h.sum()),
                 "top": [[int(i), float(h[i])] for i in torch.argsort(h, descending=True)[:4]
@@ -1036,7 +1083,7 @@ def train_step_bf16_vs_cpu(cfg):
                  f"(rtol {BF16_RTOL:g})")
     if hist["card"]["count"] != hist["cpu"]["count"]:
         fail("bf16 step: the codebook histograms count different totals")
-    out = {"card_s": t1 - t0, "cpu_s": t2 - t1, "batch": [REF_B, REF_T],
+    out = {"card_s": t1 - t0, "cpu_s_beside_nvcc": cpu_s, "batch": [REF_B, BF16_REF_T],
            "metrics_card": {k: float(v) for k, v in m_card.items()},
            "metrics_cpu": {k: float(v) for k, v in m_cpu.items()},
            "rel_diff": rel, "worst_metric_rel": max(rel.values()), "codebook_hist": hist,
@@ -1045,19 +1092,19 @@ def train_step_bf16_vs_cpu(cfg):
     return out
 
 
-def timed_steps(step, state, wav, teacher=None, extra=None):
-    """ms per step over TRAIN_STEPS steps (CUDA events), and the last
-    metrics; ``extra``: more keys of the batch, ``teacher``: the step's."""
+def timed_steps(step, state, wav, teacher=None, extra=None, n=TRAIN_STEPS):
+    """ms per step over ``n`` steps (CUDA events), and the last metrics;
+    ``extra``: more keys of the batch, ``teacher``: the step's."""
     import torch
 
     batch = {"wav": wav, **(extra or {})}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n):
         metrics = step(state, batch, teacher)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / TRAIN_STEPS, metrics
+    return start.elapsed_time(end) / n, metrics
 
 
 def bare_step_again(cfg) -> float:
@@ -5353,6 +5400,472 @@ def parallel_path(cfg, card, dev=None):
     return out
 
 
+# -- 21. data parallelism and FSDP ---------------------------------------------------
+
+DP_RANKS = 2                # (b)-(d): ranks on the one card, under gloo on CUDA tensors
+DP_SEED = 21                # the global batch's draws
+DP_CLI_SECONDS = (1.2, 1.4, 1.6, 1.8, 1.3, 1.5, 1.7, 1.9)  # (d)'s training WAVs
+DP_CLI_VAL = 4              # (d)'s validation WAVs (the first four)
+DP_CLI_STEPS = 2
+DP_TIMED_STEPS = 3          # (a)'s timed steps a turn (bare, DP, DP, bare)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def smooth_adamw(cfg):
+    """A copy of ``cfg`` with phase 8b's optimizer: AdamW eps 1 (an update
+    close to lr·g; at eps 1e-8 it is lr·sign(g), and a gradient near eps
+    moves it by ~1e-2 x max |update| run to run), no warmup."""
+    cfg = copy.deepcopy(cfg)
+    t = cfg.train
+    for o in (t.gen_optim_params, t.disc_optim_params):
+        o.eps = 1.0
+    for s in (t.gen_schedule_params, t.disc_schedule_params):
+        s.warmup_step = 0
+    return cfg
+
+
+def strict_smooth(cfg):
+    """Phase 8b's setting (``smooth_adamw``, fp32_strict), and no
+    recomputation, so that K2 launches once a unit and a step (a
+    checkpoint's recompute would launch it again)."""
+    cfg = smooth_adamw(cfg)
+    cfg.train.precision, cfg.train.remat = "fp32_strict", False
+    return cfg
+
+
+_STEP_ONLY = ("precision", "remat", "gen_optim_params", "disc_optim_params",
+              "gen_schedule_params", "disc_schedule_params")  # read by the step, not the init
+
+
+def seed0_modules(cfg):
+    """The flagship's generator and discriminators from seed 0 on the CPU,
+    drawn once a process for configs that differ only in ``_STEP_ONLY``
+    (``init_train_state``'s draws) and copied to the card for each state
+    (``seed0_state``, which gives the codec ``cfg``: its forward reads the
+    precision there)."""
+    import torch
+    from audiotokenization_tpu_torch.models.codec import Codec
+    from audiotokenization_tpu_torch.models.discriminators import Discriminator
+
+    key = dataclasses.asdict(cfg)
+    key["train"] = {k: v for k, v in key["train"].items() if k not in _STEP_ONLY}
+    key = json.dumps(key, sort_keys=True, default=str)
+    if key not in _SEED0:
+        g = torch.Generator().manual_seed(0)
+        _SEED0.clear()
+        _SEED0[key] = (Codec(cfg, generator=g), Discriminator(cfg, generator=g))
+    return _SEED0[key]
+
+
+_SEED0: dict = {}
+
+
+def seed0_state(cfg, group=None, fsdp=False):
+    """A train state on the card holding ``seed0_modules``' weights."""
+    from audiotokenization_tpu_torch.train.state import train_state
+
+    gen, disc = seed0_modules(cfg)
+    gen = copy.deepcopy(gen).cuda()
+    gen.cfg = cfg
+    return train_state(cfg, gen, copy.deepcopy(disc).cuda(), group=group, fsdp=fsdp)
+
+
+def dp_wav(b: int):
+    import numpy as np
+
+    return (np.random.RandomState(DP_SEED).randn(b, SR) * 0.1).astype(np.float32)
+
+
+def full_leaves(state):
+    """Every parameter and buffer of both modules on the CPU, from the
+    one-card state dict (FSDP gathers its cuts)."""
+    sd = state.state_dict()
+    return {f"{side}.{k}": v.detach().cpu().clone() for side in ("gen", "disc")
+            for k, v in sd[side].items()}
+
+
+def hold_metrics(what, got, want, rtol=STEP_RTOL):
+    import numpy as np
+
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if key == "codebook_hist":
+            if float(g.sum()) != float(w.sum()):
+                fail(f"{what}: the codebook histograms count different totals")
+            continue
+        g, w = float(g), float(w)
+        worst = max(worst, abs(g - w) / max(abs(w), 1e-30))
+        if not (np.isfinite(g) and abs(g - w) <= rtol * abs(w)):
+            fail(f"{what}: {key} {g!r} against {w!r}")
+    return worst
+
+
+def dp_world1(cfg, group):
+    """(a) One rank under NCCL (``group``): the bf16 DP step at 32 x 1 s
+    against the step without a group, both from seed 0 (cuDNN
+    deterministic): the reduction must leave every gradient and metric bit
+    for bit as it found them (at world size 1 it is the identity), and the
+    step's metrics and update hold the bare step's by phase 8b's rule (the
+    rest of the step's atomics order its sums run to run); then DP and bare
+    steps in turns (bare, DP, DP, bare; DP_TIMED_STEPS timed each after 2
+    warm-ups), the reduction (the
+    gradient buckets and the metrics) timed by CUDA events inside the DP
+    steps. AdamW at eps 1 and no warmup (``smooth_adamw``: the same work a
+    step)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.parallel import dp
+    from audiotokenization_tpu_torch.parallel.fsdp import ShardedParams
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = smooth_adamw(cfg)
+    wav = torch.from_numpy(dp_wav(B)).cuda()
+    steps, before = {}, {}
+    moved = {"grads": 0.0, "metrics": 0.0}
+    reduce_orig, metrics_orig = ShardedParams.reduce, dp.reduce_metrics
+
+    def checked_reduce(sync):
+        grads = [p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                 for p in sync.params]
+        reduce_orig(sync)
+        moved["grads"] = max([moved["grads"]] + [(p.grad - g).abs().max().item()
+                                                 for p, g in zip(sync.params, grads)])
+
+    def checked_metrics(metrics, grp):
+        out = metrics_orig(metrics, grp)
+        moved["metrics"] = max([moved["metrics"]] + [
+            (out[k].float() - metrics[k].float()).abs().max().item()
+            for k in metrics if torch.is_tensor(metrics[k])])
+        return out
+
+    def one(grp, name):
+        state = seed0_state(cfg, group=grp)
+        if not before:
+            before.update(full_leaves(state))
+        step = make_train_step(cfg, group=grp)
+        m = step(state, {"wav": wav})
+        torch.cuda.synchronize()
+        steps[name] = (step, state)  # timed below, from this step on
+        return ({k: (v.cpu() if torch.is_tensor(v) else v) for k, v in m.items()},
+                full_leaves(state))
+
+    ShardedParams.reduce, dp.reduce_metrics = checked_reduce, checked_metrics
+    try:
+        with torch.backends.cudnn.flags(deterministic=True, benchmark=False):
+            (m1, l1), (m_dp, l_dp) = one(None, "bare"), one(group, "dp")
+    finally:
+        ShardedParams.reduce, dp.reduce_metrics = reduce_orig, metrics_orig
+    if moved["grads"] or moved["metrics"]:
+        fail(f"(a) the reduction at world size 1 moved a gradient by {moved['grads']:.3g} or a "
+             f"metric by {moved['metrics']:.3g}: it must be the identity")
+    worst_metric = hold_metrics("(a) DP at world size 1", m_dp, m1)
+    w, leaf = hold_updates("(a) DP at world size 1", before, l1, l_dp)
+    out = {"batch": [B, SR], "precision": cfg.train.precision, "backend": "nccl",
+           "adamw_eps": 1.0, "reduction_moved": moved, "worst_metric_rel": worst_metric,
+           "worst_update_rel": w, "worst_update_leaf": leaf,
+           "compare_s": time.perf_counter() - t0}
+    del l1, l_dp, before
+    t0 = time.perf_counter()
+
+    events = []
+
+    def timed(fn):
+        def run(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = fn(*a, **kw)
+            e.record()
+            events.append((s, e))
+            return res
+        return run
+
+    for step, state in steps.values():
+        for _ in range(TRAIN_WARMUP - 1):  # the compared step was the first
+            step(state, {"wav": wav})
+    torch.cuda.synchronize()
+    ms = {"bare": [], "dp": []}
+    reduce_ms = []
+    for name in ("bare", "dp", "dp", "bare"):
+        step, state = steps[name]
+        if name == "dp":
+            ShardedParams.reduce, dp.reduce_metrics = timed(reduce_orig), timed(metrics_orig)
+        try:
+            ms[name].append(timed_steps(step, state, wav, n=DP_TIMED_STEPS)[0])
+        finally:
+            ShardedParams.reduce, dp.reduce_metrics = reduce_orig, metrics_orig
+        if name == "dp":
+            reduce_ms.append(sum(s.elapsed_time(e) for s, e in events) / DP_TIMED_STEPS)
+            events.clear()
+    del steps
+    torch.cuda.empty_cache()
+    dp_ms = float(np.mean(ms["dp"]))
+    return {**out, "bare_ms_per_step": ms["bare"], "dp_ms_per_step": ms["dp"],
+            "reduce_ms_per_step": reduce_ms, "reduce_share": float(np.mean(reduce_ms)) / dp_ms,
+            "dp_over_bare": dp_ms / float(np.mean(ms["bare"])),
+            "timed_s": time.perf_counter() - t0}
+
+
+def strict_reference(cfg_base, group):
+    """The one-process fp32_strict step (phase 8b's setting) on the 32 x 1 s
+    batch from seed 0: (metrics, leaves before, after); and FSDP over
+    ``group``'s one NCCL rank from the same weights held against it by
+    phase 8b's rule (its clip sums the squares another way)."""
+    import torch
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    t_all = time.perf_counter()
+    cfg = strict_smooth(cfg_base)
+    wav = torch.from_numpy(dp_wav(B)).cuda()
+    out = {}
+    for name, grp in (("one_process", None), ("fsdp_world_1", group)):
+        state = seed0_state(cfg, group=grp, fsdp=grp is not None)
+        if grp is None:
+            before = full_leaves(state)
+        t0 = time.perf_counter()
+        m = make_train_step(cfg, group=grp)(state, {"wav": wav})
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        out[name] = ({k: (v.cpu() if torch.is_tensor(v) else v) for k, v in m.items()},
+                     full_leaves(state), step_s)
+        del state
+        torch.cuda.empty_cache()
+    (m_ref, after, ref_s), (m_fs, l_fs, fs_s) = out["one_process"], out["fsdp_world_1"]
+    w, leaf = hold_updates("(a) FSDP at world size 1", before, after, l_fs)
+    fsdp1 = {"worst_metric_rel": hold_metrics("(a) FSDP at world size 1", m_fs, m_ref),
+             "worst_update_rel": w, "worst_update_leaf": leaf, "s": fs_s,
+             "with_the_one_process_step_s": time.perf_counter() - t_all}
+    return (m_ref, before, after, ref_s), fsdp1
+
+
+def dp_rank(rank: int, out_dir: str):
+    """(b)-(c) on one rank (a torchrun process of its own): the fp32_strict
+    DP step, then the FSDP one, each on this rank's 16 rows of the 32 x 1 s
+    batch from seed 0, under gloo on CUDA tensors, over a group of its own
+    (a file rendezvous under <out_dir>, apart from torchrun's store, which
+    (d)'s CLI takes next); their launches, times and memory (less what was
+    allocated before the state: ``base_gb``) to <out_dir>/rank<r>.json,
+    rank 0's metrics and state to <out_dir>/<kind>.pt."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from audiotokenization_tpu_torch.config import Config
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+    from audiotokenization_tpu_torch.parallel.mesh import shard_batch
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{Path(out_dir) / 'rendezvous'}",
+                            rank=rank, world_size=DP_RANKS)
+    group = dist.group.WORLD
+    cfg = strict_smooth(Config())
+    local = shard_batch({"wav": torch.from_numpy(dp_wav(B))}, group)["wav"].cuda()
+    out = {"rank": rank, "rows": int(local.shape[0])}
+    seed0_modules(cfg)
+    out["init_s"] = time.perf_counter() - t0
+    for kind in ("dp", "fsdp"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what the previous kind left behind
+        state = seed0_state(cfg, group=group, fsdp=kind == "fsdp")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rest = torch.cuda.memory_allocated() - base
+        step = make_train_step(cfg, group=group)
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        t1 = time.perf_counter()
+        metrics = step(state, {"wav": local})
+        torch.cuda.synchronize()
+        out[kind] = {"s": time.perf_counter() - t1,
+                     "launches": [vq_argmin.launches, fused_residual_unit.launches],
+                     "base_gb": base / 1e9, "before_step_gb": rest / 1e9,
+                     "after_step_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+                     "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                     "sharded_leaves": (len(state.gen_opt.sync.sharded())
+                                        + len(state.disc_opt.sync.sharded())
+                                        if kind == "fsdp" else 0)}
+        leaves = full_leaves(state)  # a collective under FSDP: every rank
+        if rank == 0:
+            torch.save({"metrics": {k: (v.cpu() if torch.is_tensor(v) else v)
+                                    for k, v in metrics.items()}, "leaves": leaves},
+                       Path(out_dir) / f"{kind}.pt")
+        del state, leaves, metrics
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    out["s"] = time.perf_counter() - t0
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def dp_check_ranks(cfg, reference, out_dir: Path):
+    """(b) and (c): the rank processes' results (``dp_rank``) held against
+    ``reference``, the one-process step (``strict_reference``)."""
+    import torch
+
+    m_ref, before, after, ref_s = reference
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    res = {"ranks": ranks, "one_process_s": ref_s,
+           "backend": "gloo (CUDA tensors; two ranks on one card)"}
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    n_units = 2 * len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    for kind in ("dp", "fsdp"):
+        for r in ranks:
+            if r[kind]["launches"] != [nq, n_units]:
+                fail(f"({'b' if kind == 'dp' else 'c'}) rank {r['rank']} launched K1 / K2 "
+                     f"{r[kind]['launches']} times in one step, not {[nq, n_units]}")
+        got = torch.load(out_dir / f"{kind}.pt", weights_only=False)
+        res[kind] = {"worst_metric_rel": hold_metrics(f"({kind}) against one process",
+                                                      got["metrics"], m_ref)}
+        w, leaf = hold_updates(f"({kind}) against one process", before, after, got["leaves"])
+        res[kind].update(worst_update_rel=w, worst_update_leaf=leaf)
+        if kind == "fsdp":  # FSDP against (b)'s DP update, the same rule
+            dp_leaves = torch.load(out_dir / "dp.pt", weights_only=False)["leaves"]
+            w, leaf = hold_updates("(c) FSDP against DP", before, dp_leaves, got["leaves"])
+            res[kind].update(worst_update_rel_vs_dp=w, worst_update_leaf_vs_dp=leaf)
+            if not all(r["fsdp"]["sharded_leaves"] > 0 for r in ranks):
+                fail("(c) FSDP sharded no leaf")
+    return res
+
+
+def dp_rank_then_cli(out_dir: str, argv):
+    """A torchrun rank of phase 21: (b)-(c) (``dp_rank``), then (d):
+    cli.train.main on ``argv``, whose K1 / K2 launches go to
+    <out_dir>/cli_rank<LOCAL_RANK>.json."""
+    import os
+
+    import torch
+    from audiotokenization_tpu_torch.cli import train as cli
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+    dp_rank(int(os.environ["RANK"]), out_dir)
+    _SEED0.clear()
+    torch.cuda.empty_cache()
+    vq_argmin.launches = fused_residual_unit.launches = 0
+    t0 = time.perf_counter()
+    cli.main(argv)
+    (Path(out_dir) / f"cli_rank{os.environ['LOCAL_RANK']}.json").write_text(json.dumps(
+        {"launches": [vq_argmin.launches, fused_residual_unit.launches],
+         "s": time.perf_counter() - t0}))
+
+
+def dp_ranks_and_cli(cfg_base, reference):
+    """(b)-(d) in one torchrun launch of two ranks on the card: each rank
+    runs (b)-(c) (``dp_rank``), checked here against ``reference``, then
+    cli.train (--dist_backend gloo): DP_CLI_STEPS bf16 steps of the flagship
+    at 2 x 1 s a rank on DP_CLI_SECONDS's WAVs with a sanity batch,
+    validation and a checkpoint at the last step; then a resume in one
+    process to one more step."""
+    import os
+    import torch
+    from audiotokenization_tpu_torch.cli import train as cli
+    from audiotokenization_tpu_torch.config import save_config
+    from audiotokenization_tpu_torch.data.audio_io import write_wav
+
+    import numpy as np
+
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_dp_{int(time.time())}"
+    root.mkdir(parents=True)
+    rng = np.random.RandomState(DP_SEED)
+    files = []
+    for i, s in enumerate(DP_CLI_SECONDS):
+        files.append(root / f"clip{i}.wav")
+        write_wav(files[-1], (rng.randn(int(s * SR)) * 0.1).astype(np.float32), SR)
+    (root / "train.txt").write_text("\n".join(map(str, files)))
+    (root / "val.txt").write_text("\n".join(map(str, files[:DP_CLI_VAL])))
+    cfg = copy.deepcopy(cfg_base)
+    t, d = cfg.train, cfg.dataset
+    t.log_every_n_steps, t.num_sanity_val_steps = 1, 1
+    t.val_every_n_steps = t.checkpoint_every_n_steps = DP_CLI_STEPS
+    d.train.filelist, d.val.filelist, d.test.filelist = str(root / "train.txt"), str(
+        root / "val.txt"), None
+    d.train.batch_size = d.val.batch_size = 2
+    d.train.min_audio_length = d.val.min_audio_length = SR
+    d.val.quality_metric_items = 0  # SI-SNR and the histogram; STOI / PESQ are phase 9's
+    save_config(cfg, root / "cfg.json")
+    run = root / "run"
+    args = ["--config", str(root / "cfg.json"), "--run_dir", str(run), "--no_wandb",
+            "--skip_test"]
+    script = Path(__file__).resolve()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={DP_RANKS}",
+         f"--master_port={free_port()}", str(script), "--dp-ranks", str(root), *args,
+         "--dist_backend", "gloo", "--max_steps", str(DP_CLI_STEPS)],
+        cwd=str(script.parent), env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"(b)-(d) torchrun exited {proc.returncode}")
+    two_ranks = dp_check_ranks(cfg_base, reference, root)
+    logs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    ranks = [json.loads((root / f"cli_rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    val_batches = DP_CLI_VAL // DP_RANKS // d.val.batch_size
+    forwards = DP_CLI_STEPS + t.num_sanity_val_steps + val_batches
+    nq = cfg.model.codec_decoder.vq_num_quantizers
+    n_units = 2 * len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+    for r in ranks:
+        if r["launches"] != [nq * forwards, n_units * forwards]:
+            fail(f"(d) a torchrun rank launched K1 / K2 {r['launches']} times, not "
+                 f"{[nq * forwards, n_units * forwards]} ({DP_CLI_STEPS} steps and "
+                 f"{forwards - DP_CLI_STEPS} validation batches)")
+    if sum("val_si_snr" in rec for rec in logs) != 1 or not (run / "ckpt" / str(DP_CLI_STEPS)
+                                                            / "state.pt").is_file():
+        fail("(d) the torchrun run logged no single validation or wrote no checkpoint")
+    bad = [k for rec in logs for k, v in rec.items() if isinstance(v, float)
+           and not np.isfinite(v)]
+    if bad:
+        fail(f"(d) non-finite logged values: {bad}")
+    t0 = time.perf_counter()
+    cli.main(args + ["--max_steps", str(DP_CLI_STEPS + 1)])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    steps = [json.loads(line)["step"] for line in (run / "metrics.jsonl").read_text()
+             .splitlines() if "gen_loss" in line]
+    if steps != list(range(1, DP_CLI_STEPS + 2)):
+        fail(f"(d) the resume on one process logged steps {steps}")
+    cli_out = {"resume_one_process_s": resume_s, "ranks": ranks,
+               "launches_per_rank_step": [ranks[0]["launches"][0] / forwards,
+                                          ranks[0]["launches"][1] / forwards],
+               "logged_steps": steps, "ckpt_gb": (run / "ckpt" / str(DP_CLI_STEPS)
+                                                  / "state.pt").stat().st_size / 1e9}
+    shutil.rmtree(root, ignore_errors=True)
+    return {**two_ranks, "torchrun_wall_s": torchrun_s}, cli_out
+
+
+def dp_path(cfg, card):
+    """21. Data parallelism and FSDP on the one card (module docstring);
+    prints the data_parallel line."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        out = {"world_size_1": dp_world1(cfg, dist.group.WORLD)}
+        reference, out["world_size_1"]["fsdp"] = strict_reference(cfg, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    out["world_size_1_s"] = time.perf_counter() - t0
+    out["two_ranks"], out["cli"] = dp_ranks_and_cli(cfg, reference)
+    del reference
+    out["phase_21_s"] = time.perf_counter() - t0
+    print(json.dumps({"data_parallel": out, "card": card}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5367,9 +5880,21 @@ def main() -> int:
     print(card)  # name and power limit, as nvidia-smi gives them
     kind = torch.cuda.get_device_name(0)
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config()
     t0 = time.perf_counter()
-    reports = build.build_all()
-    print(f"built {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:  # the kernels build while the CPU runs (b')'s step
+        built = pool.submit(build.build_all)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads - len(build.KERNELS)))
+        try:
+            bf16_ref = bf16_cpu_reference(cfg)
+        finally:
+            torch.set_num_threads(threads)
+        reports = built.result()
+    print(f"built {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s "
+          f"(the CPU's bf16 step beside it: {bf16_ref[2]:.1f} s)")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -5379,9 +5904,6 @@ def main() -> int:
     if hmma == 0:
         fail("the residual_unit library has no tensor-core (HMMA) instructions")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = Config()
     shapes = unit_shapes(cfg)
     sem_shapes = unit_shapes(repo_config("bigcodec_semantic.yaml"))  # C 16-256: phase 17's
     k1_err = check_k1()
@@ -5398,7 +5920,8 @@ def main() -> int:
 
     check_k2_grads(shapes + sem_shapes)
     train_step_vs_cpu(cfg)
-    train_step_bf16_vs_cpu(cfg)
+    train_step_bf16_vs_cpu(cfg, bf16_ref)
+    del bf16_ref
     train = train_path(cfg, card)
     loop = train_loop_path(cfg, card, train)
     ext = extract_path(cfg, card)
@@ -5435,6 +5958,8 @@ def main() -> int:
     t0 = time.perf_counter()
     par = parallel_path(cfg, card)
     print(json.dumps({"phase_20_s": time.perf_counter() - t0, "card": card}))
+    dpp = dp_path(cfg, card)
+    print(json.dumps({"phase_21_s": dpp["phase_21_s"], "card": card}))
     sp, tp_pp = par["sp_flagship"], par["conformer"]
 
     def path_launches(kernel):
@@ -5450,6 +5975,9 @@ def main() -> int:
             "moe_tp2_tokenize": tp_pp["moe_tp2_tokenize"]["launches"][k],
             "pp_tokenize": {n: tp_pp[f"pp{n}"]["launches"]["tokenize"][k] for n in (2, 3)},
             "pp_synthesize": {n: tp_pp[f"pp{n}"]["launches"]["synthesize"][k] for n in (2, 3)},
+            "dp_per_rank_step": dpp["two_ranks"]["ranks"][0]["dp"]["launches"][k],
+            "fsdp_per_rank_step": dpp["two_ranks"]["ranks"][0]["fsdp"]["launches"][k],
+            "cli_torchrun_per_rank_step": dpp["cli"]["launches_per_rank_step"][k],
             "speaker_verification_cli_per_call": sv["cli"]["launches"][kernel],
             "speaker_verification_codec_leg": sv["codec_leg"]["launches"][kernel],
             "token_lm_train_per_step": token_lm["train"]["launches_per_step"][kernel],
@@ -5550,11 +6078,18 @@ def main() -> int:
                               f"{SP_SECONDS} s file and SP synthesize of its codes, the shards "
                               "on the one card; tp_tokenize / pp_*: per Conformer call of "
                               f"{PAR_REQUESTS} x {PAR_SECONDS} s at 2 / 4 model shards and 2 / "
-                              "3 stages"}))
+                              "3 stages; dp_per_rank_step / fsdp_per_rank_step: a rank's "
+                              "fp32_strict step of 16 x 1 s, two ranks on the card; "
+                              "cli_torchrun_per_rank_step: cli.train under torchrun, a rank's "
+                              "launches over its steps and validation batches, per forward"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-ranks"]:  # a torchrun rank of phase 21
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        dp_rank_then_cli(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
     sys.exit(main())

@@ -25,6 +25,16 @@ from audiotokenization_tpu_torch.utils import tome as TT
 TOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rand(*shape, seed=0):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
 

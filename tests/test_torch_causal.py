@@ -54,6 +54,16 @@ HOP = 10
 VARIANTS = {"causal": (True, False), "antialias": (False, True), "causal+antialias": (True, True)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def variant_config(causal: bool, antialias: bool):
     jcfg = GE._tiny_config()
     jcfg.train.precision = "fp32"

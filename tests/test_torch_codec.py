@@ -30,6 +30,16 @@ WAV_RTOL, WAV_ATOL = 1e-3, 2e-5
 GAP = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port(jcfg, params):
     """The port's codec on the CPU with the JAX tree's weights."""
     codec = TC.init_codec(PC.from_dict(dataclasses.asdict(jcfg)),

@@ -56,6 +56,16 @@ HOP = 40
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tiny(causal=False, layers=2, channels=None):
     """The tiny Conformer; ``channels``: latent width other than dim (the
     weight-normed projections then exist)."""

@@ -54,6 +54,16 @@ HOP = 40
 LENGTHS = [7 * HOP, 12 * HOP, 0, 9 * HOP]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     """Per causality: (jcfg, JAX params, the port's codec)."""

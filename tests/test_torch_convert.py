@@ -34,6 +34,16 @@ sys.path.insert(0, str(Path(GE.__file__).resolve().parent / "scripts"))
 import jax_run_to_torch  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tiny():
     jcfg = GE._tiny_config()
     jcfg.train.precision = "fp32"

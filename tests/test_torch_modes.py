@@ -42,6 +42,16 @@ LENGTHS = [730, 400, 1000]
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def no_onednn():
     with torch.backends.mkldnn.flags(enabled=False):
         yield

@@ -59,6 +59,16 @@ HOP = 40
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def setup(seed=0, n=6, t=10):
     """JAX params, the port's layer with the same weights, and x (n, t, DIM)."""
     p = JM.init_moe_ffn(jax.random.key(seed), DIM, n_experts=E, ffn_mult=2)

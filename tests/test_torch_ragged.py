@@ -29,6 +29,16 @@ WAV_RTOL, WAV_ATOL = 1e-5, 1e-6
 LENGTHS = [730, 400, 1000]  # hop (10) multiples, as tests/test_ragged_batch.py
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("bidirectional", [False, True], ids=["one-way", "bidirectional"])
 def test_masked_lstm_matches_jax(bidirectional):
     F, T, layers = 12, 10, 2

@@ -20,6 +20,16 @@ from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_resi
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_params(C):
     k1, k2, k3 = jax.random.split(jax.random.key(0), 3)
     p = {"snake1": init_snake_beta(C), "conv1": init_wn_conv1d(k1, C, C, 7, torch_default=True),

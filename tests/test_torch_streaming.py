@@ -62,6 +62,16 @@ WAV_RTOL, WAV_ATOL = 1e-3, 2e-5
 HOP = 10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: parallel test workers share the cores, and idle
+    threads of an oversubscribed pool spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tiny(causal=True, antialias=False, five_stage=False):
     jcfg = GE._tiny_config()
     jcfg.train.precision = "fp32"
