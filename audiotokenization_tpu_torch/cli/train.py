@@ -18,6 +18,19 @@ rank), on cuda:LOCAL_RANK under NCCL (gloo with --device cpu, or with
 --dist_backend gloo, which lets ranks share a card); rank 0 logs and
 writes the checkpoints, which resume on any number of ranks.
 
+Tensor and pipeline parallelism of the Conformer (the MoE's experts split
+with TP; TP composes with FSDP, PP does not), the model axis in each
+process:
+  [torchrun --nproc_per_node N -m] audiotokenization_tpu_torch.cli.train \
+      --config configs/conformer.yaml \
+      --override train.tensor_parallel=2 [train.fsdp=true] \
+      [--model_devices cuda:0 cuda:1]
+(or train.pipeline_parallel=3 [train.pipeline_microbatches=6]).
+--model_devices lists the model (or stage) devices, one each; by default
+the rank's device repeated (one card; ``cpu`` with --device cpu). The
+checkpoints keep the one-card layout: a TP or PP run resumes without the
+override, and a one-card run resumes under it.
+
 The semantic branch (``train.use_semantic``, configs/bigcodec_semantic.yaml):
   - default: the loader computes the teacher's input features from each
     cropped clip (``ops/fbank.py``) and the frozen w2v-bert teacher runs in
@@ -103,6 +116,10 @@ def main(argv=None):
     p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
                    help="under torchrun: the process group's backend (default nccl on cards, "
                         "gloo on the CPU; gloo lets several ranks share one card)")
+    p.add_argument("--model_devices", type=str, nargs="*", default=None,
+                   help="under train.tensor_parallel / pipeline_parallel N: the N model (or "
+                        "stage) devices of this process, e.g. cuda:0 cuda:1 (default: its "
+                        "device repeated)")
     args = p.parse_args(argv)
 
     from ..config import load_config
@@ -135,13 +152,20 @@ def main(argv=None):
         semantic_dir=args.semantic_dir if cfg.train.use_semantic else None,
         compute_feats=compute_feats, process_index=process_index(),
         process_count=process_count())
+    devices = device
+    n_model = max(int(cfg.train.tensor_parallel), int(cfg.train.pipeline_parallel), 1)
+    if args.model_devices:
+        devices = [torch.device(d) for d in args.model_devices]
+    elif n_model > 1:
+        devices = [device] * n_model
     logger = MetricsLogger(run_dir, run_name=cfg.name, use_wandb=not args.no_wandb)
     try:
         return train(cfg, train_loader=train_loader, val_loader=val_loader,
                      test_loader=test_loader, run_dir=run_dir, max_steps=args.max_steps,
                      logger=logger, teacher=teacher,
                      profile_steps=tuple(args.profile_steps) if args.profile_steps else None,
-                     resume_from=args.resume_from, resume_best=args.resume_best, device=device)
+                     resume_from=args.resume_from, resume_best=args.resume_best,
+                     device=devices)
     finally:
         logger.close()
         if owned:

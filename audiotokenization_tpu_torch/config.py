@@ -158,10 +158,13 @@ class TrainConfig:
     """Training settings: the step's (``train/step.py``) and the loop's
     (``train/loop.py``: steps, logging, validation, checkpoints). One
     process a rank under ``torchrun`` trains data parallel; ``fsdp`` also
-    cuts the weights and AdamW moments at rest over the ranks, but gathers
-    a side's weights whole for the step, so a step's peak memory is not
-    below plain data parallelism's (``parallel/fsdp.py``). The loop refuses
-    ``tensor_parallel`` and ``pipeline_parallel`` above 1."""
+    cuts the weights and AdamW moments at rest over the ranks and gathers
+    them one block at a time in the step (``parallel/fsdp.py``).
+    ``tensor_parallel`` (the Conformer's attention and SwiGLU weights, and
+    the MoE's experts, split over the model devices) and
+    ``pipeline_parallel`` (its layers in stages, ``pipeline_microbatches``
+    microbatches, 0: one a stage; ``remat`` recomputes each layer) split
+    the model over a process's model devices; one of the two at a time."""
     max_steps: int = 600000
     precision: str = "bf16"  # bf16 | fp32 | fp32_strict
     remat: Any = "auto"

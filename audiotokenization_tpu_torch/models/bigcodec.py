@@ -54,6 +54,7 @@ from ..ops.cuda.residual_unit_kernel import fused_residual_unit
 from ..ops.lstm import init_lstm, res_lstm
 from ..ops.params import checkpointed
 from ..ops.snake import SnakeBeta, snake_beta
+from ..parallel.fsdp import run_block
 
 
 def _wn_conv(x, p, *, stride=1, padding=0, dilation=1, causal=False):
@@ -258,9 +259,11 @@ class BigCodecDecoder(nn.Module):
 
 
 def _block(fn, x, block, *, remat: bool, **kwargs):
+    """``fn(x, block)``, recomputed in the backward with ``remat``; one FSDP
+    block (``parallel/fsdp.py::run_block``)."""
     if remat:
-        return checkpointed(fn, block, x, **kwargs)
-    return fn(x, block, **kwargs)
+        return run_block(block, checkpointed, fn, block, x, **kwargs)
+    return run_block(block, fn, x, block, **kwargs)
 
 
 def encode_front(p: BigCodecEncoder, x, *, remat: bool = False):
@@ -276,7 +279,7 @@ def encode_front(p: BigCodecEncoder, x, *, remat: bool = False):
 def encode_tail(p: BigCodecEncoder, x):
     """ResLSTM, snake_out and conv_out over the front's frames."""
     if p.lstm is not None:
-        x = res_lstm(x, p.lstm)
+        x = run_block(p.lstm, res_lstm, x, p.lstm)
     x = _AA(p.antialias)(x, p.snake_out)
     return _wn_conv(x, p.conv_out, padding=1, causal=p.causal)
 
@@ -293,7 +296,7 @@ def bigcodec_decode(p: BigCodecDecoder, x, *, remat: bool = False):
     aa = _AA(p.antialias)
     x = _wn_conv(x, p.conv_in, padding=3, causal=p.causal)
     if p.lstm is not None:
-        x = res_lstm(x, p.lstm)
+        x = run_block(p.lstm, res_lstm, x, p.lstm)
     for block, stride in zip(p.blocks, p.up_ratios):
         x = _block(decoder_block, x, block, remat=remat, stride=stride,
                    dilations=p.dilations, aa=aa)

@@ -56,6 +56,7 @@ from ..config import Config, quantizer_kind, resolve_remat
 from ..ops.moe import MoEFeedForward
 from ..ops.params import cast_parameters, parameters_as
 from ..parallel import dp
+from ..parallel.fsdp import run_block
 from . import bigcodec, conformer
 from .quantizers import factorized_vq as fvq
 from .quantizers import fsq
@@ -321,9 +322,9 @@ def forward(codec: Codec, batch: Dict[str, Any], *, training: bool = False,
             with torch.no_grad(), parameters_as(teacher, teacher_cast):
                 target = _semantic_target(codec, batch, latents.shape[-1], teacher)
             latents = semantic_vq_in(codec, latents, target)
-        zq, codes, vq_loss, qstate = quantize(
-            codec, latents, training=training, step=step, draws=draws, state=quantizer_state,
-            with_state=True)
+        zq, codes, vq_loss, qstate = run_block(
+            codec.quantizer, quantize, codec, latents, training=training, step=step,
+            draws=draws, state=quantizer_state, with_state=True)
         if cfg.train.use_semantic:
             sem_loss = semantic_recon_loss(codec.semantic, zq, target)
             zq = apply_fc_post_a(codec, zq)

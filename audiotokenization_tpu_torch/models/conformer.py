@@ -20,7 +20,9 @@ ISTFT takes each sample's own envelope. The FFTs run in fp32 whatever the
 parameters' dtype; the backbone runs in the parameters' dtype.
 
 Both take ``backbone_fn``, a replacement for the sequential backbone: the
-hook ``parallel/pp.py`` runs the layers through as a GPipe pipeline.
+hook ``parallel/pp.py`` runs the layers through as a GPipe pipeline; inside
+its ``pp_train_context`` (pipeline-parallel training) the hook is taken
+from there when none is given and the batch is not ragged.
 
 ``ffn_type: moe`` (configs/conformer_moe.yaml) makes the encoder's FFNs
 MoE layers (``ops/moe.py``); the encoder's ``forward`` then appends their
@@ -110,6 +112,10 @@ def encode_output(p: ConformerEncoder, h):
 
 
 def _run_backbone(h, backbone, *, valid, aux, backbone_fn):
+    if backbone_fn is None and valid is None:
+        from ..parallel.pp import maybe_pp_backbone
+
+        backbone_fn = maybe_pp_backbone(backbone)  # pipeline-parallel training
     if backbone_fn is None:
         return conformer_backbone(h, backbone, valid=valid, aux=aux)
     if valid is not None:

@@ -28,6 +28,7 @@ from torch import nn
 from ..config import Config
 from ..ops.conv import conv2d, get_weight, init_wn_conv2d
 from ..ops.stft import reflect_pad, stft_magnitude
+from ..parallel.fsdp import run_block
 
 
 class PeriodDiscriminator(nn.Module):
@@ -75,7 +76,8 @@ class MultiPeriodDiscriminator(nn.Module):
 
 
 def mpd_apply(p: MultiPeriodDiscriminator, x) -> List[List[torch.Tensor]]:
-    return [period_discriminator(d, x, period=period) for d, period in zip(p.discs, p.periods)]
+    return [run_block(d, period_discriminator, d, x, period=period)
+            for d, period in zip(p.discs, p.periods)]
 
 
 class SpecDiscriminator(nn.Module):
@@ -136,12 +138,12 @@ class MultiResolutionSpecDiscriminator(nn.Module):
 
 def spec_discriminator_apply(p: MultiResolutionSpecDiscriminator, x):
     """x (B, 1, T) -> per resolution, the feature list."""
-    results = []
-    for d, (nf, hp, wl) in zip(p.discs, p.resolutions):
+    def one(d, nf, hp, wl):
         mag = stft_magnitude(x[:, 0, :], n_fft=nf, hop_length=hp, win_length=wl)
         spec = mag.to(get_weight(d.layers[0]).dtype).transpose(1, 2)[:, None]
-        results.append(nlayer_spec_discriminator(d, spec, downsample_scales=p.downsample_scales))
-    return results
+        return nlayer_spec_discriminator(d, spec, downsample_scales=p.downsample_scales)
+
+    return [run_block(d, one, d, *res) for d, res in zip(p.discs, p.resolutions)]
 
 
 class Discriminator(nn.Module):

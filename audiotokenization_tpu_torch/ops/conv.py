@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.fsdp import remember
+
 
 def conv1d(x, w, b=None, *, stride: int = 1, padding: int = 0, dilation: int = 1,
            groups: int = 1):
@@ -78,12 +80,15 @@ def _tensors(p) -> Mapping:
 
 
 def get_weight(p):
-    """Effective weight of a conv/linear: its folded ``w``, or g·v/‖v‖.
-    ``p`` is a dict of tensors or a ``WeightNormed`` module."""
+    """Effective weight of a conv/linear: its folded ``w``, or g·v/‖v‖
+    (inside an FSDP block, recomputed in the backward rather than kept:
+    ``parallel/fsdp.py::remember``). ``p`` is a dict of tensors or a
+    ``WeightNormed`` module."""
     t = _tensors(p)
     if "w" in t:
         return t["w"]
-    return weight_norm(t["v"], t["g"])
+    v, g = t["v"], t["g"]
+    return remember(weight_norm(v, g), weight_norm, v, g)
 
 
 class WeightNormed(nn.Module):

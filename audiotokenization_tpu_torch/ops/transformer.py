@@ -59,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.fsdp import run_block
 from ..parallel.tp import (constrain_heads, row_parallel_sum, tp_model_shards, tp_qkv_heads,
                            tp_shard)
 from .conv import causal_conv1d, conv1d, get_weight, init_conv1d, init_linear, linear, pointwise
@@ -363,11 +364,24 @@ def conformer_backbone(x, p: ConformerBackbone, *, valid=None, aux=None):
     T = x.shape[1]
     if T > p.max_seq_len:
         raise ValueError(f"{T} frames exceed max_seq_len={p.max_seq_len} (the RoPE table)")
-    cos, sin = (t[:T] for t in p.rope(x.device))
-    bias = (None if valid is None else
-            attention_bias(T, valid=valid, causal=p.causal, dtype=x.dtype, device=x.device))
+    home, args = x.device, {}
     for layer in p.layers:
-        x = conformer_layer(x, layer, cos, sin, n_head=p.n_head, conv_first=p.conv_first,
-                            causal=p.causal, valid=valid, bias=bias, moe_args=p.moe_args,
-                            aux=aux)
-    return x
+        dev = layer.attn_norm.device  # pipeline training puts layers on several devices
+        if dev not in args:
+            v = None if valid is None else valid.to(dev)
+            args[dev] = (*(t[:T] for t in p.rope(dev)), v, None if v is None else
+                         attention_bias(T, valid=v, causal=p.causal, dtype=x.dtype, device=dev))
+        cos, sin, v, bias = args[dev]
+        layer_aux = None if aux is None else []
+        x, layer_aux = run_block(layer, _layer_with_aux, x.to(dev), layer, cos, sin,
+                                 n_head=p.n_head, conv_first=p.conv_first, causal=p.causal,
+                                 valid=v, bias=bias, moe_args=p.moe_args, aux=layer_aux)
+        if aux is not None:
+            aux.extend(layer_aux)
+    return x.to(home)
+
+
+def _layer_with_aux(x, p, cos, sin, *, aux, **kwargs):
+    """``conformer_layer``, its aux losses returned beside its output (the
+    tensors ``parallel/fsdp.py::run_block`` follows into the backward)."""
+    return conformer_layer(x, p, cos, sin, aux=aux, **kwargs), aux

@@ -13,11 +13,21 @@ which lets ranks share a card or run on the CPU), and each runs one step of:
 - the EMA-codebook step, asserting that the codebook moved;
 - the semantic step with an in-loop w2v-bert teacher, in bf16;
 - a validation pass over the ranks' stripes of a batch list;
+- gradient accumulation (two micro-batches a rank);
+- the tiny Conformer's tensor-parallel step over two model devices (the
+  rank's device twice), asserting that the TP leaves are held as cuts;
+- expert parallelism: the MoE Conformer's step under TP 2, its router's
+  aux losses finite;
+- the pipeline-parallel step (2 + 2 layers over two stages), asserting
+  that the stages' layers sit on the stages' devices;
 
-and rank 0 then runs the sequence-parallel tokenize and synthesize of
-one utterance over ``n`` shards (``parallel/sp.py``, one process). Each
-check raises on a non-finite loss or a broken promise; the run raises if a
-rank fails.
+and rank 0 then runs, in one process over ``n`` shards, the
+sequence-parallel tokenize and synthesize of one utterance
+(``parallel/sp.py``) and the anti-aliased codec's SP tokenize, the
+Conformer's TP tokenize and PP tokenize (against one-device tokenize),
+and the ragged Conformer tokenizer against per-file tokenize. Each check
+raises on a non-finite loss or a broken promise; the run raises if a rank
+fails.
 """
 from __future__ import annotations
 
@@ -50,6 +60,21 @@ def tiny_config() -> Config:
     s.stft_params.fft_sizes, s.stft_params.hop_sizes = (128, 256), (32, 64)
     s.stft_params.win_lengths = (128, 256)
     s.channels, s.max_downsample_channels = 4, 16
+    return cfg
+
+
+def tiny_conformer_config() -> Config:
+    """The JAX package's ``__graft_entry__._tiny_conformer_config``: one
+    layer a side of dim 32, 4 heads, hop 40, 64 codes of 8 dims."""
+    cfg = tiny_config()
+    for m in (cfg.model.codec_encoder, cfg.model.codec_decoder):
+        m.hop_length, m.n_fft, m.window_size = 40, 160, 160
+        m.dim, m.n_layers, m.n_head, m.rope_theta = 32, 1, 4, 500.0
+    cfg.model.codec_encoder.type, cfg.model.codec_encoder.out_channels = "conformer_stft", 32
+    cfg.model.codec_decoder.type, cfg.model.codec_decoder.in_channels = "conformer_istft", 32
+    s = cfg.model.mstft
+    s.stft_params.fft_sizes, s.stft_params.hop_sizes, s.stft_params.win_lengths = (
+        (128,), (32,), (128,))
     return cfg
 
 
@@ -107,6 +132,12 @@ def _rank_checks(device: torch.device, group, n: int) -> dict:
     out["semantic"] = _finite(make_train_step(cfg_s, device=device, group=group)(
         sem, sem_batch, teacher), "semantic_recon_loss")
 
+    cfg_a = tiny_config()
+    cfg_a.train.accumulate_grad_batches = 2
+    out["accumulate"] = _finite(make_train_step(cfg_a, device=device, group=group)(
+        state_of(cfg_a, 4, fsdp=False), local))
+    out.update(_model_axis_checks(device, group, local, state_of))
+
     rank = dist.get_rank(group) if group is not None else 0
     batches = [{"wav": wav[i:i + 2], "lengths": torch.full((2,), 800)}
                for i in range(0, 2 * n, 2)][rank::n]  # this rank's stripe of the list
@@ -114,6 +145,94 @@ def _rank_checks(device: torch.device, group, n: int) -> dict:
     out["val_si_snr"] = float(val["val_si_snr"])
     if not np.isfinite(out["val_si_snr"]):
         raise RuntimeError("dry run: validation gave a non-finite SI-SNR")
+    return out
+
+
+def _model_axis_checks(device, group, local, state_of) -> dict:
+    """One rank's tensor-, expert- and pipeline-parallel steps over two
+    model devices (the rank's device twice)."""
+    from ..train.step import make_train_step
+
+    out = {}
+    cfg_t = tiny_conformer_config()
+    cfg_t.train.tensor_parallel = 2
+    tp = state_of(cfg_t, 6, fsdp=False, model_devices=[device] * 2)
+    if not tp.gen_opt.sync.tp_leaves():
+        raise RuntimeError("dry run: TP left the FFN replicated")
+    out["tp"] = _finite(make_train_step(cfg_t, device=device, group=group)(tp, local))
+
+    cfg_m = tiny_conformer_config()
+    cfg_m.train.tensor_parallel = 2
+    e = cfg_m.model.codec_encoder
+    e.ffn_type, e.moe_experts, e.moe_capacity_factor = "moe", 4, 2.0
+    ep = state_of(cfg_m, 8, fsdp=False, model_devices=[device] * 2)
+    m = make_train_step(cfg_m, device=device, group=group)(ep, local)
+    out["ep"] = _finite(m)
+    out["ep_load_balance"] = _finite(m, "moe_load_balance")
+
+    cfg_p = tiny_conformer_config()
+    cfg_p.model.codec_encoder.n_layers = cfg_p.model.codec_decoder.n_layers = 2
+    cfg_p.train.pipeline_parallel = 2
+    stages = [torch.device(device)] * 2
+    pp = state_of(cfg_p, 9, fsdp=False, model_devices=stages)
+    placed = [next(layer.parameters()).device for layer in pp.gen.encoder.backbone.layers]
+    if placed != [torch.device(d) for d in stages]:
+        raise RuntimeError(f"dry run: the PP stages' layers sit on {placed}")
+    out["pp"] = _finite(make_train_step(cfg_p, device=device, group=group)(pp, local))
+    return out
+
+
+def _serving_checks(device: torch.device, n: int) -> dict:
+    """The anti-aliased SP tokenize, the Conformer's TP and PP tokenize and
+    the ragged Conformer tokenizer, in one process over n shards."""
+    from ..models import codec as C
+    from ..utils.ragged import make_ragged_tokenizer
+    from .pp import make_pipe_mesh, pp_tokenize
+    from .sp import make_sp_tokenizer
+    from .tp import make_dp_tp_mesh, tp_tokenize
+
+    out = {}
+    cfg_aa = tiny_config()
+    cfg_aa.model.codec_encoder.antialias = True
+    aa = C.init_codec(cfg_aa, generator=torch.Generator().manual_seed(5), device=device)
+    wav1 = torch.from_numpy((np.random.RandomState(1).randn(n * 400) * 0.1)
+                            .astype(np.float32)).to(device)
+    codes = make_sp_tokenizer(cfg_aa, [device] * n, chunk_quantum_seconds=0.025,
+                              device=device.type)(aa, wav1)
+    if codes.shape[-1] != n * 400 // 10:
+        raise RuntimeError(f"dry run: the anti-aliased SP tokenize gave {codes.shape[-1]} frames")
+    out["sp_antialias_frames"] = int(codes.shape[-1])
+
+    cfg = tiny_conformer_config()
+    cfg.model.codec_encoder.n_layers = 2
+    codec = C.init_codec(cfg, generator=torch.Generator().manual_seed(7), device=device)
+    wav = torch.from_numpy((np.random.RandomState(4).randn(4, 800) * 0.1)
+                           .astype(np.float32)).to(device)
+    with torch.no_grad():
+        ref = C.tokenize(codec, wav, mode="conformant")
+    tp_codes = tp_tokenize(codec, cfg, make_dp_tp_mesh(2, [device] * 2))(wav)
+    if tp_codes.shape[1] != wav.shape[0]:
+        raise RuntimeError(f"dry run: TP tokenize gave {tp_codes.shape[1]} rows")
+    pp_codes = pp_tokenize(codec, cfg, make_pipe_mesh(2, [device] * 2))(wav)
+    if not torch.equal(pp_codes, ref):
+        raise RuntimeError("dry run: pipeline tokenize diverged from sequential")
+
+    cfg_r = tiny_conformer_config()
+    ragged_codec = C.init_codec(cfg_r, generator=torch.Generator().manual_seed(10),
+                                device=device)
+    lens = [280, 400]
+    wavs = torch.zeros((2, 400))
+    rng = np.random.RandomState(7)
+    for i, ln in enumerate(lens):
+        wavs[i, :ln] = torch.from_numpy((rng.randn(ln) * 0.1).astype(np.float32))
+    got = make_ragged_tokenizer(cfg_r, device=device)(ragged_codec, wavs.to(device),
+                                                      torch.tensor(lens))
+    with torch.no_grad():
+        one = C.tokenize(ragged_codec, wavs[:1, :280].to(device), mode="conformant")
+    if not torch.equal(one[:, 0], got[:, 0, :280 // 40]):
+        raise RuntimeError("dry run: ragged conformer tokens diverged from per-file")
+    out.update(tp_rows=int(tp_codes.shape[1]), pp_frames=int(pp_codes.shape[-1]),
+               ragged_frames=280 // 40)
     return out
 
 
@@ -150,6 +269,7 @@ def _rank_main(rank: int, n: int, device: str, port: int, backend: str, results)
         out = _rank_checks(dev, dist.group.WORLD, n)
         if rank == 0:
             out.update(_sp_checks(dev, n))
+            out.update(_serving_checks(dev, n))
         results[rank] = out
     finally:
         dist.destroy_process_group()

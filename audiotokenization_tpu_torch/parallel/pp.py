@@ -13,14 +13,33 @@ sequential backbone, so pipelined tokens equal one-device ``tokenize``.
 ``pp_tokenize`` pipelines the encoder, ``pp_synthesize`` the decoder.
 Each stage runs the layers of the codec's copy on its device (one copy a
 distinct device, ``mesh.Replicas``); the stream before and after the
-backbone runs on the first stage's device. ``pp_train_context`` and
-``maybe_pp_backbone`` (training) are not here. A device may repeat.
+backbone runs on the first stage's device. A device may repeat.
+
+Training (``train.pipeline_parallel``, ``train/step.py``): ``pp_place``
+moves each stage's layers of the trained codec to the stage's device (the
+rest of the codec and the discriminators stay on the first), so the
+stages are the optimizer's own parameters and the state dict keeps the
+one-card layout. Inside ``pp_train_context`` the Conformer's
+``maybe_pp_backbone`` hook runs both backbones as GPipe pipelines under
+autograd: each microbatch's copies between devices carry its gradient
+back, and ``train.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, as JAX wraps the layer in
+``jax.checkpoint``). Outside the context a backbone whose layers sit on
+several devices runs them in order, its activations following the layers
+(``ops/transformer.py::conformer_backbone``): evaluation gives the
+one-device numbers.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from .mesh import Replicas, data_devices
+
+
+_local = threading.local()
 
 
 def make_pipe_mesh(n_stages: int, devices=None, *, device="cuda") -> list:
@@ -65,17 +84,26 @@ def stack_stage_params(backbone, n_stages: int) -> list:
     return [layers[s * per:(s + 1) * per] for s in range(n_stages)]
 
 
-def pp_backbone_fn(stages, backbone, *, n_micro: int | None = None):
+def pp_backbone_fn(stages, backbone, *, n_micro: int | None = None, remat: bool = False):
     """A (h, backbone) -> h replacement for ``conformer_backbone`` (h (B, T,
     C)) that runs ``stages`` (each stage's layers, on its device) as a GPipe
     pipeline of ``n_micro`` microbatches (default: one a stage; B must
     divide by it). ``backbone``: the settings the layers run with (heads,
     RoPE, order, causality); the weights are the stages'. The result comes
-    back to h's device."""
+    back to h's device. Differentiable; ``remat``: each layer's activations
+    recomputed in the backward."""
+    from ..ops.params import checkpointed
     from ..ops.transformer import conformer_layer
 
     P = len(stages)
     devices = [next(stage[0].parameters()).device for stage in stages]
+
+    def layer_fn(x, layer, cos, sin):
+        kw = dict(n_head=backbone.n_head, conv_first=backbone.conv_first,
+                  causal=backbone.causal)
+        if remat:
+            return checkpointed(lambda x, p: conformer_layer(x, p, cos, sin, **kw), layer, x)
+        return conformer_layer(x, layer, cos, sin, **kw)
 
     def run(h, _backbone=None):
         B, T, C = h.shape
@@ -96,8 +124,7 @@ def pp_backbone_fn(stages, backbone, *, n_micro: int | None = None):
                     continue
                 x = (mbs[j] if s == 0 else carry[s - 1]).to(devices[s])
                 for layer in stages[s]:
-                    x = conformer_layer(x, layer, *tables[s], n_head=backbone.n_head,
-                                        conv_first=backbone.conv_first, causal=backbone.causal)
+                    x = layer_fn(x, layer, *tables[s])
                 made[s] = x
                 if s == P - 1:
                     results[j] = x
@@ -105,6 +132,45 @@ def pp_backbone_fn(stages, backbone, *, n_micro: int | None = None):
         return torch.cat([r.to(h.device) for r in results])
 
     return run
+
+
+@contextlib.contextmanager
+def pp_train_context(devices, n_micro: int | None = None, *, remat: bool = False):
+    """Within the body, on this thread, the Conformer backbones whose layers
+    ``pp_place`` put on ``devices`` run as GPipe pipelines of ``n_micro``
+    microbatches (default one a stage), differentiable
+    (``maybe_pp_backbone``)."""
+    prev = getattr(_local, "ctx", None)
+    _local.ctx = (list(devices), n_micro, remat)
+    try:
+        yield
+    finally:
+        _local.ctx = prev
+
+
+def maybe_pp_backbone(backbone):
+    """The pipeline ``backbone_fn`` of ``backbone`` inside a
+    ``pp_train_context``, its stages the backbone's own layers; else None."""
+    ctx = getattr(_local, "ctx", None)
+    if ctx is None:
+        return None
+    devices, n_micro, remat = ctx
+    return pp_backbone_fn(stack_stage_params(backbone, len(devices)), backbone,
+                          n_micro=n_micro or len(devices), remat=remat)
+
+
+def pp_place(codec, cfg, devices) -> None:
+    """Move stage s's layers of each Conformer backbone of ``codec`` to
+    ``devices[s]``, in place (the parameters keep their identity); raises as
+    ``validate_pp``."""
+    validate_pp(cfg, len(devices))
+    for side in ("encoder", "decoder"):
+        backbone = getattr(getattr(codec, side), "backbone", None)
+        if backbone is None:
+            continue
+        for layers, dev in zip(stack_stage_params(backbone, len(devices)), devices):
+            for layer in layers:
+                layer.to(torch.device(dev))
 
 
 def _stages(codec, devices, side: str):

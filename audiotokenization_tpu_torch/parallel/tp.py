@@ -28,6 +28,15 @@ one. The weight shards are placed on their devices once and kept
 (``TPContext``); ``tp_spec_for_path`` is the rule of which state-dict
 keys split and along which dim. The devices may repeat (``[cuda:0] * 4``
 runs four model shards on one card).
+
+Training (``train.tensor_parallel``, ``train/step.py``): the TP leaves
+are held as cuts on the model devices, the parameters the optimizer updates
+(``parallel/fsdp.py::ShardedParams`` with ``tp``), and the hooks read the
+cuts directly; the packed qkv, the MoE experts and every other shard are
+split again at each use under autograd (``TPContext(differentiable=
+True)``), so each gradient reaches its parameter. The data axis is the
+process group of a ``torchrun`` launch (``parallel/dp.py``), one process a
+data row, the model axis its device list.
 """
 from __future__ import annotations
 
@@ -54,18 +63,41 @@ class TPContext:
     """The model devices of one data row, and the weight shards placed on
     them: ``shard(w, dim, s)`` is shard s of w split in ``n`` parts along
     ``dim``, on model device s, made once and kept while ``w`` is the same
-    tensor (held here, so that its id is never a recycled one)."""
+    tensor (held here, so that its id is never a recycled one).
 
-    def __init__(self, devices):
+    In training (``differentiable``) a shard is taken again at every use,
+    under autograd, so that its gradient reaches w; and a TP leaf held as
+    cuts (``hold``, ``parallel/fsdp.py::ShardedParams``) is read as its cut
+    on model device s, cast as the step casts the parameters
+    (``ops/params.py::deferred_cast``)."""
+
+    def __init__(self, devices, *, differentiable: bool = False):
         self.devices = [torch.device(d) for d in devices]
+        self.differentiable = differentiable
         self._shards: dict = {}
+        self._held: dict = {}
 
     @property
     def n(self) -> int:
         return len(self.devices)
 
+    def hold(self, w, cuts, dim: int):
+        """The parameter ``w`` is held as ``cuts`` (one a model device) split
+        along ``dim``."""
+        self._held[id(w)] = (w, cuts, dim)
+
     def shard(self, w, dim: int, s: int, *, regroup=None, tag=None):
         """``regroup``: a view of w to split instead, named by ``tag``."""
+        held = self._held.get(id(w))
+        if held is not None and held[0] is w:
+            from ..ops.params import deferred_cast
+
+            if held[2] != dim or regroup is not None:
+                raise ValueError(f"a TP leaf held split along dim {held[2]} read along {dim}")
+            return deferred_cast(w, held[1][s])
+        if self.differentiable:
+            t = regroup(w) if regroup is not None else w
+            return torch.tensor_split(t, self.n, dim)[s].to(self.devices[s])
         key = (id(w), dim, s, tag)
         hit = self._shards.get(key)
         if hit is None or hit[0] is not w:

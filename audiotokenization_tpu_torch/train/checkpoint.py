@@ -119,6 +119,7 @@ class CheckpointManager:
         self.directory = Path(directory).resolve()
         self.group = group
         self.rank = dp.rank(group)
+        self._copied_from: set = set()  # the cards a save's host copies read from
         if self.rank == 0:
             self.directory.mkdir(parents=True, exist_ok=True)
             save_config(cfg, self.directory / "config.json")
@@ -142,6 +143,8 @@ class CheckpointManager:
             return [self._host_copy(v, path + (i,)) for i, v in enumerate(tree)]
         if not torch.is_tensor(tree):
             return tree
+        if tree.is_cuda:
+            self._copied_from.add(tree.device)
         buf = self._buffers.get(path)
         if buf is None or buf.shape != tree.shape or buf.dtype != tree.dtype:
             buf = torch.empty(tree.shape, dtype=tree.dtype, pin_memory=tree.is_cuda)
@@ -165,11 +168,13 @@ class CheckpointManager:
         if best:
             self.best_metric = float(metric)
         if self.rank == 0:
+            self._copied_from = set()
             host = self._host_copy(sd)
-            done = None
-            if next(state.gen.parameters()).is_cuda:
-                done = torch.cuda.Event()
-                done.record()
+            done = []  # each card's copies (a pipeline's stages may sit on several)
+            for dev in self._copied_from:
+                with torch.cuda.device(dev):
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
             self._writer = threading.Thread(target=self._write,
                                             args=(host, done, step, rolling, best),
                                             name="checkpoint-writer", daemon=True)
@@ -181,8 +186,8 @@ class CheckpointManager:
 
     def _write(self, host, done, step: int, rolling: bool, best: bool):
         try:
-            if done is not None:
-                done.synchronize()
+            for event in done:
+                event.synchronize()
             ckpt, ckpt_best = self.directory / "ckpt", self.directory / "ckpt_best"
             if rolling:
                 save_state(self.directory, step, host, max_to_keep=self.max_to_keep)

@@ -26,10 +26,15 @@ shards the weights and moments, ``parallel/fsdp.py``), the validation and
 test passes run on the stripes and sum their aggregates over the ranks
 (``reduce_validation_aggregates``), and rank 0 alone logs, dumps the
 validation artifacts and writes the checkpoints, which every rank restores
-from. Tensor and pipeline parallel training are not ported: their settings
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 18, its TP / PP / EP
-remainder). As in the JAX loop, a resumed run restarts the loader at its
-first epoch.
+from. Tensor parallelism (``train.tensor_parallel``, the MoE's experts
+split with it) and pipeline parallelism (``train.pipeline_parallel``) take
+a list of model devices (the model axis, in this process; a device may
+repeat) and compose with the data axis of a ``torchrun`` launch, TP also
+with FSDP; the state is placed on them before any restore, the refusals
+are the JAX loop's, validation and the test pass give the one-device
+numbers, and the checkpoints keep the one-card layout, so a TP or PP run
+resumes on one device and the other way round. As in the JAX loop, a
+resumed run restarts the loader at its first epoch.
 """
 from __future__ import annotations
 
@@ -51,26 +56,62 @@ from .step import make_train_step
 
 
 def _placement(cfg: Config, device):
-    """(the device, the group): the rank's card (or the CPU) and the
-    data-parallel group of a multi-process launch (None in one process).
-    Tensor and pipeline parallel settings raise, and so does a device list
-    of more than one (one process per rank, under ``torchrun``)."""
-    from ..parallel.mesh import local_device, process_group
+    """(the device, the group, the model devices): the rank's card (or the
+    CPU), the data-parallel group of a multi-process launch (None in one
+    process), and under tensor or pipeline parallelism ``device``'s list of
+    model devices (else None), with the JAX loop's refusals. Without a
+    model axis a device list of more than one raises (one process per rank,
+    under ``torchrun``)."""
+    from ..parallel.mesh import local_device, process_count, process_group
+    from .state import model_axis
 
-    if isinstance(device, (list, tuple)):
-        if len(device) != 1:
-            raise NotImplementedError(
-                f"the loop runs one device a process, {len(device)} were requested: launch "
-                "one process per device (torchrun) for data parallelism or FSDP")
-        device = device[0]
-    t = cfg.train
-    if int(t.tensor_parallel) > 1 or int(t.pipeline_parallel) > 1:
+    devices = list(device) if isinstance(device, (list, tuple)) else [device]
+    kind, n = model_axis(cfg)
+    if kind is None and len(devices) != 1:
         raise NotImplementedError(
-            "tensor_parallel and pipeline_parallel training are not ported yet "
-            "(ROADMAP Queue 1 item 18: the TP / PP / EP training steps)")
+            f"the loop runs one device a process, {len(devices)} were requested: launch "
+            "one process per device (torchrun) for data parallelism or FSDP")
     group = process_group()
-    device = C.resolve_device(device)  # raises without a card unless the CPU is asked for
-    return (local_device(device) if group is not None else device), group
+    devices = [C.resolve_device(d) for d in devices]  # raises without a card unless the CPU
+    if group is not None:
+        devices = [local_device(d) for d in devices]
+    if kind is None:
+        return devices[0], group, None
+    knob = "tensor_parallel" if kind == "tp" else "pipeline_parallel"
+    n_dev = len(devices)
+    if n_dev == 1:
+        raise ValueError(
+            f"train.{knob}={n} requires >1 devices (have {n_dev}); set {knob}: 1 to run "
+            "unsharded")
+    if kind == "pp" and cfg.train.fsdp:
+        raise ValueError("fsdp + pipeline_parallel is not composed "
+                         "yet; pick one memory axis")
+    if n_dev % n:
+        raise ValueError(f"train.{knob}={n} does not divide the {n_dev} attached devices")
+    if n_dev != n:
+        raise ValueError(f"the data axis is the processes of a torchrun launch: pass the "
+                         f"{n} model devices of this one, not {n_dev}")
+    global_bs = cfg.dataset.train.batch_size * process_count()
+    d_axis = process_count()
+    if kind == "pp":
+        from ..parallel.pp import validate_pp
+
+        validate_pp(cfg, n)
+        n_micro = int(cfg.train.pipeline_microbatches) or n
+        if global_bs % n_micro or (global_bs // n_micro) % max(d_axis, 1):
+            raise ValueError(
+                f"global batch {global_bs} must split into "
+                f"{n_micro} microbatches x the {d_axis}-way data axis "
+                f"(pipeline_parallel={n})")
+    else:
+        from ..parallel.tp import validate_tp
+
+        validate_tp(cfg, n)
+        if global_bs % d_axis:
+            raise ValueError(
+                f"global batch {global_bs} not divisible by the "
+                f"{d_axis}-way data axis (tensor_parallel={n})")
+    return devices[0], group, devices
 
 
 def _device_of(module: torch.nn.Module) -> torch.device:
@@ -341,12 +382,14 @@ def train(cfg: Config, *, train_loader, val_loader=None, test_loader=None, run_d
     Under ``torchrun`` (a process group made, ``parallel/mesh.py::
     initialize_distributed``) each rank trains on its loaders' stripes
     (``DataLoader(process_index=, process_count=)``) on ``cuda:LOCAL_RANK``
-    (module docstring); ``train.fsdp`` shards the state.
+    (module docstring); ``train.fsdp`` shards the state. With
+    ``train.tensor_parallel`` or ``train.pipeline_parallel`` N, ``device``
+    is the list of N model devices (``[cuda:0] * N`` on one card).
     """
-    device, group = _placement(cfg, device)
+    device, group, model_devices = _placement(cfg, device)
     t = cfg.train
     state = init_train_state(cfg, generator=torch.Generator().manual_seed(t.seed), device=device,
-                             group=group)
+                             group=group, model_devices=model_devices)
     ckpt = CheckpointManager(run_dir, cfg, group=group)
     if resume_from is not None:
         restore_train_state(resume_from, state, best=resume_best)

@@ -19,7 +19,13 @@ eps=1e-8, weight_decay=.01))`` computes:
 Over several ranks (``group``) each optimizer takes a ``sync``: data
 parallelism all-reduces the gradients before the clip; FSDP (``train.fsdp``)
 cuts the parameters and moments and clips by the norm over every rank's
-cut. The state dict keeps the one-card layout either way.
+cut. Tensor parallelism (``train.tensor_parallel``) holds the generator's
+TP leaves as cuts on the model devices (the same ``sync``,
+``parallel/fsdp.py::ShardedParams`` with a ``parallel/tp.py::TPContext``);
+pipeline parallelism (``train.pipeline_parallel``) moves each stage's
+Conformer layers to its device (``parallel/pp.py::pp_place``), and the
+optimizer updates the parameters where they are. The state dict keeps the
+one-card layout in every case.
 """
 from __future__ import annotations
 
@@ -81,25 +87,36 @@ class ClippedAdamW:
             self.sync.reduce()
 
     def gathered(self):
-        """The module's full weights within the body (FSDP)."""
+        """The module's full weights within the body (FSDP's cuts gathered,
+        TP's joined): an evaluation pass."""
         return self.sync.gathered() if self.sync is not None else contextlib.nullcontext()
+
+    def per_block(self):
+        """A training step's body: FSDP's cuts gathered per block
+        (``parallel/fsdp.py::run_block``)."""
+        return self.sync.per_block() if self.sync is not None else contextlib.nullcontext()
 
     def step(self):
         grads = self.grads()
+        devices = list(dict.fromkeys(g.device for g in grads))
         if self.sync is not None:
             norm = self.sync.norm(grads)
         else:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        torch._foreach_mul_(grads, self.clip / torch.clamp_min(norm, self.clip))
+            norm = torch.linalg.vector_norm(torch.stack(
+                [n.to(devices[0]) for d in devices
+                 for n in torch._foreach_norm([g for g in grads if g.device == d])]))
+        scale = self.clip / torch.clamp_min(norm, self.clip)
+        for d in devices:  # TP cuts and pipeline stages: parameters on several devices
+            torch._foreach_mul_([g for g in grads if g.device == d], scale.to(d))
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adamw.step()
         self.count += 1
 
     def refresh(self):
-        """After ``step``, inside ``gathered``: the module's full weights
-        gathered again from the updated cuts (FSDP), where the step reads
-        them once more."""
+        """After ``step``, inside ``per_block``: the weights outside the
+        blocks gathered again from the updated cuts (FSDP), where the step
+        reads them once more."""
         if self.sync is not None:
             self.sync.refresh()
 
@@ -139,20 +156,21 @@ class ClippedAdamW:
 
 
 def make_optimizers(cfg: Config, gen: nn.Module, disc: nn.Module, *, group=None,
-                    fsdp: bool = False, fsdp_min_size: int = 2 ** 14):
+                    fsdp: bool = False, fsdp_min_size: int = 2 ** 14, tp=None):
     """Each side's optimizer; over ``group``'s ranks data-parallel, or with
-    ``fsdp`` sharded (``parallel/fsdp.py``)."""
+    ``fsdp`` sharded (``parallel/fsdp.py``); the generator's TP leaves held
+    as cuts on ``tp``'s model devices (a ``parallel/tp.py::TPContext``)."""
     t = cfg.train
 
-    def sync(module):
-        if group is None:
+    def sync(module, tp=None):
+        if group is None and tp is None:
             return None
         from ..parallel.fsdp import ShardedParams
 
-        return ShardedParams(module, group, fsdp=fsdp, min_size=fsdp_min_size)
+        return ShardedParams(module, group, fsdp=fsdp, min_size=fsdp_min_size, tp=tp)
 
     return (ClippedAdamW(gen, t.gen_optim_params, t.gen_schedule_params, t.gen_grad_clip,
-                         sync=sync(gen)),
+                         sync=sync(gen, tp)),
             ClippedAdamW(disc, t.disc_optim_params, t.disc_schedule_params, t.disc_grad_clip,
                          sync=sync(disc)))
 
@@ -164,6 +182,13 @@ class TrainState:
     gen_opt: ClippedAdamW
     disc_opt: ClippedAdamW
     step: int = 0
+    model_devices: Optional[list] = None  # TP's model devices or PP's stage devices
+
+    @property
+    def tp(self):
+        """The generator's ``TPContext`` under tensor parallelism, else None."""
+        sync = self.gen_opt.sync
+        return None if sync is None else sync.tp
 
     def state_dict(self) -> dict:
         """Everything a resume needs: both modules' parameters, both
@@ -183,29 +208,66 @@ class TrainState:
         self.step = int(sd["step"])
 
 
+def model_axis(cfg: Config) -> tuple:
+    """("tp" | "pp" | None, its size) of ``train.tensor_parallel`` /
+    ``train.pipeline_parallel``; both above 1 raise (JAX's refusal)."""
+    tp_n = max(int(cfg.train.tensor_parallel), 1)
+    pp_n = max(int(cfg.train.pipeline_parallel), 1)
+    if tp_n > 1 and pp_n > 1:
+        raise ValueError("tensor_parallel and pipeline_parallel both >1 is "
+                         "not composed yet; pick one model axis")
+    return ("tp", tp_n) if tp_n > 1 else ("pp", pp_n) if pp_n > 1 else (None, 1)
+
+
 def train_state(cfg: Config, gen: Codec, disc: Discriminator, *, group=None,
-                fsdp: Optional[bool] = None, fsdp_min_size: int = 2 ** 14) -> TrainState:
-    """A state at step 0 around the given modules (already on their device):
-    training mode, fresh optimizers (zero moments). ``group``: the ranks of
-    a data-parallel run (every rank holds the same weights), sharded by
-    ``fsdp`` (default ``train.fsdp``) over leaves of ``fsdp_min_size``
-    elements or more."""
+                fsdp: Optional[bool] = None, fsdp_min_size: int = 2 ** 14,
+                model_devices=None) -> TrainState:
+    """A state at step 0 around the given modules (already on their device,
+    the first model device's): training mode, fresh optimizers (zero
+    moments). ``group``: the ranks of a data-parallel run (every rank holds
+    the same weights), sharded by ``fsdp`` (default ``train.fsdp``) over
+    leaves of ``fsdp_min_size`` elements or more. ``model_devices``: under
+    ``train.tensor_parallel`` the model devices the TP leaves are cut over,
+    under ``train.pipeline_parallel`` the stages' devices, one a stage
+    (``parallel/tp.py``, ``parallel/pp.py``; a device may repeat)."""
     gen.train()  # cuDNN's LSTM has no backward in eval mode; nothing else differs
     disc.train()
     fsdp = cfg.train.fsdp if fsdp is None else fsdp
+    kind, n = model_axis(cfg)
+    tp = None
+    if kind is not None:
+        model_devices = [torch.device(d) for d in model_devices or ()]
+        if len(model_devices) != n:
+            raise ValueError(f"train.{'tensor' if kind == 'tp' else 'pipeline'}_parallel={n} "
+                             f"needs {n} model devices, {len(model_devices)} were given")
+    if kind == "tp":
+        from ..parallel.tp import TPContext, validate_tp
+
+        validate_tp(cfg, n)
+        tp = TPContext(model_devices, differentiable=True)
+    elif kind == "pp":
+        from ..parallel.pp import pp_place
+
+        if fsdp:
+            raise ValueError("fsdp + pipeline_parallel is not composed "
+                             "yet; pick one memory axis")
+        pp_place(gen, cfg, model_devices)
     gen_opt, disc_opt = make_optimizers(cfg, gen, disc, group=group, fsdp=fsdp,
-                                        fsdp_min_size=fsdp_min_size)
-    return TrainState(gen, disc, gen_opt, disc_opt)
+                                        fsdp_min_size=fsdp_min_size, tp=tp)
+    return TrainState(gen, disc, gen_opt, disc_opt,
+                      model_devices=model_devices if kind is not None else None)
 
 
 def init_train_state(cfg: Config, *, generator: torch.Generator, device="cuda", group=None,
-                     fsdp: Optional[bool] = None, fsdp_min_size: int = 2 ** 14) -> TrainState:
+                     fsdp: Optional[bool] = None, fsdp_min_size: int = 2 ** 14,
+                     model_devices=None) -> TrainState:
     """Random weights drawn on the CPU from ``generator`` (the codec's, then
     the discriminators'), moved to ``device``; raises without a card
-    unless ``device="cpu"``. ``group``, ``fsdp``, ``fsdp_min_size``: as
-    ``train_state`` (every rank draws the same weights from the same
-    seed)."""
+    unless ``device="cpu"``. ``group``, ``fsdp``, ``fsdp_min_size``,
+    ``model_devices``: as ``train_state`` (every rank draws the same weights
+    from the same seed), placed before any restore."""
     device = resolve_device(device)
     gen = Codec(cfg, generator=generator).to(device)
     disc = Discriminator(cfg, generator=generator).to(device)
-    return train_state(cfg, gen, disc, group=group, fsdp=fsdp, fsdp_min_size=fsdp_min_size)
+    return train_state(cfg, gen, disc, group=group, fsdp=fsdp, fsdp_min_size=fsdp_min_size,
+                       model_devices=model_devices)

@@ -47,8 +47,19 @@ the batch-global terms (the EMA statistics, LFQ's entropy, the MoE router,
 the STFT loss's spectral convergence) reduce across the ranks inside the
 forward; the guard's verdict is the ranks' common one; and the metrics come
 back as the global batch's (means, the histogram summed). Under FSDP each
-side's full weights are gathered for the step and the discriminator's again
-after its update, which the generator's loss reads.
+block's cuts are gathered at its use, in the forward and again in the
+backward, its gradients reduce-scattered as autograd accumulates them
+(``parallel/fsdp.py``), and the discriminator's leaves outside its blocks
+are gathered again after its update, which the generator's loss reads.
+
+Under tensor parallelism (the state made with ``train.tensor_parallel``
+model devices) the step runs inside ``parallel/tp.py::
+tp_shard_activations``: the Conformer's heads, SwiGLU width and MoE experts
+split over the model devices, the TP leaves read as their cuts. Under
+pipeline parallelism it runs inside ``parallel/pp.py::pp_train_context``:
+both backbones as GPipe pipelines of ``train.pipeline_microbatches``
+microbatches (default one a stage) over the stages' devices, each layer
+recomputed in the backward under ``train.remat``.
 
 K1 runs once per generator forward with the factorized VQ (FSQ, the EMA
 VQ and LFQ have none) and K2 once per fused ResidualUnit (30 in the
@@ -57,6 +68,7 @@ each unit.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Dict
 
@@ -232,9 +244,22 @@ def make_train_step(cfg: Config, *, device="cuda", draws=None, group=None):
 
     body = accumulated_step if n_accum > 1 else fused_step
 
+    def model_context(state: TrainState):
+        """The step's tensor- or pipeline-parallel context (or none)."""
+        if state.tp is not None:
+            from ..parallel.tp import tp_shard_activations
+
+            return tp_shard_activations(state.tp)
+        if state.model_devices is not None:
+            from ..parallel.pp import pp_train_context
+
+            return pp_train_context(state.model_devices, int(tcfg.pipeline_microbatches) or None,
+                                    remat=tcfg.remat)
+        return contextlib.nullcontext()
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor], teacher=None) -> Dict[str, Any]:
-        with C.precision_scope(cfg), dp.batch_group(group), state.gen_opt.gathered(), \
-                state.disc_opt.gathered():
+        with C.precision_scope(cfg), dp.batch_group(group), state.gen_opt.per_block(), \
+                state.disc_opt.per_block(), model_context(state):
             logs, hist, ok_d, ok_g = body(state, batch, teacher)
         metrics = {k: v.detach() for k, v in logs.items()}
         if tcfg.guard_nonfinite:

@@ -324,8 +324,29 @@ Phases, each fatal on failure:
     bf16 steps at 2 x 1 s a rank on 8 WAVs under build/ with a sanity
     batch, validation and a checkpoint (K1 1 / K2 30
     per step and per validation batch on each rank, one validation line, no
-    non-finite value), then a resume on one process to step 3. Prints the
-    data_parallel line and phase_21_s.
+    non-finite value), then a resume on one process to step 3. (c) fails
+    unless FSDP's peak a rank is below DP's (it gathers one block at a
+    time). Prints the data_parallel line and phase_21_s.
+22. tensor-, expert- and pipeline-parallel training (model_parallel_path)
+    on configs/conformer.yaml at full width (dim 256, 6 + 6 layers, 8
+    heads, VQ 8192 x 8, hop 200), random weights from seed 0, one global
+    batch of 12 x 1 s, fp32_strict, AdamW eps 1 and no warmup: (a) the
+    one-device step; (b) TP 2 and TP 4 (the card listed 2 and 4 times),
+    (c) PP 2 and PP 3 with 6 microbatches, each held against (a) by phase
+    8b's rule; (d) configs/conformer_moe.yaml's one-device step and its
+    step under TP 2 (the experts split) held against it; each case's K1
+    launches (1 a step: one generator forward; K2 0, the Conformer has no
+    ResidualUnit), memory at rest and peak, ms a step over 3 timed steps
+    beside (a)'s; (e) cli.train under torchrun, two gloo ranks on the card
+    with TP 2 and FSDP (--override train.tensor_parallel=2 train.fsdp=true):
+    2 bf16 steps at 2 x 1 s a rank on 8 WAVs under build/ with a sanity
+    batch, validation and a checkpoint (K1 1 / K2 0 per forward on each
+    rank), then a resume in one process on one device to step 3; (f)
+    parallel/dryrun.py's dry run over two gloo ranks on the card (every
+    leg: the plain, FSDP, EMA, bf16 semantic, accumulated, TP, EP and PP
+    steps, validation, SP, anti-aliased SP, TP and PP tokenize, the ragged
+    Conformer against per-file; each raises on a broken promise). Prints
+    the model_parallel line and phase_22_s.
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -5443,7 +5464,8 @@ def strict_smooth(cfg):
 
 
 _STEP_ONLY = ("precision", "remat", "gen_optim_params", "disc_optim_params",
-              "gen_schedule_params", "disc_schedule_params")  # read by the step, not the init
+              "gen_schedule_params", "disc_schedule_params", "tensor_parallel",
+              "pipeline_parallel", "pipeline_microbatches")  # read by the step, not the init
 
 
 def seed0_modules(cfg):
@@ -5469,14 +5491,16 @@ def seed0_modules(cfg):
 _SEED0: dict = {}
 
 
-def seed0_state(cfg, group=None, fsdp=False):
-    """A train state on the card holding ``seed0_modules``' weights."""
+def seed0_state(cfg, group=None, fsdp=False, model_devices=None):
+    """A train state on the card holding ``seed0_modules``' weights
+    (``model_devices``: TP's or PP's, ``train.state.train_state``)."""
     from audiotokenization_tpu_torch.train.state import train_state
 
     gen, disc = seed0_modules(cfg)
     gen = copy.deepcopy(gen).cuda()
     gen.cfg = cfg
-    return train_state(cfg, gen, copy.deepcopy(disc).cuda(), group=group, fsdp=fsdp)
+    return train_state(cfg, gen, copy.deepcopy(disc).cuda(), group=group, fsdp=fsdp,
+                       model_devices=model_devices)
 
 
 def dp_wav(b: int):
@@ -5737,6 +5761,14 @@ def dp_check_ranks(cfg, reference, out_dir: Path):
             res[kind].update(worst_update_rel_vs_dp=w, worst_update_leaf_vs_dp=leaf)
             if not all(r["fsdp"]["sharded_leaves"] > 0 for r in ranks):
                 fail("(c) FSDP sharded no leaf")
+            for r in ranks:  # one block's cuts gathered at a time
+                if r["fsdp"]["peak_gb"] >= r["dp"]["peak_gb"]:
+                    fail(f"(c) rank {r['rank']}: FSDP's peak {r['fsdp']['peak_gb']:.3f} GB is "
+                         f"not below DP's {r['dp']['peak_gb']:.3f} GB")
+            res[kind]["peak_gb_vs_dp"] = [[r["fsdp"]["peak_gb"], r["dp"]["peak_gb"]]
+                                          for r in ranks]
+            res[kind]["rest_gb_vs_dp"] = [[r["fsdp"]["before_step_gb"], r["dp"]["before_step_gb"]]
+                                          for r in ranks]
     return res
 
 
@@ -5762,6 +5794,99 @@ def dp_rank_then_cli(out_dir: str, argv):
          "s": time.perf_counter() - t0}))
 
 
+def cli_run(name: str, cfg_base, seed: int, steps: int):
+    """A cli.train run of phases 21d / 22e: DP_CLI_SECONDS's WAVs from
+    ``seed`` under build/chip_smoke_<name>_*, the first DP_CLI_VAL for
+    validation, ``cfg_base`` at 2 x 1 s a rank with a sanity batch,
+    validation and a checkpoint at ``steps`` (SI-SNR and the histogram:
+    STOI / PESQ are phase 9's). Returns (root, cfg, the CLI's arguments)."""
+    import numpy as np
+    from audiotokenization_tpu_torch.config import save_config
+    from audiotokenization_tpu_torch.data.audio_io import write_wav
+
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_{name}_{int(time.time())}"
+    root.mkdir(parents=True)
+    rng = np.random.RandomState(seed)
+    files = []
+    for i, sec in enumerate(DP_CLI_SECONDS):
+        files.append(root / f"clip{i}.wav")
+        write_wav(files[-1], (rng.randn(int(sec * SR)) * 0.1).astype(np.float32), SR)
+    (root / "train.txt").write_text("\n".join(map(str, files)))
+    (root / "val.txt").write_text("\n".join(map(str, files[:DP_CLI_VAL])))
+    cfg = copy.deepcopy(cfg_base)
+    t, d = cfg.train, cfg.dataset
+    t.log_every_n_steps, t.num_sanity_val_steps = 1, 1
+    t.val_every_n_steps = t.checkpoint_every_n_steps = steps
+    d.train.filelist, d.val.filelist, d.test.filelist = str(root / "train.txt"), str(
+        root / "val.txt"), None
+    d.train.batch_size = d.val.batch_size = 2
+    d.train.min_audio_length = d.val.min_audio_length = SR
+    d.val.quality_metric_items = 0
+    save_config(cfg, root / "cfg.json")
+    return root, cfg, ["--config", str(root / "cfg.json"), "--run_dir", str(root / "run"),
+                       "--no_wandb", "--skip_test"]
+
+
+def torchrun_ranks(flag: str, root: Path, args) -> float:
+    """This script as DP_RANKS torchrun ranks (``flag``: the rank's entry,
+    ``root``: its output dir, ``args``: its CLI arguments) on the card;
+    returns the launch's seconds, failing on a rank's error."""
+    import os
+
+    script = Path(__file__).resolve()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={DP_RANKS}",
+         f"--master_port={free_port()}", str(script), flag, str(root), *args],
+        cwd=str(script.parent), env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=600)
+    if proc.returncode:
+        fail(f"{flag} torchrun exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def hold_cli_run(what: str, cfg, run: Path, ranks, want_per_forward, steps: int):
+    """A torchrun cli.train run: each rank's K1 / K2 launches
+    ``want_per_forward`` a forward (its steps, sanity and validation
+    batches), one validation line, the checkpoint at ``steps``, no
+    non-finite value. Returns the forwards a rank ran."""
+    import numpy as np
+
+    t, d = cfg.train, cfg.dataset
+    forwards = steps + t.num_sanity_val_steps + DP_CLI_VAL // DP_RANKS // d.val.batch_size
+    want = [w * forwards for w in want_per_forward]
+    for r in ranks:
+        if r["launches"] != want:
+            fail(f"{what} a torchrun rank launched K1 / K2 {r['launches']} times, not {want} "
+                 f"({steps} steps and {forwards - steps} validation batches)")
+    logs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    if sum("val_si_snr" in rec for rec in logs) != 1 or not (run / "ckpt" / str(steps)
+                                                            / "state.pt").is_file():
+        fail(f"{what} the torchrun run logged no single validation or wrote no checkpoint")
+    bad = [k for rec in logs for k, v in rec.items() if isinstance(v, float)
+           and not np.isfinite(v)]
+    if bad:
+        fail(f"{what} non-finite logged values: {bad}")
+    return forwards
+
+
+def resume_cli(what: str, args, run: Path, steps: int) -> float:
+    """cli.train on ``args`` in this process to one step past ``steps``;
+    fails unless metrics.jsonl then logs steps 1 to steps + 1. Returns its
+    seconds."""
+    import torch
+    from audiotokenization_tpu_torch.cli import train as cli
+
+    t0 = time.perf_counter()
+    cli.main(args + ["--max_steps", str(steps + 1)])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    logged = [json.loads(line)["step"] for line in (run / "metrics.jsonl").read_text()
+              .splitlines() if "gen_loss" in line]
+    if logged != list(range(1, steps + 2)):
+        fail(f"{what} the resume in one process logged steps {logged}")
+    return resume_s
+
+
 def dp_ranks_and_cli(cfg_base, reference):
     """(b)-(d) in one torchrun launch of two ranks on the card: each rank
     runs (b)-(c) (``dp_rank``), checked here against ``reference``, then
@@ -5769,78 +5894,21 @@ def dp_ranks_and_cli(cfg_base, reference):
     at 2 x 1 s a rank on DP_CLI_SECONDS's WAVs with a sanity batch,
     validation and a checkpoint at the last step; then a resume in one
     process to one more step."""
-    import os
-    import torch
-    from audiotokenization_tpu_torch.cli import train as cli
-    from audiotokenization_tpu_torch.config import save_config
-    from audiotokenization_tpu_torch.data.audio_io import write_wav
-
-    import numpy as np
-
-    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_dp_{int(time.time())}"
-    root.mkdir(parents=True)
-    rng = np.random.RandomState(DP_SEED)
-    files = []
-    for i, s in enumerate(DP_CLI_SECONDS):
-        files.append(root / f"clip{i}.wav")
-        write_wav(files[-1], (rng.randn(int(s * SR)) * 0.1).astype(np.float32), SR)
-    (root / "train.txt").write_text("\n".join(map(str, files)))
-    (root / "val.txt").write_text("\n".join(map(str, files[:DP_CLI_VAL])))
-    cfg = copy.deepcopy(cfg_base)
-    t, d = cfg.train, cfg.dataset
-    t.log_every_n_steps, t.num_sanity_val_steps = 1, 1
-    t.val_every_n_steps = t.checkpoint_every_n_steps = DP_CLI_STEPS
-    d.train.filelist, d.val.filelist, d.test.filelist = str(root / "train.txt"), str(
-        root / "val.txt"), None
-    d.train.batch_size = d.val.batch_size = 2
-    d.train.min_audio_length = d.val.min_audio_length = SR
-    d.val.quality_metric_items = 0  # SI-SNR and the histogram; STOI / PESQ are phase 9's
-    save_config(cfg, root / "cfg.json")
+    root, cfg, args = cli_run("dp", cfg_base, DP_SEED, DP_CLI_STEPS)
     run = root / "run"
-    args = ["--config", str(root / "cfg.json"), "--run_dir", str(run), "--no_wandb",
-            "--skip_test"]
-    script = Path(__file__).resolve()
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={DP_RANKS}",
-         f"--master_port={free_port()}", str(script), "--dp-ranks", str(root), *args,
-         "--dist_backend", "gloo", "--max_steps", str(DP_CLI_STEPS)],
-        cwd=str(script.parent), env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=600)
-    torchrun_s = time.perf_counter() - t0
-    if proc.returncode:
-        fail(f"(b)-(d) torchrun exited {proc.returncode}")
+    torchrun_s = torchrun_ranks("--dp-ranks", root, args + [
+        "--dist_backend", "gloo", "--max_steps", str(DP_CLI_STEPS)])
     two_ranks = dp_check_ranks(cfg_base, reference, root)
-    logs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     ranks = [json.loads((root / f"cli_rank{r}.json").read_text()) for r in range(DP_RANKS)]
-    val_batches = DP_CLI_VAL // DP_RANKS // d.val.batch_size
-    forwards = DP_CLI_STEPS + t.num_sanity_val_steps + val_batches
     nq = cfg.model.codec_decoder.vq_num_quantizers
     n_units = 2 * len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
-    for r in ranks:
-        if r["launches"] != [nq * forwards, n_units * forwards]:
-            fail(f"(d) a torchrun rank launched K1 / K2 {r['launches']} times, not "
-                 f"{[nq * forwards, n_units * forwards]} ({DP_CLI_STEPS} steps and "
-                 f"{forwards - DP_CLI_STEPS} validation batches)")
-    if sum("val_si_snr" in rec for rec in logs) != 1 or not (run / "ckpt" / str(DP_CLI_STEPS)
-                                                            / "state.pt").is_file():
-        fail("(d) the torchrun run logged no single validation or wrote no checkpoint")
-    bad = [k for rec in logs for k, v in rec.items() if isinstance(v, float)
-           and not np.isfinite(v)]
-    if bad:
-        fail(f"(d) non-finite logged values: {bad}")
-    t0 = time.perf_counter()
-    cli.main(args + ["--max_steps", str(DP_CLI_STEPS + 1)])
-    torch.cuda.synchronize()
-    resume_s = time.perf_counter() - t0
-    steps = [json.loads(line)["step"] for line in (run / "metrics.jsonl").read_text()
-             .splitlines() if "gen_loss" in line]
-    if steps != list(range(1, DP_CLI_STEPS + 2)):
-        fail(f"(d) the resume on one process logged steps {steps}")
+    forwards = hold_cli_run("(d)", cfg, run, ranks, [nq, n_units], DP_CLI_STEPS)
+    resume_s = resume_cli("(d)", args, run, DP_CLI_STEPS)
     cli_out = {"resume_one_process_s": resume_s, "ranks": ranks,
                "launches_per_rank_step": [ranks[0]["launches"][0] / forwards,
                                           ranks[0]["launches"][1] / forwards],
-               "logged_steps": steps, "ckpt_gb": (run / "ckpt" / str(DP_CLI_STEPS)
-                                                  / "state.pt").stat().st_size / 1e9}
+               "logged_steps": list(range(1, DP_CLI_STEPS + 2)),
+               "ckpt_gb": (run / "ckpt" / str(DP_CLI_STEPS) / "state.pt").stat().st_size / 1e9}
     shutil.rmtree(root, ignore_errors=True)
     return {**two_ranks, "torchrun_wall_s": torchrun_s}, cli_out
 
@@ -5863,6 +5931,133 @@ def dp_path(cfg, card):
     del reference
     out["phase_21_s"] = time.perf_counter() - t0
     print(json.dumps({"data_parallel": out, "card": card}))
+    return out
+
+
+# -- 22. tensor-, expert- and pipeline-parallel training ---------------------------
+
+MP_B = 12                   # the global batch: 12 x 1 s
+MP_MICRO = 6                # PP's microbatches
+MP_TIMED = 3                # timed steps a case
+MP_SEED = 23                # the batch's draws
+MP_CLI_STEPS = 2
+
+
+def mp_case(name, cfg, wav, ref=None, model_devices=None):
+    """One step of ``cfg`` from seed 0 on ``wav`` (on ``model_devices``),
+    its K1 / K2 launches (1 / 0), memory at rest and peak (less what was
+    allocated before the state), then MP_TIMED timed steps; held against
+    ``ref`` (the one-device case's result) by phase 8b's rule. Returns the
+    case's numbers, and (metrics, leaves before, after) for a reference."""
+    import torch
+    from audiotokenization_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = seed0_state(cfg, model_devices=model_devices)
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated() - base
+    before = full_leaves(state) if ref is None else None
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg)
+    m, launches = counted(lambda: step(state, {"wav": wav}))
+    expect_launches(f"22 {name} step", launches, (1, 0))
+    out = {"rest_gb": rest / 1e9, "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "launches": list(launches)}
+    m = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in m.items()}
+    after = full_leaves(state)
+    if ref is not None:
+        out["worst_metric_rel"] = hold_metrics(f"22 {name} against one device", m, ref[0])
+        out["worst_update_rel"], out["worst_update_leaf"] = hold_updates(
+            f"22 {name} against one device", ref[1], ref[2], after)
+    (ms, _), timed = counted(lambda: timed_steps(step, state, wav, n=MP_TIMED))
+    out["ms_per_step"] = ms
+    out["launches_per_step"] = [timed[0] / MP_TIMED, timed[1] / MP_TIMED]
+    if out["launches_per_step"] != [1.0, 0.0]:
+        fail(f"22 {name}: K1 / K2 {out['launches_per_step']} a timed step, not [1, 0]")
+    del state, step
+    return out, ((m, before, after) if ref is None else None)
+
+
+def mp_cli_rank(out_dir: str, argv):
+    """A torchrun rank of 22e: cli.train.main on ``argv``, its K1 / K2
+    launches to <out_dir>/mp_cli_rank<LOCAL_RANK>.json."""
+    import os
+
+    from audiotokenization_tpu_torch.cli import train as cli
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+    vq_argmin.launches = fused_residual_unit.launches = 0
+    t0 = time.perf_counter()
+    state = cli.main(argv)
+    sync = state.gen_opt.sync
+    (Path(out_dir) / f"mp_cli_rank{os.environ['LOCAL_RANK']}.json").write_text(json.dumps(
+        {"launches": [vq_argmin.launches, fused_residual_unit.launches],
+         "tp_leaves": len(sync.tp_leaves()), "fsdp_leaves": len(sync.sharded()),
+         "s": time.perf_counter() - t0}))
+
+
+def mp_cli(cfg_base):
+    """22e: cli.train under torchrun with TP 2 and FSDP over two gloo ranks
+    on the card, then a resume in one process on one device."""
+    root, cfg, args = cli_run("mp", cfg_base, MP_SEED, MP_CLI_STEPS)
+    run = root / "run"
+    torchrun_s = torchrun_ranks("--mp-cli", root, args + [
+        "--dist_backend", "gloo", "--max_steps", str(MP_CLI_STEPS),
+        "--override", "train.tensor_parallel=2", "train.fsdp=true"])
+    ranks = [json.loads((root / f"mp_cli_rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    if not all(r["tp_leaves"] and r["fsdp_leaves"] for r in ranks):
+        fail(f"22e a torchrun rank cut no TP or FSDP leaf: {ranks}")
+    forwards = hold_cli_run("22e", cfg, run, ranks, [1, 0], MP_CLI_STEPS)
+    out = {"torchrun_wall_s": torchrun_s,
+           "resume_one_device_s": resume_cli("22e", args, run, MP_CLI_STEPS), "ranks": ranks,
+           "launches_per_rank_step": [ranks[0]["launches"][0] / forwards,
+                                      ranks[0]["launches"][1] / forwards],
+           "logged_steps": list(range(1, MP_CLI_STEPS + 2)), "precision": cfg.train.precision}
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def model_parallel_path(card, dev=None):
+    """22. TP, EP and PP training on the card (module docstring); prints the
+    model_parallel line. ``dev``: the model devices' device (the card)."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else dev
+    wav = torch.from_numpy((np.random.RandomState(MP_SEED).randn(MP_B, SR) * 0.1)
+                           .astype(np.float32)).cuda()
+    out = {"batch": [MP_B, SR], "precision": "fp32_strict", "adamw_eps": 1.0}
+    base = strict_smooth(repo_config("conformer.yaml"))
+    out["one_device"], ref = mp_case("one device", base, wav)
+    for n in (2, 4):
+        cfg = copy.deepcopy(base)
+        cfg.train.tensor_parallel = n
+        out[f"tp{n}"] = mp_case(f"TP {n}", cfg, wav, ref, [dev] * n)[0]
+    for n in (2, 3):
+        cfg = copy.deepcopy(base)
+        cfg.train.pipeline_parallel, cfg.train.pipeline_microbatches = n, MP_MICRO
+        out[f"pp{n}"] = mp_case(f"PP {n}", cfg, wav, ref, [dev] * n)[0]
+    del ref
+    _SEED0.clear()
+    moe = strict_smooth(repo_config("conformer_moe.yaml"))
+    out["moe_one_device"], ref = mp_case("MoE one device", moe, wav)
+    cfg = copy.deepcopy(moe)
+    cfg.train.tensor_parallel = 2
+    out["moe_tp2"] = mp_case("MoE TP 2", cfg, wav, ref, [dev] * 2)[0]
+    del ref
+    _SEED0.clear()
+    torch.cuda.empty_cache()
+    out["cases_s"] = time.perf_counter() - t0
+    out["cli"] = mp_cli(repo_config("conformer.yaml"))
+    t1 = time.perf_counter()
+    out["dry_run"] = {**dryrun_multichip(DP_RANKS, "cuda"), "s": time.perf_counter() - t1}
+    out["phase_22_s"] = time.perf_counter() - t0
+    print(json.dumps({"model_parallel": out, "card": card}))
     return out
 
 
@@ -5960,6 +6155,8 @@ def main() -> int:
     print(json.dumps({"phase_20_s": time.perf_counter() - t0, "card": card}))
     dpp = dp_path(cfg, card)
     print(json.dumps({"phase_21_s": dpp["phase_21_s"], "card": card}))
+    mpp = model_parallel_path(card)
+    print(json.dumps({"phase_22_s": mpp["phase_22_s"], "card": card}))
     sp, tp_pp = par["sp_flagship"], par["conformer"]
 
     def path_launches(kernel):
@@ -5978,6 +6175,10 @@ def main() -> int:
             "dp_per_rank_step": dpp["two_ranks"]["ranks"][0]["dp"]["launches"][k],
             "fsdp_per_rank_step": dpp["two_ranks"]["ranks"][0]["fsdp"]["launches"][k],
             "cli_torchrun_per_rank_step": dpp["cli"]["launches_per_rank_step"][k],
+            "tp_train_per_step": {**{n: mpp[f"tp{n}"]["launches_per_step"][k] for n in (2, 4)},
+                                  "moe_2": mpp["moe_tp2"]["launches_per_step"][k]},
+            "pp_train_per_step": {n: mpp[f"pp{n}"]["launches_per_step"][k] for n in (2, 3)},
+            "tp_fsdp_cli_per_rank_step": mpp["cli"]["launches_per_rank_step"][k],
             "speaker_verification_cli_per_call": sv["cli"]["launches"][kernel],
             "speaker_verification_codec_leg": sv["codec_leg"]["launches"][kernel],
             "token_lm_train_per_step": token_lm["train"]["launches_per_step"][kernel],
@@ -6081,7 +6282,12 @@ def main() -> int:
                               "3 stages; dp_per_rank_step / fsdp_per_rank_step: a rank's "
                               "fp32_strict step of 16 x 1 s, two ranks on the card; "
                               "cli_torchrun_per_rank_step: cli.train under torchrun, a rank's "
-                              "launches over its steps and validation batches, per forward"}))
+                              "launches over its steps and validation batches, per forward; "
+                              "tp_train_per_step / pp_train_per_step: the Conformer's "
+                              "fp32_strict step of 12 x 1 s at 2 / 4 model devices (moe_2: "
+                              "the MoE Conformer at 2) and 2 / 3 stages; "
+                              "tp_fsdp_cli_per_rank_step: cli.train under torchrun with TP 2 "
+                              "and FSDP, a rank's launches per forward"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -6091,5 +6297,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-ranks"]:  # a torchrun rank of phase 21
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         dp_rank_then_cli(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mp-cli"]:  # a torchrun rank of phase 22
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        mp_cli_rank(sys.argv[2], sys.argv[3:])
         sys.exit(0)
     sys.exit(main())

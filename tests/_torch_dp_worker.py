@@ -8,12 +8,16 @@ the job's cases in order and writes ``out_<rank>.pt`` beside the job file:
 
 - ``steps``: {name: {"cfg": a config dict, "state": a one-card train state
   dict, "batches": [global batch dicts of numpy arrays], "fsdp": bool,
-  "min_size": int, "draws": {step: EMA draws} or None}}; each rank takes
-  its rows of every batch (``parallel/mesh.py::shard_batch``) and runs the
-  data-parallel step; out: per step the metrics and the gathered state
-  dict, and the names of the leaves FSDP sharded;
-- ``loops``: {name: {"cfg": ..., "run_dir": ..., "max_steps": int}}:
-  ``train.loop.train`` on the config's filelists, each rank on its stripe;
+  "min_size": int, "draws": {step: EMA draws} or None, "model_devices":
+  a TP model axis or None}}; each rank takes its rows of every batch
+  (``parallel/mesh.py::shard_batch``) and runs the data-parallel step; out:
+  per step the metrics and the gathered state dict, the names of the
+  leaves FSDP sharded and of the TP leaves, and the most blocks whose cuts
+  were full at once during the steps, counted at every gather
+  (``max_full_blocks``);
+- ``loops``: {name: {"cfg": ..., "run_dir": ..., "max_steps": int,
+  "model_devices": optional}}: ``train.loop.train`` on the config's
+  filelists, each rank on its stripe;
   out: the returned state's dict and a validation pass run again.
 """
 import sys
@@ -26,6 +30,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from audiotokenization_tpu_torch import config as PC  # noqa: E402
+from audiotokenization_tpu_torch.parallel import fsdp  # noqa: E402
 from audiotokenization_tpu_torch.parallel.mesh import shard_batch  # noqa: E402
 from audiotokenization_tpu_torch.train.state import init_train_state  # noqa: E402
 from audiotokenization_tpu_torch.train.step import make_train_step  # noqa: E402
@@ -41,24 +46,45 @@ def numpy_tree(tree):
     return tree
 
 
+def counting_gathers(syncs, counts):
+    """``fsdp.ShardedParams._gather_unit`` that appends to ``counts`` the
+    number of blocks of ``syncs`` whose cuts are full after each gather."""
+    orig = fsdp.ShardedParams._gather_unit
+
+    def gather(self, unit):
+        orig(self, unit)
+        counts.append(sum(u.full for sp in syncs for u in sp.units if u.module is not None))
+
+    return gather
+
+
 def run_steps(case, group):
     cfg = PC.from_dict(case["cfg"])
     state = init_train_state(cfg, generator=torch.Generator().manual_seed(0), device="cpu",
-                             group=group, fsdp=case["fsdp"], fsdp_min_size=case["min_size"])
+                             group=group, fsdp=case["fsdp"], fsdp_min_size=case["min_size"],
+                             model_devices=case.get("model_devices"))
     state.load_state_dict(case["state"])
     draws = case.get("draws")
     step = make_train_step(cfg, device="cpu", group=group,
                            draws=(lambda s, codes, vectors: draws[s]) if draws else None)
     out = {"steps": [], "sharded": ([f"{side}.{name}" for side, opt in
                                      (("gen", state.gen_opt), ("disc", state.disc_opt))
-                                     for name in opt.sync.sharded()] if case["fsdp"] else [])}
+                                     for name in opt.sync.sharded()] if case["fsdp"] else []),
+           "tp_leaves": [f"gen.{name}" for name in state.gen_opt.sync.tp_leaves()]}
+    counts = []
+    gather = counting_gathers([state.gen_opt.sync, state.disc_opt.sync], counts)
     with torch.backends.mkldnn.flags(enabled=False):
         for batch in case["batches"]:
             local = shard_batch({k: torch.from_numpy(v) for k, v in batch.items()}, group)
-            metrics = step(state, local)
+            orig, fsdp.ShardedParams._gather_unit = fsdp.ShardedParams._gather_unit, gather
+            try:
+                metrics = step(state, local)
+            finally:
+                fsdp.ShardedParams._gather_unit = orig
             sd = state.state_dict()
             out["steps"].append({"metrics": numpy_tree(metrics),
                                  "gen": numpy_tree(sd["gen"]), "disc": numpy_tree(sd["disc"])})
+    out["max_full_blocks"] = max(counts, default=0)
     return out
 
 
@@ -72,7 +98,7 @@ def run_loop(case, group):
                                                          process_count=n)
     state = train(cfg, train_loader=train_loader, val_loader=val_loader,
                   test_loader=test_loader, run_dir=case["run_dir"],
-                  max_steps=case["max_steps"], device="cpu")
+                  max_steps=case["max_steps"], device=case.get("model_devices", "cpu"))
     with state.gen_opt.gathered():
         val = run_validation(cfg, state.gen, val_loader, compute_stoi=False)
     return {"state": numpy_tree(state.state_dict()), "val": val,

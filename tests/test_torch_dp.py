@@ -44,7 +44,12 @@ JAX's. The count of leaves held so, the worst and the scale are printed
 batch every metric is within 1e-6 relative and the histograms equal; both
 ranks return the same metrics and state bit for bit; FSDP's update holds
 the data-parallel one's by ``hold_update``, and it sharded some leaves,
-none under 256 elements.
+none under 256 elements, and gathered per block: at no gather of the
+step were two blocks' cuts full at once (``parallel/fsdp.py``). In one
+process over a gloo group of one, the per-block step with recomputation
+gives the same state bit for bit with its backward run on another thread
+(as autograd runs a CUDA backward) and every freed cut filled with NaN in
+place of being freed, so a use of a freed cut cannot pass.
 """
 import copy
 import dataclasses
@@ -205,9 +210,10 @@ def run_cases(variants, tmp, extra_job=None, float64=()):
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    out, sharded, _ = run_cases(variants(), tmp_path_factory.mktemp("dp"),
-                                float64=sorted(set(FLOAT64.values())))
+    out, sharded, outs = run_cases(variants(), tmp_path_factory.mktemp("dp"),
+                                   float64=sorted(set(FLOAT64.values())))
     out["sharded"] = sharded["fsdp"]
+    out["max_full_blocks"] = [o["steps"]["fsdp"]["max_full_blocks"] for o in outs]
     return out
 
 
@@ -295,7 +301,8 @@ def test_dp_step_matches_the_one_process_step(results, name):
 
 def test_fsdp_matches_the_dp_step_and_shards(results):
     """FSDP's update against the data-parallel one (rank 0 of each), leaf by
-    leaf (hold_update at 1e-3); some leaves sharded, the small ones not."""
+    leaf (hold_update at 1e-3); some leaves sharded, the small ones not; one
+    block's cuts full at a time on each rank."""
     _, (_, pb, _), (_, _, dp_after), _ = results["plain"]
     _, _, (_, _, fsdp_after), _ = results["fsdp"]
     for leaf in dp_after:
@@ -306,3 +313,64 @@ def test_fsdp_matches_the_dp_step_and_shards(results):
     sharded = set(results["sharded"])
     assert sharded and len(sharded) < len(dp_after) and sharded <= set(dp_after)
     assert all(pb[leaf].size >= FSDP_MIN_SIZE for leaf in sharded)
+    assert results["max_full_blocks"] == [1] * RANKS, results["max_full_blocks"]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_fsdp_blocks_hold_on_the_backward_thread(monkeypatch, precision):
+    import threading
+
+    import torch.distributed as dist
+
+    from audiotokenization_tpu_torch.parallel import dryrun, fsdp
+    from audiotokenization_tpu_torch.train.state import init_train_state
+
+    def poison(self, unit):
+        for leaf in unit.leaves:
+            if leaf.param.untyped_storage().nbytes():
+                leaf.param.data.fill_(float("nan"))
+        unit.full = False
+        if fsdp._state.slot is unit:
+            fsdp._state.slot = None
+
+    backward = torch.Tensor.backward
+
+    def on_another_thread(self, *args, **kwargs):
+        errors = []
+
+        def run():
+            try:
+                backward(self, *args, **kwargs)
+            except BaseException as e:  # re-raised on the caller's thread
+                errors.append(e)
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        if errors:
+            raise errors[0]
+
+    torch.set_num_threads(1)
+    cfg = dryrun.tiny_config()
+    cfg.train.precision, cfg.train.remat = precision, True
+    wav = torch.from_numpy((np.random.RandomState(3).randn(2, T) * 0.1).astype(np.float32))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        after = []
+        for patched in (False, True):
+            state = init_train_state(cfg, generator=torch.Generator().manual_seed(0),
+                                     device="cpu", group=dist.group.WORLD, fsdp=True,
+                                     fsdp_min_size=FSDP_MIN_SIZE)
+            assert state.gen_opt.sync.units and state.disc_opt.sync.units
+            with monkeypatch.context() as m, torch.backends.mkldnn.flags(enabled=False):
+                if patched:
+                    m.setattr(fsdp.ShardedParams, "free", poison)
+                    m.setattr(torch.Tensor, "backward", on_another_thread)
+                make_train_step(cfg, device="cpu", group=dist.group.WORLD)(state, {"wav": wav})
+            after.append(state.state_dict())
+    finally:
+        dist.destroy_process_group()
+    for side in ("gen", "disc"):
+        for k, v in after[0][side].items():
+            np.testing.assert_array_equal(after[1][side][k].numpy(), v.numpy(), err_msg=k)

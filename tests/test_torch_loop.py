@@ -387,9 +387,13 @@ def test_parallel_settings_raise(corpus, tmp_path, setting):
     if setting[0] == "fsdp":  # ported: one process has nothing to shard, and trains
         assert run().step == 1
         return
-    # TP / PP training are item 18's remainder; data parallelism is one process a device
-    with pytest.raises(NotImplementedError,
-                       match="one process per device" if device != "cpu" else "Queue 1 item 18"):
+    if setting[0] == "devices":  # data parallelism is one process a device
+        with pytest.raises(NotImplementedError, match="one process per device"):
+            run()
+        return
+    # TP / PP training take a list of model devices: one device is JAX's refusal
+    with pytest.raises(ValueError, match=rf"train.{setting[0]}=2 requires >1 devices "
+                                         r"\(have 1\); set " + setting[0]):
         run()
 
 
