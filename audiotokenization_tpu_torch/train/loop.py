@@ -307,7 +307,9 @@ def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None
     ``test_``-prefixed metrics. A ``concat_semantic`` codec quantizes the
     teacher's output too: its ``teacher`` runs per file
     (``make_test_teacher``); without one the pass is skipped and returns
-    ``{"test_skipped_concat_semantic": 1.0}``."""
+    ``{"test_skipped_concat_semantic": 1.0}``. A codec with no exact ragged
+    path (the MoE Conformer) skips it with
+    ``{"test_skipped_ragged_unavailable": 1.0}``."""
     from ..utils.ragged import make_ragged_codec
 
     teacher_fwd = None
@@ -323,7 +325,14 @@ def run_test(cfg: Config, gen, test_loader, *, max_batches: Optional[int] = None
     sr = cfg.dataset.sample_rate
     hop = codec_hop(cfg)
     quantum = max(sr // hop * hop, hop)
-    ragged = make_ragged_codec(cfg, device=_device_of(gen))
+    try:
+        ragged = make_ragged_codec(cfg, device=_device_of(gen))
+    except NotImplementedError as exc:
+        # a family with no exact ragged path (the MoE Conformer: capacity
+        # routing is batch-global): an explicit marker, as in JAX, not a crash
+        # at the end of a long run (cli/inference_full evaluates per file)
+        print(f"[test] ragged full-length path unavailable ({exc}); skipping the test phase")
+        return {"test_skipped_ragged_unavailable": 1.0}
     agg = {"si_snr": [], "si_sdr": [], "stoi": [], "pesq": []}
     hist = np.zeros(cfg.model.codec_decoder.codebook_size, np.int64)
     for i, batch in enumerate(test_loader):

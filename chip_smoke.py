@@ -347,6 +347,23 @@ Phases, each fatal on failure:
     steps, validation, SP, anti-aliased SP, TP and PP tokenize, the ragged
     Conformer against per-file; each raises on a broken promise). Prints
     the model_parallel line and phase_22_s.
+23. the soak scripts' resume check (soak_path), in a process of its own
+    (this script with --soak) under CUBLAS_WORKSPACE_CONFIG=:4096:8, so
+    that neither that setting nor deterministic algorithms touch another
+    phase: (a) audiotokenization_tpu_torch/scripts/soak_matrix.py's
+    resume_determinism on configs/bigcodec.yaml (the flagship at full
+    width, bf16) over a 16-file build_corpus under build/: a base run of
+    8 steps through cli.train (16 x 1 s, a sanity batch, the test pass),
+    two copies of its run dir each resumed to step 12 under
+    torch.use_deterministic_algorithms(True) (validation and a checkpoint
+    at 12) and extracted through cli.extract_indices at batch 8; fatal
+    unless the branches' metric rows (wall-clock keys dropped) and token
+    files are byte-identical, every training step launches K1 once and K2
+    30 times and every extraction batch K1 once and K2 15 times; the run
+    dirs are deleted; (b) K1 at 2560 x 8192 x 8 and K2 at phase 4's 30
+    unit shapes (B 32), each launched twice on the same inputs: the
+    outputs must be bitwise equal (no float atomics, a fixed order of
+    reduction). Prints the soak line (with phase_23_s).
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -6061,6 +6078,155 @@ def model_parallel_path(card, dev=None):
     return out
 
 
+SOAK_FILES = 16             # build_corpus's files (2 s plus 0-7 x 160 samples)
+SOAK_BASE, SOAK_EXTRA = 8, 4
+SOAK_B = 16                 # the batch of 1 s crops (the corpus holds 16 files)
+SOAK_OVERRIDES = (f"dataset.train.batch_size={SOAK_B}", f"dataset.val.batch_size={SOAK_B}",
+                  "train.log_every_n_steps=4")
+SOAK_CONFIG = "configs/bigcodec.yaml"
+
+
+def per_call_launches(record):
+    """A wrapper for a factory of step functions: each call of a function
+    it makes appends that call's (K1, K2) launches to ``record``."""
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+    def wrap(factory):
+        def make(*a, **k):
+            fn = factory(*a, **k)
+
+            def counted_call(*ca, **ck):
+                k1, k2 = vq_argmin.launches, fused_residual_unit.launches
+                out = fn(*ca, **ck)
+                record.append((vq_argmin.launches - k1, fused_residual_unit.launches - k2))
+                return out
+
+            return counted_call
+
+        return make
+
+    return wrap
+
+
+def soak_resume(device="cuda"):
+    """23 (a): soak_matrix.resume_determinism at SOAK_BASE + SOAK_EXTRA
+    steps on SOAK_FILES files under build/, each training step's and
+    extraction batch's (K1, K2) launches recorded. Returns its result with
+    ``launches`` (the whole check's), ``per_step`` and ``per_batch``."""
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+    from audiotokenization_tpu_torch.scripts import soak_matrix as sm
+    from audiotokenization_tpu_torch.train import loop
+    from audiotokenization_tpu_torch.utils import ragged
+
+    work = Path(__file__).resolve().parent / "build" / f"chip_smoke_soak_{int(time.time())}"
+    per_step, per_batch = [], []
+    saved = (sm.WORK, loop.make_train_step, ragged.make_ragged_tokenizer)
+    sm.WORK = work
+    loop.make_train_step = per_call_launches(per_step)(saved[1])
+    ragged.make_ragged_tokenizer = per_call_launches(per_batch)(saved[2])
+    try:
+        work.mkdir(parents=True)
+        sm.build_corpus(n_files=SOAK_FILES)
+        vq_argmin.launches = fused_residual_unit.launches = 0
+        res = sm.resume_determinism(SOAK_CONFIG, base_steps=SOAK_BASE, extra_steps=SOAK_EXTRA,
+                                    overrides=SOAK_OVERRIDES, device=device,
+                                    deterministic=True)
+        res["launches"] = [vq_argmin.launches, fused_residual_unit.launches]
+    finally:
+        sm.WORK, loop.make_train_step, ragged.make_ragged_tokenizer = saved
+        shutil.rmtree(work, ignore_errors=True)
+    res["per_step"], res["per_batch"] = per_step, per_batch
+    return res
+
+
+def soak_repeatable():
+    """23 (b): K1 at the flagship's 2560 x 8192 x 8 and K2 at phase 4's 30
+    unit shapes (B 32), each launched twice on the same inputs; fails
+    unless the outputs are bitwise equal. Returns the shapes checked."""
+    import numpy as np
+    import torch
+    from audiotokenization_tpu_torch.config import Config
+    from audiotokenization_tpu_torch.ops.cuda.residual_unit_kernel import fused_residual_unit
+    from audiotokenization_tpu_torch.ops.cuda.vq_kernel import vq_argmin
+
+    rng = np.random.RandomState(10)
+    z = torch.from_numpy(rng.randn(2560, 8).astype(np.float32)).cuda()
+    book = torch.from_numpy(rng.randn(8192, 8).astype(np.float32)).cuda()
+    if not torch.equal(vq_argmin(z, book), vq_argmin(z, book)):
+        fail("soak: K1 gave different indices on two launches over the same inputs")
+    shapes = unit_shapes(Config()) + unit_shapes(repo_config("bigcodec_semantic.yaml"))
+    for C, T, d in shapes:
+        args = unit_inputs(C, T, d)
+        a = fused_residual_unit(*args, dilation=d)
+        b = fused_residual_unit(*args, dilation=d)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"soak: K2 at C={C} T={T} d={d} gave different bits on two launches")
+    torch.cuda.synchronize()
+    return {"k1": [2560, 8192, 8], "k2_shapes": len(shapes), "batch": B}
+
+
+def soak_child(out_dir: str):
+    """Phase 23 in its own process (``--soak``): (b), then (a); writes
+    <out_dir>/soak.json."""
+    t0 = time.perf_counter()
+    out = {"repeatable": soak_repeatable()}
+    t1 = time.perf_counter()
+    out["resume"] = soak_resume()
+    out["resume_s"] = time.perf_counter() - t1
+    out["child_s"] = time.perf_counter() - t0
+    (Path(out_dir) / "soak.json").write_text(json.dumps(out))
+
+
+def hold_soak(res):
+    """Fail unless phase 23 (a)'s branches were byte-identical and every
+    step and extraction batch launched K1 1 / K2 30 and K1 1 / K2 15."""
+    steps = SOAK_BASE + 2 * SOAK_EXTRA
+    if not (res["ok"] and res["metrics_identical"] and res["tokens_identical"]):
+        fail(f"soak: the resumed branches differ: {json.dumps(res)}")
+    if len(res["per_step"]) != steps or any(tuple(p) != (1, 30) for p in res["per_step"]):
+        fail(f"soak: the {steps} training steps launched K1 / K2 {res['per_step']}, "
+             "not 1 / 30 each")
+    if not res["per_batch"] or any(tuple(p) != (1, 15) for p in res["per_batch"]):
+        fail(f"soak: the extraction batches launched K1 / K2 {res['per_batch']}, "
+             "not 1 / 15 each")
+    if res["files_compared"] != SOAK_FILES:
+        fail(f"soak: {res['files_compared']} token files compared, not {SOAK_FILES}")
+
+
+def soak_path(card):
+    """23. The resume check and the kernels' repeatability (module
+    docstring) in a process of its own; prints the soak line."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    script = Path(__file__).resolve()
+    with tempfile.TemporaryDirectory(dir=script.parent / "build") as out_dir:
+        proc = subprocess.run(
+            [sys.executable, str(script), "--soak", out_dir], cwd=str(script.parent),
+            env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, timeout=600)
+        if proc.returncode:
+            fail(f"soak: the phase's process exited {proc.returncode}")
+        out = json.loads((Path(out_dir) / "soak.json").read_text())
+    res = out["resume"]
+    hold_soak(res)
+    line = {"steps": [SOAK_BASE, SOAK_EXTRA], "files": SOAK_FILES,
+            "batch": [SOAK_B, SR], "config": SOAK_CONFIG,
+            "deterministic_algorithms": res["deterministic_algorithms"],
+            "metrics_identical": res["metrics_identical"],
+            "tokens_identical": res["tokens_identical"],
+            "branch_rows": res["branch_steps"], "files_compared": res["files_compared"],
+            "launches": res["launches"], "per_step": res["per_step"][0],
+            "per_extract_batch": res["per_batch"][0],
+            "extract_batches": len(res["per_batch"]), "repeatable": out["repeatable"],
+            "resume_s": out["resume_s"], "child_s": out["child_s"],
+            "phase_23_s": time.perf_counter() - t0}
+    print(json.dumps({"soak": line, "card": card}))
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -6157,6 +6323,7 @@ def main() -> int:
     print(json.dumps({"phase_21_s": dpp["phase_21_s"], "card": card}))
     mpp = model_parallel_path(card)
     print(json.dumps({"phase_22_s": mpp["phase_22_s"], "card": card}))
+    soak = soak_path(card)
     sp, tp_pp = par["sp_flagship"], par["conformer"]
 
     def path_launches(kernel):
@@ -6179,6 +6346,8 @@ def main() -> int:
                                   "moe_2": mpp["moe_tp2"]["launches_per_step"][k]},
             "pp_train_per_step": {n: mpp[f"pp{n}"]["launches_per_step"][k] for n in (2, 3)},
             "tp_fsdp_cli_per_rank_step": mpp["cli"]["launches_per_rank_step"][k],
+            "soak_resume_per_step": soak["per_step"][k],
+            "soak_extract_per_batch": soak["per_extract_batch"][k],
             "speaker_verification_cli_per_call": sv["cli"]["launches"][kernel],
             "speaker_verification_codec_leg": sv["codec_leg"]["launches"][kernel],
             "token_lm_train_per_step": token_lm["train"]["launches_per_step"][kernel],
@@ -6287,7 +6456,10 @@ def main() -> int:
                               "fp32_strict step of 12 x 1 s at 2 / 4 model devices (moe_2: "
                               "the MoE Conformer at 2) and 2 / 3 stages; "
                               "tp_fsdp_cli_per_rank_step: cli.train under torchrun with TP 2 "
-                              "and FSDP, a rank's launches per forward"}))
+                              "and FSDP, a rank's launches per forward; "
+                              "soak_resume_per_step / soak_extract_per_batch: phase 23's "
+                              "resume check (scripts/soak_matrix.py), a bf16 step of 16 x 1 s "
+                              "through cli.train and a batch of cli.extract_indices"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -6301,5 +6473,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-cli"]:  # a torchrun rank of phase 22
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         mp_cli_rank(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--soak"]:  # phase 23's process
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        soak_child(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -43,4 +43,5 @@ def test_scan_sees_the_port():
             "convert.py", "extract_indices.py", "inference_full.py", "synthesize.py",
             "streaming.py", "alias_free.py", "chunked.py", "sp.py", "transformer.py",
             "conformer.py", "ecapa_tdnn.py", "wavlm.py", "wav2vec2.py", "verification.py",
-            "aux_blocks.py", "tome.py", "dp.py", "fsdp.py", "dryrun.py", "mesh.py"} <= names
+            "aux_blocks.py", "tome.py", "dp.py", "fsdp.py", "dryrun.py", "mesh.py",
+            "soak_matrix.py", "soak_token_lm.py", "bench_serving.py"} <= names
