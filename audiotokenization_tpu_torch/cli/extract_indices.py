@@ -56,6 +56,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import command
+
 
 def build_argparser():
     p = argparse.ArgumentParser(description=__doc__,
@@ -198,6 +200,7 @@ def _as_pcm16(w: np.ndarray) -> np.ndarray:
     return w
 
 
+@command
 def main(argv=None):
     """Extract the corpus; prints and returns the closing summary (``saved``,
     ``errors``, ``audio_seconds``, ``wall_seconds``, ``audio_s_per_s``, and

@@ -41,6 +41,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import command
+
 
 class Tee:
     """stdout copied to a log file."""
@@ -91,6 +93,7 @@ def build_argparser():
     return p
 
 
+@command
 def main(argv=None):
     """Evaluate; returns the summary dict it writes."""
     args = build_argparser().parse_args(argv)

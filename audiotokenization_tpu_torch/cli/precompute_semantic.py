@@ -26,6 +26,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import command
+
 
 def build_argparser():
     p = argparse.ArgumentParser(description=__doc__,
@@ -42,6 +44,7 @@ def build_argparser():
     return p
 
 
+@command
 def main(argv=None):
     """Write every file's target; returns the number written."""
     from ..data.audio_io import read_audio

@@ -39,6 +39,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import command
+
 
 def decode_tokens(codec, tokens):
     """tokens (B, Tf) int on the codec's device -> waveforms (B, Tf · hop),
@@ -50,6 +52,7 @@ def decode_tokens(codec, tokens):
         return C.decode(codec, emb)[:, 0]
 
 
+@command
 def main(argv=None):
     """Synthesize; returns the waveforms (num_samples, T) as float32 numpy,
     before their PCM16 rounding in the wav files."""

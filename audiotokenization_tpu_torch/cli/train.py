@@ -50,6 +50,7 @@ import torch
 
 from ..config import Config, codec_hop
 from ..data.dataset import AudioDataset, DataLoader
+from . import command
 
 
 def make_loaders(cfg: Config, *, dataset_root=None, pin_memory: bool = False,
@@ -84,6 +85,7 @@ def make_loaders(cfg: Config, *, dataset_root=None, pin_memory: bool = False,
     return train_loader, val_loader, test_loader
 
 
+@command
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)

@@ -24,6 +24,8 @@ import argparse
 
 import torch
 
+from . import command
+
 MAX_TO_KEEP = 2
 SAVE_EVERY = 10000
 
@@ -50,6 +52,7 @@ def save_token_lm(run_dir, step: int, lm, optimizer):
                                "optim": optimizer.state_dict()}, max_to_keep=MAX_TO_KEEP)
 
 
+@command
 def main(argv=None):
     """Train; returns the LM (on its device)."""
     p = argparse.ArgumentParser(description=__doc__,

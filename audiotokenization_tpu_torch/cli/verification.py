@@ -27,6 +27,8 @@ import json
 import numpy as np
 import torch
 
+from . import command
+
 SSL_ALIASES = {"wavlm_base_plus": "wavlm", "wavlm_large": "wavlm",
                "hubert_large": "hubert", "wav2vec2_xlsr": "wav2vec2"}
 
@@ -99,6 +101,7 @@ def load_ssl_checkpoint(path) -> dict:
     return sd
 
 
+@command
 def main(argv=None):
     """Print and return the similarity line."""
     from ..data.audio_io import read_audio

@@ -20,7 +20,10 @@ convert.py``): ``convert_codec_state_dict`` maps a CodecLightningModule
 state dict (``encoder.*``, ``decoder.*`` with the quantizer under
 ``decoder.quantizer.*``) straight onto the port's state-dict keys, tensor
 for tensor, tolerant of the causal convs' inner ``.conv.``;
-``load_reference_checkpoint`` finds and reads a reference run dir. Both
+``load_reference_checkpoint`` finds and reads a reference run dir. The
+reference's discriminators convert too (``convert_mpd``,
+``convert_spec_discriminator``: the keys of ``Discriminator``'s ``mpd``
+and ``spec``). Both
 codec families (BigCodec, and the Conformer STFT/ISTFT codec of the
 reference's config1) with the factorized VQ or FSQ convert, and so do the
 semantic heads of an SSL checkpoint (``convert_semantic_heads``: fc_prior,
@@ -273,6 +276,39 @@ def convert_fsq(sd: Mapping[str, Any], *, prefix: str = "quantizer.") -> Dict[st
         return {}
     return {**_under("project_in", _conv(v.sub("project_in"))),
             **_under("project_out", _conv(v.sub("project_out")))}
+
+
+def convert_mpd(sd: Mapping[str, Any], *, n_periods: int = 5, n_stages: int = 5,
+                prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The reference's HiFiGANMultiPeriodDiscriminator (``discriminators.
+    <i>.convs.<j>.0``, ``output_conv``) -> the port's
+    ``MultiPeriodDiscriminator`` keys (``discs.<i>.convs.<j>``, ``out``),
+    which ``Discriminator`` holds under ``mpd.``."""
+    v = _View(sd, prefix)
+    out = {}
+    for i in range(n_periods):
+        dv = v.sub(f"discriminators.{i}")
+        for j in range(n_stages):
+            out.update(_under(f"discs.{i}.convs.{j}", _conv(dv.sub(f"convs.{j}.0"))))
+        out.update(_under(f"discs.{i}.out", _conv(dv.sub("output_conv"))))
+    return out
+
+
+def convert_spec_discriminator(sd: Mapping[str, Any], *, n_resolutions: int = 5,
+                               n_downsample: int = 3, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The reference's SpecDiscriminator (``model.disc_<i>.model.layer_<j>``,
+    a conv and its activation but the last) -> the port's
+    ``MultiResolutionSpecDiscriminator`` keys (``discs.<i>.layers.<j>``),
+    which ``Discriminator`` holds under ``spec.``."""
+    v = _View(sd, prefix)
+    n_layers = n_downsample + 3
+    out = {}
+    for i in range(n_resolutions):
+        dv = v.sub(f"model.disc_{i}")
+        for j in range(n_layers):
+            name = f"model.layer_{j}.0" if j < n_layers - 1 else f"model.layer_{j}"
+            out.update(_under(f"discs.{i}.layers.{j}", _conv(dv.sub(name))))
+    return out
 
 
 def split_lightning_state_dict(sd: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:

@@ -1,11 +1,15 @@
-"""ctypes binding of the repo's FLAC decoder, ``native/flacdec.cpp``
-(counterpart of ``audiotokenization_tpu/data/flac.py``).
+"""ctypes binding of the FLAC decoder (counterpart of
+``audiotokenization_tpu/data/flac.py``), from the port's own copy of the
+repo's ``native/flacdec.cpp``: ``csrc/flacdec.cpp``, which ships with the
+package.
 
 The first decode compiles the source with ``g++ -O3`` into
-``build/native/libflacdec-<hash>.so`` beside the package (the hash is the
-source's, so an edited source builds anew). ``native/`` is never written.
-A failed build raises; there is no other decoder. Samples come back as
-float32 in [-1, 1], (channels, T), as ``audio_io.read_wav`` returns them.
+``<cache>/native/libflacdec-<hash>.so`` (``<cache>``: the port's
+``utils/compile_cache.py::kernel_cache_dir()``, ``build/`` beside the
+package in a source tree; the hash is the source's, so an edited source
+builds anew). A failed build raises; there is no other decoder. Samples
+come back as float32 in [-1, 1], (channels, T), as ``audio_io.read_wav``
+returns them.
 """
 from __future__ import annotations
 
@@ -18,16 +22,16 @@ from pathlib import Path
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parent.parent.parent
-_SRC = _ROOT / "native" / "flacdec.cpp"
-_BUILD_DIR = _ROOT / "build" / "native"
+from ..utils.compile_cache import PACKAGE_DIR, kernel_cache_dir
+
+_SRC = PACKAGE_DIR / "csrc" / "flacdec.cpp"
 _LOCK = threading.Lock()
 _LIB = None
 
 
 def library_path() -> Path:
     digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"libflacdec-{digest}.so"
+    return kernel_cache_dir() / "native" / f"libflacdec-{digest}.so"
 
 
 def _build(so: Path):

@@ -197,7 +197,7 @@ def init_codec(cfg: Config, *, generator: torch.Generator, device="cuda") -> Cod
 
 def encode(codec: Codec, wav, *, remat: bool = False, aux=None):
     """wav (B, T) -> latents (B, C, Tf). ``remat`` recomputes BigCodec's
-    blocks in the backward; the Conformer keeps its activations. ``aux``: a
+    blocks, or the Conformer's layers, in the backward. ``aux``: a
     list the encoder's MoE layers append their aux losses to (an encoder
     without one takes none)."""
     if aux is None or not codec.encoder_moe:

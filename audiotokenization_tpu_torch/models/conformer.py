@@ -24,6 +24,11 @@ hook ``parallel/pp.py`` runs the layers through as a GPipe pipeline; inside
 its ``pp_train_context`` (pipeline-parallel training) the hook is taken
 from there when none is given and the batch is not ragged.
 
+Training under ``train.remat`` recomputes each backbone layer in the
+backward (``remat``, as the JAX package's ``jax.checkpoint`` per layer);
+the pipeline recomputes per layer under its own flag
+(``parallel/pp.py``), and a layer is never wrapped twice.
+
 ``ffn_type: moe`` (configs/conformer_moe.yaml) makes the encoder's FFNs
 MoE layers (``ops/moe.py``); the encoder's ``forward`` then appends their
 aux losses to its ``aux`` list. The decoder's FFNs are dense whatever its
@@ -82,17 +87,18 @@ class ConformerEncoder(nn.Module):
 
     def stages(self, lengths=None, *, remat: bool = False, aux=None):
         """(front, tail) of ``forward``: the whole encoder and the identity.
-        ``lengths``: (B,) samples of a zero-padded ragged batch. ``remat``
-        is ignored: the Conformer keeps its activations. ``aux``: the list
+        ``lengths``: (B,) samples of a zero-padded ragged batch. ``remat``:
+        each backbone layer recomputed in the backward. ``aux``: the list
         the MoE layers append their aux losses to."""
         valid = None if lengths is None else lengths // self.hop_length
-        return (lambda x: conformer_encode(self, x, valid=valid, aux=aux)), (lambda y: y)
+        return ((lambda x: conformer_encode(self, x, valid=valid, aux=aux, remat=remat)),
+                (lambda y: y))
 
     def forward(self, x, *, lengths=None, remat: bool = False, aux=None):
         """``lengths``: (B,) samples of a ragged batch (latents past
-        lengths // hop are meaningless); ``remat`` is ignored; ``aux`` as in
+        lengths // hop are meaningless); ``remat`` and ``aux`` as in
         ``stages``."""
-        return self.stages(lengths, aux=aux)[0](x)
+        return self.stages(lengths, remat=remat, aux=aux)[0](x)
 
 
 def encode_features(p: ConformerEncoder, spec):
@@ -111,28 +117,32 @@ def encode_output(p: ConformerEncoder, h):
     return h.transpose(1, 2)
 
 
-def _run_backbone(h, backbone, *, valid, aux, backbone_fn):
+def _run_backbone(h, backbone, *, valid, aux, backbone_fn, remat):
+    """The sequential backbone (``remat``: per layer), or ``backbone_fn``
+    (the pipeline, which recomputes per layer under its own flag)."""
     if backbone_fn is None and valid is None:
         from ..parallel.pp import maybe_pp_backbone
 
         backbone_fn = maybe_pp_backbone(backbone)  # pipeline-parallel training
     if backbone_fn is None:
-        return conformer_backbone(h, backbone, valid=valid, aux=aux)
+        return conformer_backbone(h, backbone, valid=valid, aux=aux, remat=remat)
     if valid is not None:
         raise ValueError("a backbone_fn takes no ragged valid frame counts")
     return backbone_fn(h, backbone)
 
 
-def conformer_encode(p: ConformerEncoder, x, *, valid=None, aux=None, backbone_fn=None):
+def conformer_encode(p: ConformerEncoder, x, *, valid=None, aux=None, backbone_fn=None,
+                     remat: bool = False):
     """x (B, 1, T) -> latents (B, out_channels, T / hop); ``valid``: (B,)
     frame counts of a ragged batch (latents past them are meaningless);
     ``aux``: the list the MoE layers append their aux losses to.
     ``backbone_fn``: a (h (B, T, dim), backbone) -> h replacement for the
-    sequential backbone, the hook ``parallel/pp.py`` pipelines it through."""
+    sequential backbone, the hook ``parallel/pp.py`` pipelines it through.
+    ``remat``: the sequential backbone's layers recomputed in the backward."""
     spec = stft_same_constant_pad(x[:, 0], n_fft=p.n_fft, hop_length=p.hop_length,
                                   win_length=p.window_size)
     h = _run_backbone(encode_features(p, spec), p.backbone, valid=valid, aux=aux,
-                      backbone_fn=backbone_fn)
+                      backbone_fn=backbone_fn, remat=remat)
     return encode_output(p, h)
 
 
@@ -156,9 +166,9 @@ class ConformerDecoder(nn.Module):
             self.input_proj = _wn_pointwise(d.in_channels, d.dim, generator=generator)
 
     def forward(self, x, *, frames=None, remat: bool = False):
-        """``frames``: (B,) frame counts of a ragged batch; ``remat`` is
-        ignored."""
-        return conformer_decode(self, x, valid=frames)
+        """``frames``: (B,) frame counts of a ragged batch; ``remat``: each
+        backbone layer recomputed in the backward."""
+        return conformer_decode(self, x, valid=frames, remat=remat)
 
 
 def head_spectrum(p: ConformerDecoder, h):
@@ -169,16 +179,17 @@ def head_spectrum(p: ConformerDecoder, h):
     return torch.complex(mag * torch.cos(phase).float(), mag * torch.sin(phase).float())
 
 
-def conformer_decode(p: ConformerDecoder, x, *, valid=None, backbone_fn=None):
+def conformer_decode(p: ConformerDecoder, x, *, valid=None, backbone_fn=None,
+                     remat: bool = False):
     """x (B, in_channels, Tf) -> (B, 1, Tf · hop); ``valid``: (B,) frame
     counts of a ragged batch (pad frames add nothing to the overlap-add,
-    each sample's envelope is its own); ``backbone_fn`` as in
+    each sample's envelope is its own); ``backbone_fn`` and ``remat`` as in
     ``conformer_encode``."""
     h = x.transpose(1, 2)
     if hasattr(p, "input_proj"):
         h = pointwise(h, p.input_proj)
-    h = rms_norm(_run_backbone(h, p.backbone, valid=valid, aux=None, backbone_fn=backbone_fn),
-                 p.norm)
+    h = rms_norm(_run_backbone(h, p.backbone, valid=valid, aux=None, backbone_fn=backbone_fn,
+                               remat=remat), p.norm)
     spec = head_spectrum(p, h).transpose(1, 2)
     return istft_same(spec, n_fft=p.n_fft, hop_length=p.hop_length, win_length=p.n_fft,
                       valid=valid)[:, None, :]

@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers, so
 nvcc takes seconds) and is compiled on first use for Hopper into
-``build/kernels/<name>-<hash>.so`` beside the package, the hash taken over
-the source and every ``csrc/*.cuh`` header it may include:
+``<cache>/kernels/<name>-<hash>.so``, the hash taken over the source and
+every ``csrc/*.cuh`` header it may include, and ``<cache>`` the port's
+``utils/compile_cache.py::kernel_cache_dir()`` (``build/`` beside the
+package in a source tree). The sources ship with the package (its package
+data), so an installed port builds from its own copy:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v
@@ -21,9 +24,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-PACKAGE_DIR = Path(__file__).resolve().parents[2]
+from ...utils.compile_cache import PACKAGE_DIR, kernel_cache_dir
+
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 KERNELS = ("vq_argmin", "residual_unit", "probe_unit")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,24 +45,29 @@ def _nvcc() -> str:
     return str(path)
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and found: ``<cache>/kernels``."""
+    return kernel_cache_dir() / "kernels"
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, str]:
     """Compile every source in ``names`` whose library is missing, one nvcc
     process each, all started together. Returns each source's ptxas report
     (registers, shared memory, spills); raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

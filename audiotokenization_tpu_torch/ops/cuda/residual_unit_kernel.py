@@ -10,6 +10,8 @@ fused_residual_unit`` (non-causal, no anti-aliasing). On CUDA tensors
 ``ResidualUnitFn``, whose backward recomputes the unit with autograd; on
 CPU tensors it computes ``residual_unit_plain``, the unit as the JAX
 package's XLA path computes it (``models/bigcodec.py::residual_unit``).
+The kernel, the plain version and the backward's recompute all compute
+the snakes as sin² (``ops/snake.py``'s ``cos_form`` is not used here).
 """
 from __future__ import annotations
 

@@ -5,9 +5,9 @@ functions (``bigcodec_encode(p, x)``). Mixed precision runs those functions
 on bf16 copies of the fp32 masters, and ``parameters_as`` puts the copies in
 place for the body (as ``torch.func.functional_call`` does, for a function
 rather than a ``forward``). ``checkpointed`` is ``torch.utils.checkpoint``
-for such a function: the module's current tensors are inputs of the
-checkpoint, so the recompute in the backward runs on the same tensors, the
-bf16 copies included, after the substitution has ended.
+for such a function: the tensors substituted for the module's parameters
+(the bf16 copies) are inputs of the checkpoint, so the recompute in the
+backward runs on the same tensors after the substitution has ended.
 
 A parameter whose weight is not in it between uses (an FSDP block's leaf,
 whose cuts are gathered at the block, or a tensor-parallel leaf, held as
@@ -91,15 +91,26 @@ def cast_parameters(module: nn.Module, dtype: torch.dtype, *, skip: str | None =
 
 def checkpointed(fn, module: nn.Module, x, **kwargs):
     """``fn(x, module, **kwargs)``, its activations recomputed in the
-    backward rather than kept (``torch.utils.checkpoint``, non-reentrant)."""
-    named = list(module.named_parameters())
+    backward rather than kept (``torch.utils.checkpoint``, non-reentrant).
+    The recompute runs in the forward's context, which a backward on
+    autograd's own thread would not see otherwise: its deferred casts and
+    its tensor-parallel context (``parallel/tp.py``)."""
+    from ..parallel import tp
+
+    # the substitutes in place (casts, detached copies) are the checkpoint's
+    # inputs; the module's own parameters are read from it in the recompute
+    # as in the forward: a TP leaf is found by its identity (parallel/tp.py),
+    # which a saved input loses under an FSDP block's saved-tensor hooks
+    named = [(n, t) for n, t in module.named_parameters() if not isinstance(t, nn.Parameter)]
     casts = list(getattr(_local, "casts", ()))  # the deferred casts, for the recompute
+    tp_ctx = tp.current_context()
 
     def run(x, *ts):
         outer = _local.__dict__.get("casts", [])
         _local.casts = casts + []
         try:
-            with parameters_as(module, {n: t for (n, _), t in zip(named, ts)}):
+            with tp.tp_shard_activations(tp_ctx), \
+                    parameters_as(module, {n: t for (n, _), t in zip(named, ts)}):
                 return fn(x, module, **kwargs)
         finally:
             _local.casts = outer

@@ -42,7 +42,9 @@ as a GShard MoE with the backbone's (``moe_top_k``,
 ``moe_capacity_factor``), pad frames under ``valid`` claiming no expert
 slot; ``conformer_layer`` / ``conformer_backbone`` append each MoE layer's
 aux losses to the ``aux`` list a caller passes (the JAX package collects
-them through a thread-local context instead). Remat is not ported.
+them through a thread-local context instead). ``conformer_backbone(...,
+remat=True)`` recomputes each layer in the backward (training under
+``train.remat``), as the JAX package's ``jax.checkpoint`` does.
 
 Tensor parallelism (``parallel/tp.py``): inside its context
 ``self_attention`` splits the heads and ``feed_forward`` the SwiGLU
@@ -64,6 +66,7 @@ from ..parallel.tp import (constrain_heads, row_parallel_sum, tp_model_shards, t
                            tp_shard)
 from .conv import causal_conv1d, conv1d, get_weight, init_conv1d, init_linear, linear, pointwise
 from .moe import MoEFeedForward, moe_ffn
+from .params import checkpointed
 
 _MASKED = -0.7  # x finfo(dtype).max: a masked logit, as jax.nn.dot_product_attention's
 KEY_BLOCK = 128  # keys per partial value sum of the fp32 attention
@@ -357,10 +360,13 @@ class ConformerBackbone(nn.Module):
                                torch.device(device))
 
 
-def conformer_backbone(x, p: ConformerBackbone, *, valid=None, aux=None):
+def conformer_backbone(x, p: ConformerBackbone, *, valid=None, aux=None, remat: bool = False):
     """x (B, T, C) through every layer; T at most ``max_seq_len`` (the RoPE
     table's length). ``aux``: a list that each MoE FFN's aux losses are
-    appended to."""
+    appended to. ``remat``: each layer's activations recomputed in the
+    backward rather than kept (``ops/params.py::checkpointed``), its aux
+    losses outputs of the checkpointed call, so a layer's appear once;
+    each layer is one FSDP block (``parallel/fsdp.py::run_block``)."""
     T = x.shape[1]
     if T > p.max_seq_len:
         raise ValueError(f"{T} frames exceed max_seq_len={p.max_seq_len} (the RoPE table)")
@@ -372,16 +378,21 @@ def conformer_backbone(x, p: ConformerBackbone, *, valid=None, aux=None):
             args[dev] = (*(t[:T] for t in p.rope(dev)), v, None if v is None else
                          attention_bias(T, valid=v, causal=p.causal, dtype=x.dtype, device=dev))
         cos, sin, v, bias = args[dev]
-        layer_aux = None if aux is None else []
-        x, layer_aux = run_block(layer, _layer_with_aux, x.to(dev), layer, cos, sin,
-                                 n_head=p.n_head, conv_first=p.conv_first, causal=p.causal,
-                                 valid=v, bias=bias, moe_args=p.moe_args, aux=layer_aux)
+        kw = dict(cos=cos, sin=sin, n_head=p.n_head, conv_first=p.conv_first, causal=p.causal,
+                  valid=v, bias=bias, moe_args=p.moe_args, losses=aux is not None)
+        if remat:
+            x, layer_aux = run_block(layer, checkpointed, _layer_with_aux, layer, x.to(dev), **kw)
+        else:
+            x, layer_aux = run_block(layer, _layer_with_aux, x.to(dev), layer, **kw)
         if aux is not None:
             aux.extend(layer_aux)
     return x.to(home)
 
 
-def _layer_with_aux(x, p, cos, sin, *, aux, **kwargs):
-    """``conformer_layer``, its aux losses returned beside its output (the
-    tensors ``parallel/fsdp.py::run_block`` follows into the backward)."""
+def _layer_with_aux(x, p, *, cos, sin, losses: bool, **kwargs):
+    """``conformer_layer`` and the list of its aux losses (None without
+    ``losses``), returned beside its output: the tensors
+    ``parallel/fsdp.py::run_block`` follows into the backward, and a fresh
+    list at each call, so a checkpoint's recompute adds no second set."""
+    aux = [] if losses else None
     return conformer_layer(x, p, cos, sin, aux=aux, **kwargs), aux

@@ -34,7 +34,8 @@ from __future__ import annotations
 import argparse
 import copy
 import os
-import socket
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -257,14 +258,13 @@ def _sp_checks(device: torch.device, n: int) -> dict:
     return {"sp_frames": int(codes.shape[-1]), "sp_samples": int(wav2.shape[-1])}
 
 
-def _rank_main(rank: int, n: int, device: str, port: int, backend: str, results):
+def _rank_main(rank: int, n: int, device: str, init_method: str, backend: str, results):
     torch.set_num_threads(1)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=n)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=n)
     try:
         out = _rank_checks(dev, dist.group.WORLD, n)
         if rank == 0:
@@ -285,13 +285,12 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     device = resolve_device(device)
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
     backend = "nccl" if device.type == "cuda" and cards >= n_devices else "gloo"
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    with mp.Manager() as manager:
+    # the ranks meet at a file store: no probed port that another process
+    # could take before rank 0 binds it
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp, mp.Manager() as manager:
         results = manager.dict()
-        mp.spawn(_rank_main, args=(n_devices, device.type, port, backend, results),
+        init = (Path(tmp) / "rendezvous").as_uri()
+        mp.spawn(_rank_main, args=(n_devices, device.type, init, backend, results),
                  nprocs=n_devices, join=True)
         out = copy.deepcopy(dict(results))
     if sorted(out) != list(range(n_devices)):

@@ -121,6 +121,11 @@ def tp_shard_activations(ctx: TPContext):
         _local.ctx = prev
 
 
+def current_context():
+    """The thread's TP context (None outside one)."""
+    return getattr(_local, "ctx", None)
+
+
 def tp_model_shards(n_head: int | None = None) -> int:
     """The model shards of the thread's TP context: 0 without one, with a
     single model device, or when the shards do not divide ``n_head`` (the

@@ -17,6 +17,10 @@
 phase 1 averages the discriminator's gradients at its pre-update weights
 (the fakes regenerated without a graph), one update; phase 2 averages the
 generator's against the updated discriminator, one update.
+``train.remat`` (``config.resolve_remat``, resolved once a step) recomputes
+in the backward each BigCodec block, each Conformer layer (the MoE's aux
+losses counted once) and both discriminators, rather than keeping their
+activations, as the JAX step's ``jax.checkpoint`` does.
 ``guard_nonfinite`` skips a side's update when its loss or any of its
 gradients is not finite (one host sync per side). In the JAX step the
 generator loss then sees the discriminator's poisoned update, and so skips

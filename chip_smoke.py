@@ -331,7 +331,12 @@ Phases, each fatal on failure:
     on configs/conformer.yaml at full width (dim 256, 6 + 6 layers, 8
     heads, VQ 8192 x 8, hop 200), random weights from seed 0, one global
     batch of 12 x 1 s, fp32_strict, AdamW eps 1 and no warmup: (a) the
-    one-device step; (b) TP 2 and TP 4 (the card listed 2 and 4 times),
+    one-device step, and the same step with each Conformer layer
+    recomputed in the backward (train.remat on) held against it by phase
+    8b's rule, its peak memory and ms a step beside (a)'s (the remat
+    line; the same for the one-device step at 8 x 10 s, where the
+    attention's scores are a large share of the activations, and for
+    (d)'s MoE step); (b) TP 2 and TP 4 (the card listed 2 and 4 times),
     (c) PP 2 and PP 3 with 6 microbatches, each held against (a) by phase
     8b's rule; (d) configs/conformer_moe.yaml's one-device step and its
     step under TP 2 (the experts split) held against it; each case's K1
@@ -364,6 +369,24 @@ Phases, each fatal on failure:
     unit shapes (B 32), each launched twice on the same inputs: the
     outputs must be bitwise equal (no float atomics, a fixed order of
     reduction). Prints the soak line (with phase_23_s).
+24. the installed port (installed_port_path): pip install --no-deps
+    --no-build-isolation --no-index --no-compile --target of a copy of the
+    tree's packaging files; then, from a working directory outside the
+    repo with a fresh ATT_TORCH_CACHE, the installed package builds K1 and
+    K2 there from its own sources (both nvcc at once); these two steps run
+    in a process of their own started beside the repo's build at the top
+    (they need the CPU, not the card). Then examples/quickstart_torch.py's
+    steps run through the installed
+    audiotok-torch-* scripts on the card (preprocess, train 5 fp32 steps
+    of the JAX quickstart's tiny BigCodec, extract, evaluate). Fatal
+    unless the build read the installed sources, the fresh cache holds
+    vq_argmin-*.so and residual_unit-*.so (the same hash as the repo's),
+    the repo's extraction of the same run dir (K1 1 / K2 6
+    a batch: one 0.2 s file, the tiny encoder's 6 units) gives the
+    installed one's token files byte for byte, the evaluation wrote its
+    summary, and K2 holds to phase 4's two checks at the tiny codec's unit
+    widths (C 4 and 8). Prints the installed_port line (with phase_24_s,
+    and phase_24_whole_s: the install and the build counted in turn).
 The kernels line gives K1's and K2's launches on each of these paths
 (path_launches). The last line is {"ok": true, "device": {...}}. Without
 a card, or without the package beside it, the script exits non-zero and
@@ -5957,6 +5980,7 @@ MP_B = 12                   # the global batch: 12 x 1 s
 MP_MICRO = 6                # PP's microbatches
 MP_TIMED = 3                # timed steps a case
 MP_SEED = 23                # the batch's draws
+MP_LONG = (8, 10 * SR)      # the long crop of the remat cells: 8 x 10 s
 MP_CLI_STEPS = 2
 
 
@@ -5995,6 +6019,14 @@ def mp_case(name, cfg, wav, ref=None, model_devices=None):
         fail(f"22 {name}: K1 / K2 {out['launches_per_step']} a timed step, not [1, 0]")
     del state, step
     return out, ((m, before, after) if ref is None else None)
+
+
+def with_remat(cfg):
+    """``cfg`` with the Conformer's layers recomputed in the backward
+    (``train.remat``; ``strict_smooth`` turns it off)."""
+    cfg = copy.deepcopy(cfg)
+    cfg.train.remat = True
+    return cfg
 
 
 def mp_cli_rank(out_dir: str, argv):
@@ -6051,6 +6083,12 @@ def model_parallel_path(card, dev=None):
     out = {"batch": [MP_B, SR], "precision": "fp32_strict", "adamw_eps": 1.0}
     base = strict_smooth(repo_config("conformer.yaml"))
     out["one_device"], ref = mp_case("one device", base, wav)
+    out["one_device_remat"] = mp_case("one device, remat", with_remat(base), wav, ref)[0]
+    long_wav = torch.from_numpy((np.random.RandomState(MP_SEED).randn(*MP_LONG) * 0.1)
+                                .astype(np.float32)).cuda()
+    out["long"], long_ref = mp_case("8 x 10 s", base, long_wav)
+    out["long_remat"] = mp_case("8 x 10 s, remat", with_remat(base), long_wav, long_ref)[0]
+    del long_wav, long_ref
     for n in (2, 4):
         cfg = copy.deepcopy(base)
         cfg.train.tensor_parallel = n
@@ -6063,12 +6101,18 @@ def model_parallel_path(card, dev=None):
     _SEED0.clear()
     moe = strict_smooth(repo_config("conformer_moe.yaml"))
     out["moe_one_device"], ref = mp_case("MoE one device", moe, wav)
+    out["moe_one_device_remat"] = mp_case("MoE one device, remat", with_remat(moe), wav, ref)[0]
     cfg = copy.deepcopy(moe)
     cfg.train.tensor_parallel = 2
     out["moe_tp2"] = mp_case("MoE TP 2", cfg, wav, ref, [dev] * 2)[0]
     del ref
     _SEED0.clear()
     torch.cuda.empty_cache()
+    out["remat"] = {name: {"peak_gb": [out[name]["peak_gb"], out[f"{name}_remat"]["peak_gb"]],
+                           "ms_per_step": [out[name]["ms_per_step"],
+                                           out[f"{name}_remat"]["ms_per_step"]]}
+                    for name in ("one_device", "long", "moe_one_device")}  # [off, on]
+    print(json.dumps({"remat": out["remat"], "card": card}))
     out["cases_s"] = time.perf_counter() - t0
     out["cli"] = mp_cli(repo_config("conformer.yaml"))
     t1 = time.perf_counter()
@@ -6227,6 +6271,243 @@ def soak_path(card):
     return line
 
 
+# -- 24. the installed port -------------------------------------------------------
+
+INSTALLED_SCRIPTS = {"preprocess": "audiotok-torch-preprocess", "train": "audiotok-torch-train",
+                     "extract_indices": "audiotok-torch-extract",
+                     "inference_full": "audiotok-torch-inference-full"}
+QUICKSTART_SAMPLES = 3200   # examples/quickstart_torch.py's files: 0.2 s
+
+
+def quickstart_module():
+    """examples/quickstart_torch.py, loaded by path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def pip_install(target: Path) -> float:
+    """``pip install --target`` of the tree's packaging files (pyproject.toml,
+    README.md, both packages) copied beside ``target``, so that the build
+    writes nothing into the tree; returns its seconds."""
+    root = Path(__file__).resolve().parent
+    src = target.parent / "src"
+    src.mkdir(parents=True)
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy2(root / name, src / name)
+    for pkg in ("audiotokenization_tpu", "audiotokenization_tpu_torch"):
+        shutil.copytree(root / pkg, src / pkg,
+                        ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "pip", "install", "--no-deps",
+                          "--no-build-isolation", "--no-index", "--no-cache-dir",
+                          "--no-compile", "-q", "--target", str(target), str(src)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        fail(f"24 pip install exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def bigcodec_unit_shapes(cfg, samples: int):
+    """(C, T, d) of a BigCodec's encoder and decoder ResidualUnits on inputs
+    of ``samples``."""
+    e, d = cfg.model.codec_encoder, cfg.model.codec_decoder
+    shapes, c, t = [], e.ngf, samples
+    for stride in e.up_ratios:
+        shapes += [(c, t, dil) for dil in e.dilations]
+        c, t = 2 * c, t // stride
+    c = d.upsample_initial_channel
+    for stride in d.up_ratios:
+        c, t = c // 2, t * stride
+        shapes += [(c, t, dil) for dil in d.dilations]
+    return shapes
+
+
+def installed_job(tmp: Path) -> dict:
+    """Phase 24's places under ``tmp`` (the site dir pip installs into, the
+    quickstart's work dir outside the repo, the fresh ATT_TORCH_CACHE), the
+    installed scripts and the environment of the processes it starts."""
+    import os
+
+    job = {"tmp": tmp, "qs": quickstart_module(), "site": tmp / "site", "work": tmp / "work",
+           "cache": tmp / "cache"}
+    job["env"] = {**os.environ, "ATT_TORCH_CACHE": str(job["cache"]),
+                  "PYTHONPATH": os.pathsep.join([str(job["site"])] + [
+                      p for p in [os.environ.get("PYTHONPATH")] if p])}
+    job["scripts"] = {m: job["site"] / "bin" / name for m, name in INSTALLED_SCRIPTS.items()}
+    return job
+
+
+def installed_build(job) -> dict:
+    """24 (b): the installed package builds K1 and K2 into the fresh
+    ATT_TORCH_CACHE (``ops/cuda/build.py::build_all``, the two nvcc
+    processes started together), in a process of its own outside the repo;
+    fatal unless it built from the installed sources. Returns its seconds
+    and the sources' directory."""
+    code = ("import json; from audiotokenization_tpu_torch.ops.cuda import build; "
+            "build.build_all(('vq_argmin', 'residual_unit')); "
+            "print(json.dumps({'csrc': str(build.CSRC_DIR), 'dir': str(build.build_dir())}))")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], cwd=job["work"], env=job["env"],
+                         capture_output=True, text=True)
+    if res.returncode:
+        fail(f"24 the installed package's build exited {res.returncode}:\n"
+             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    info = json.loads(res.stdout.strip().splitlines()[-1])
+    if not Path(info["csrc"]).resolve().is_relative_to(job["site"]) or \
+            Path(info["dir"]).resolve() != job["cache"] / "kernels":
+        fail(f"24 the installed package built from {info['csrc']} into {info['dir']}, not "
+             f"from under {job['site']} into {job['cache'] / 'kernels'}")
+    return {"build_s": time.perf_counter() - t0, "csrc_dir": info["csrc"]}
+
+
+def installed_prepare_child(tmp: str):
+    """24 (a) and (b) in a process of its own (this script with
+    --installed-prepare): pip install, the quickstart's corpus, the
+    installed package's build; writes prepare.json with their seconds."""
+    job = installed_job(Path(tmp))
+    t0 = time.perf_counter()
+    out = {"pip_install_s": pip_install(job["site"])}
+    missing = [p.name for p in job["scripts"].values() if not p.is_file()]
+    if missing:
+        fail(f"24 pip installed no {missing} under {job['site'] / 'bin'}")
+    job["qs"].prepare(job["work"])
+    out.update(installed_build(job))
+    out["prepare_s"] = time.perf_counter() - t0
+    (job["tmp"] / "prepare.json").write_text(json.dumps(out))
+
+
+def installed_port_prepare():
+    """Start 24 (a) and (b) (``installed_prepare_child``) in a process
+    group of its own; ``main`` starts it beside the repo's own build, since
+    it needs the CPU and not the card. Returns (its temp dir, the process);
+    the process group is killed and the dir removed at exit."""
+    import atexit
+    import os
+    import signal
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_installed_")).resolve()
+    with (tmp / "prepare.log").open("w") as log:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--installed-prepare", str(tmp)], stdout=log,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return tmp, proc
+
+
+def installed_steps(job, modules) -> dict:
+    """The quickstart steps of ``modules`` through the installed scripts:
+    preprocess and train in turn (the next step reads what they write),
+    extract and evaluate together; fatal unless each exits 0. Returns each
+    one's seconds, from its start until it was seen to end."""
+    steps = [(m, argv) for m, argv in job["qs"].steps(job["work"], "cuda") if m in modules]
+    procs, seconds = {}, {}
+
+    def finish(module):
+        proc, log, start = procs[module]
+        proc.wait()
+        log.close()
+        seconds.setdefault(module, time.perf_counter() - start)
+
+    try:
+        for module, argv in steps:
+            log = (job["tmp"] / f"{module}.log").open("w")
+            procs[module] = (subprocess.Popen([str(job["scripts"][module]), *argv],
+                                              cwd=job["work"], env=job["env"], stdout=log,
+                                              stderr=subprocess.STDOUT), log,
+                             time.perf_counter())
+            if module in ("preprocess", "train"):
+                finish(module)
+    finally:
+        for module in procs:
+            finish(module)
+    for module, (proc, _, _) in procs.items():
+        if proc.returncode:
+            text = (job["tmp"] / f"{module}.log").read_text()
+            fail(f"24 {job['scripts'][module].name} exited {proc.returncode}:\n{text[-4000:]}")
+    return seconds
+
+
+def installed_port_path(card, prepared=None):
+    """24. The quickstart through the installed port (module docstring):
+    (a) pip install into a temp dir outside the repo and the quickstart's
+    corpus, (b) K1 and K2 built by the installed package into a fresh
+    ATT_TORCH_CACHE, both in ``prepared``'s process (started here when
+    none was), (c) preprocess and train, then extract and evaluate
+    together, through the installed scripts, and the checks; prints the
+    installed_port line: ``phase_24_s`` from this call's start, and
+    ``phase_24_whole_s``, (a) and (b)'s seconds plus those after them, the
+    phase's time when run in turn."""
+    from audiotokenization_tpu_torch import config as PC
+    from audiotokenization_tpu_torch.cli import extract_indices
+    from audiotokenization_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    tmp, proc = installed_port_prepare() if prepared is None else prepared
+    try:
+        proc.wait()
+        if proc.returncode:
+            fail(f"24 (a, b) exited {proc.returncode}:\n"
+                 f"{(tmp / 'prepare.log').read_text()[-4000:]}")
+        job = installed_job(tmp)
+        qs, work, cache = job["qs"], job["work"], job["cache"]
+        out = json.loads((tmp / "prepare.json").read_text())
+        out["waited_s"] = time.perf_counter() - t0
+        out["steps_s"] = installed_steps(job, ("preprocess", "train"))
+        out["steps_s"].update(installed_steps(job, ("extract_indices", "inference_full")))
+        built = sorted(p.name for p in (cache / "kernels").glob("*.so"))
+        want = [build.library_path(n).name for n in ("vq_argmin", "residual_unit")]
+        out["cache_libraries"] = built
+        if not set(want) <= set(built):
+            fail(f"24 the fresh ATT_TORCH_CACHE holds {built}, not {want} (the installed "
+                 "sources' hash)")
+        run = work / "run"
+        (extract_argv,) = [argv for module, argv in qs.steps(work, "cuda")
+                           if module == "extract_indices"]
+        _, launches = counted(lambda: extract_indices.main(
+            extract_argv + ["--output_folder", "extracted_indices_repo"]))
+        installed = {p.relative_to(run / "extracted_indices"): p.read_bytes()
+                     for p in sorted((run / "extracted_indices").rglob("*.npy"))}
+        repo = {p.relative_to(run / "extracted_indices_repo"): p.read_bytes()
+                for p in sorted((run / "extracted_indices_repo").rglob("*.npy"))}
+        n_files = sum(n for _, _, n in qs.SPEAKERS)
+        if len(installed) != n_files or installed != repo:
+            fail(f"24 the installed port's {len(installed)} token files differ from the "
+                 f"repo's extraction of the same run dir ({len(repo)} files, "
+                 f"{sum(installed.get(k) != v for k, v in repo.items())} differ)")
+        cfg = PC.load_config(run / "config.json")
+        units = len(cfg.model.codec_encoder.up_ratios) * len(cfg.model.codec_encoder.dilations)
+        expect_launches("24 the repo's extraction", launches, (n_files, units * n_files))
+        summary = json.loads((run / "inference_full" / "summary.json").read_text())
+        shapes = bigcodec_unit_shapes(cfg, QUICKSTART_SAMPLES)
+        out.update({
+            "token_files": len(installed), "token_files_equal": True,
+            "repo_extract_launches": list(launches),
+            "repo_extract_per_batch": [launches[0] / n_files, launches[1] / n_files],
+            "summary_keys": sorted(summary)[:12],
+            "k2_widths": sorted({c for c, _, _ in shapes}),
+            "k2_max_abs_err": check_k2(shapes, batch=2, what="24 K2")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_24_s"] = time.perf_counter() - t0
+    out["phase_24_whole_s"] = out["prepare_s"] + out["phase_24_s"] - out["waited_s"]
+    print(json.dumps({"installed_port": out, "card": card}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6245,10 +6526,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = Config()
     t0 = time.perf_counter()
+    prepared = installed_port_prepare()  # 24 (a, b): pip and two nvcc beside the build
     with ThreadPoolExecutor(1) as pool:  # the kernels build while the CPU runs (b')'s step
         built = pool.submit(build.build_all)
         threads = torch.get_num_threads()
-        torch.set_num_threads(max(1, threads - len(build.KERNELS)))
+        torch.set_num_threads(max(1, threads - len(build.KERNELS) - 2))
         try:
             bf16_ref = bf16_cpu_reference(cfg)
         finally:
@@ -6324,10 +6606,11 @@ def main() -> int:
     mpp = model_parallel_path(card)
     print(json.dumps({"phase_22_s": mpp["phase_22_s"], "card": card}))
     soak = soak_path(card)
+    installed = installed_port_path(card, prepared)
     sp, tp_pp = par["sp_flagship"], par["conformer"]
 
     def path_launches(kernel):
-        """A kernel's launches per call on the paths of phases 10-20."""
+        """A kernel's launches per call on the paths of phases 10-24."""
         k = ("vq_argmin", "residual_unit").index(kernel)
         return {
             f"sp_tokenize_{SP_SECONDS}s_{SP_SHARDS}_shards":
@@ -6348,6 +6631,9 @@ def main() -> int:
             "tp_fsdp_cli_per_rank_step": mpp["cli"]["launches_per_rank_step"][k],
             "soak_resume_per_step": soak["per_step"][k],
             "soak_extract_per_batch": soak["per_extract_batch"][k],
+            "remat_train_per_step": {"conformer": mpp["one_device_remat"]["launches_per_step"][k],
+                                     "moe": mpp["moe_one_device_remat"]["launches_per_step"][k]},
+            "installed_quickstart_repo_extract_per_batch": installed["repo_extract_per_batch"][k],
             "speaker_verification_cli_per_call": sv["cli"]["launches"][kernel],
             "speaker_verification_codec_leg": sv["codec_leg"]["launches"][kernel],
             "token_lm_train_per_step": token_lm["train"]["launches_per_step"][kernel],
@@ -6459,7 +6745,13 @@ def main() -> int:
                               "and FSDP, a rank's launches per forward; "
                               "soak_resume_per_step / soak_extract_per_batch: phase 23's "
                               "resume check (scripts/soak_matrix.py), a bf16 step of 16 x 1 s "
-                              "through cli.train and a batch of cli.extract_indices"}))
+                              "through cli.train and a batch of cli.extract_indices; "
+                              "remat_train_per_step: phase 22's one-device fp32_strict "
+                              "step of 12 x 1 s with each Conformer layer recomputed "
+                              "(train.remat on); installed_quickstart_repo_extract_per_batch: "
+                              "phase 24's extraction, by the repo's port, of the run dir "
+                              "the installed audiotok-torch-* scripts trained (the tiny "
+                              "BigCodec, one 0.2 s file a batch)"}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -6473,6 +6765,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-cli"]:  # a torchrun rank of phase 22
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         mp_cli_rank(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--installed-prepare"]:  # phase 24's install and build
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        installed_prepare_child(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--soak"]:  # phase 23's process
         sys.path.insert(0, str(Path(__file__).resolve().parent))

@@ -1,9 +1,10 @@
 """One rank of the port's data-parallel tests (tests/test_torch_dp.py,
 tests/test_torch_dp_loop.py), started as
 
-    python tests/_torch_dp_worker.py <job.pt> <rank> <world size> <port>
+    python tests/_torch_dp_worker.py <job.pt> <rank> <world size> <init method>
 
-It imports torch and the port only, joins a gloo group on localhost, runs
+It imports torch and the port only, joins a gloo group through the init
+method (a ``file://`` store beside the job), runs
 the job's cases in order and writes ``out_<rank>.pt`` beside the job file:
 
 - ``steps``: {name: {"cfg": a config dict, "state": a one-card train state
@@ -105,11 +106,10 @@ def run_loop(case, group):
             "batches": [len(train_loader), len(val_loader), len(test_loader)]}
 
 
-def main(job_path, rank, world, port):
+def main(job_path, rank, world, init_method):
     torch.set_num_threads(1)
     job = torch.load(job_path, weights_only=False)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world)
     group = dist.group.WORLD
     out = {"steps": {name: run_steps(case, group) for name, case in job.get("steps", {}).items()},
            "loops": {name: run_loop(case, group) for name, case in job.get("loops", {}).items()}}

@@ -8,7 +8,7 @@ from audiotokenization_tpu_torch.ops.cuda import build
 def test_library_path_is_keyed_by_the_source():
     for name in build.KERNELS:
         path = build.library_path(name)
-        assert path.parent == build.BUILD_DIR
+        assert path.parent == build.build_dir() == build.kernel_cache_dir() / "kernels"
         stem, digest = path.stem.rsplit("-", 1)
         assert stem == name and len(digest) == 16
         assert (build.CSRC_DIR / f"{name}.cu").is_file()

@@ -9,7 +9,10 @@ tests/test_moe.py's MoE feed-forward (4 experts; capacity factor 2.0, and
   ``moe_load_balance``, ``moe_router_z`` and ``moe_dropped_frac`` among
   them; the codebook histograms equal; every leaf's update within rtol
   1e-3 / atol 1e-3 x its max |update| (plus twice the parameters' fp32
-  spacing), the routers' and the stacked experts' included;
+  spacing), the routers' and the stacked experts' included; these are
+  remat steps on both sides (``train.remat`` "auto" resolves on at fp32 in
+  both packages: JAX's ``jax.checkpoint`` per layer, the port's
+  ``ops/params.py::checkpointed``, each layer run twice);
 - bf16 (the configs' precision), dense: the masters stay fp32, every
   metric finite and within rtol 5e-2 of JAX's, oneDNN off (this CPU build's
   oneDNN bf16 conv2d is wrong where the kernel is wider than the padded
@@ -29,10 +32,12 @@ import numpy as np
 import pytest
 import torch
 
+from audiotokenization_tpu.config import resolve_remat as jax_resolve_remat
 from audiotokenization_tpu.train.state import TrainState, make_optimizers
 from audiotokenization_tpu.train.step import make_train_step as jax_make_train_step
 from audiotokenization_tpu_torch import config as PC
 from audiotokenization_tpu_torch.convert import params_from_jax
+from audiotokenization_tpu_torch.ops import transformer
 from audiotokenization_tpu_torch.ops.moe import MoEFeedForward
 from audiotokenization_tpu_torch.train.state import init_train_state
 from audiotokenization_tpu_torch.train.step import make_train_step
@@ -128,9 +133,21 @@ CASES = {"dense": (None, 0), "moe_capacity_2.0": (2.0, 1), "moe_capacity_1.25": 
 
 @pytest.fixture(scope="module")
 def fp32_steps():
+    """Per case ``one_step``'s result; under ``"layer_calls"`` the port's
+    ``conformer_layer`` calls in each case's step."""
     base = smooth(conformer_tiny_config())
-    return {name: one_step(base if cf is None else moe(base, cf), seed)
-            for name, (cf, seed) in CASES.items()}
+    out, calls, layer = {}, {}, transformer.conformer_layer
+
+    def counted(*args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return layer(*args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(transformer, "conformer_layer", counted)
+        for name, (cf, seed) in CASES.items():
+            out[name] = one_step(base if cf is None else moe(base, cf), seed)
+    out["layer_calls"] = calls
+    return out
 
 
 def test_jax_tree_inverts_params_from_jax():
@@ -167,6 +184,19 @@ def test_step_updates_match_jax(fp32_steps, case):
     experts = [n for n, m in port.gen.named_modules() if isinstance(m, MoEFeedForward)]
     assert len(experts) == (0 if case == "dense" else 2)  # the encoder's, one layer x 2
     assert all(f"gen.{n}.router.w" in pa for n in experts)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fp32_steps_recompute_every_layer(fp32_steps, case):
+    """The steps held against JAX above are remat steps on both sides."""
+    cf, _ = CASES[case]
+    jcfg = smooth(conformer_tiny_config())
+    jcfg = jcfg if cf is None else moe(jcfg, cf)
+    assert jcfg.train.remat == "auto" and jax_resolve_remat(jcfg)
+    assert PC.resolve_remat(PC.from_dict(dataclasses.asdict(jcfg)))
+    gen = fp32_steps[case][2].gen
+    n_layers = len(gen.encoder.backbone.layers) + len(gen.decoder.backbone.layers)
+    assert fp32_steps["layer_calls"][case] == 2 * n_layers
 
 
 def test_bf16_step_tracks_jax():

@@ -112,11 +112,11 @@ def test_flac_build_failure_raises(tmp_path, monkeypatch):
     bad = tmp_path / "flacdec.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(PF, "_SRC", bad)
-    monkeypatch.setattr(PF, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("ATT_TORCH_CACHE", str(tmp_path / "build"))
     monkeypatch.setattr(PF, "_LIB", None)
     with pytest.raises(RuntimeError, match="building the FLAC decoder failed"):
         PF.decode_flac_bytes(b"fLaC")
-    assert not list((tmp_path / "build").glob("*.so"))
+    assert not list((tmp_path / "build").rglob("*.so"))
 
 
 def test_wav_io_matches_jax(tmp_path):

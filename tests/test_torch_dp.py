@@ -104,10 +104,12 @@ def start_ranks(job: dict, tmp: Path):
     them and gives each rank's output."""
     tmp.mkdir(parents=True, exist_ok=True)
     torch.save(job, tmp / "job.pt")
-    port = free_port()
+    # a file store in the job's own dir: no probed port that another test's
+    # ranks could take meanwhile
+    init = (tmp / "rendezvous").as_uri()
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(tmp / "job.pt"), str(r),
-                               str(RANKS), port], stdout=subprocess.PIPE,
+                               str(RANKS), init], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, env=env)
              for r in range(RANKS)]
 
@@ -317,7 +319,7 @@ def test_fsdp_matches_the_dp_step_and_shards(results):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_fsdp_blocks_hold_on_the_backward_thread(monkeypatch, precision):
+def test_fsdp_blocks_hold_on_the_backward_thread(monkeypatch, tmp_path, precision):
     import threading
 
     import torch.distributed as dist
@@ -354,7 +356,7 @@ def test_fsdp_blocks_hold_on_the_backward_thread(monkeypatch, precision):
     cfg = dryrun.tiny_config()
     cfg.train.precision, cfg.train.remat = precision, True
     wav = torch.from_numpy((np.random.RandomState(3).randn(2, T) * 0.1).astype(np.float32))
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", rank=0,
+    dist.init_process_group("gloo", init_method=(tmp_path / "rendezvous").as_uri(), rank=0,
                             world_size=1)
     try:
         after = []

@@ -42,7 +42,6 @@ import copy
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -239,8 +238,8 @@ WORKER = textwrap.dedent("""
     from audiotokenization_tpu_torch.models.quantizers import ema_vq as TE
     from audiotokenization_tpu_torch.models.quantizers.lfq import lfq_apply
 
-    rank, port, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+    rank, path = int(sys.argv[1]), sys.argv[2]
+    dist.init_process_group("gloo", init_method=f"file://{path}/rendezvous", world_size=2,
                             rank=rank)
     data = np.load(path + "/inputs.npz")
     half = data["x"].shape[0] // 2
@@ -262,12 +261,6 @@ WORKER = textwrap.dedent("""
 """)
 
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_all_reduced_update_equals_the_whole_batch(tmp_path):
     from audiotokenization_tpu_torch.models.quantizers.lfq import lfq_apply
 
@@ -275,9 +268,8 @@ def test_all_reduced_update_equals_the_whole_batch(tmp_path):
     z = np.random.RandomState(5).randn(4, 6, 20).astype(np.float32)
     state = np_tree(init_state({"affine_param": True}))
     np.savez(tmp_path / "inputs.npz", x=x, z=z, **{f"state.{k}": v for k, v in state.items()})
-    port = str(free_port())
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(rank), port, str(tmp_path)],
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(rank), str(tmp_path)],
                               env=env) for rank in (0, 1)]
     for p in procs:
         assert p.wait(timeout=120) == 0

@@ -19,6 +19,11 @@ JAX's TP + FSDP step on a 2 x 2 mesh (``fsdp_min_size`` 64), the ranks
 equal bit for bit, some leaves cut over the ranks, the TP leaves over the
 model devices, one FSDP block full at a time.
 
+These fp32 steps are remat steps (``train.remat`` "auto" resolves on at
+fp32 in both packages). The MoE TP 2 step and the TP + FSDP ranks' step
+also run with remat off: every metric and leaf after the step within 1e-6
+relative of the remat step (tests/test_torch_remat.py's rule).
+
 The TP leaves (JAX's ``test_tp_train_step_params_actually_sharded``) are
 held as cuts on their model devices, their AdamW moments the cuts', the
 module's parameter an empty placeholder. A short loop (2 steps,
@@ -46,6 +51,7 @@ from audiotokenization_tpu_torch.train.step import make_train_step
 from test_tp import tp_tiny_config
 from test_torch_conformer_train import MOE_KEYS, moe, one_torch_thread, states  # noqa: F401
 from test_torch_dp import start_ranks
+from test_torch_remat import close, with_remat
 from test_torch_train import KEYS, jax_leaves, leaves, smooth
 
 B, T = 8, 800
@@ -103,10 +109,12 @@ def results(tmp_path_factory):
     wav = batch()["wav"]
     made = {name: states(jax_cfg(is_moe)) for name, (is_moe, _) in CASES.items()}
     fcfg, fport, fjstate = states(jax_cfg(False))
-    job = {"steps": {"tp2_fsdp": {
-        "cfg": dataclasses.asdict(with_tp(fcfg, 2)), "state": copy.deepcopy(fport.state_dict()),
+    job = {"steps": {name: {
+        "cfg": dataclasses.asdict(with_remat(with_tp(fcfg, 2), remat)),
+        "state": copy.deepcopy(fport.state_dict()),
         "batches": [{"wav": wav}], "fsdp": True, "min_size": FSDP_MIN_SIZE, "draws": None,
-        "model_devices": ["cpu", "cpu"]}}}
+        "model_devices": ["cpu", "cpu"]} for name, remat in (("tp2_fsdp", "auto"),
+                                                              ("tp2_fsdp_kept", False))}}
     wait = start_ranks(job, tmp_path_factory.mktemp("tp_fsdp"))
     out = {}
     with ThreadPoolExecutor(len(CASES) + 1) as pool:
@@ -118,10 +126,14 @@ def results(tmp_path_factory):
             cfg, port, _ = made[name]
             out[name] = {"one": port_step(cfg, port, wav),
                          "tp": port_step(with_tp(cfg, n), port, wav, ["cpu"] * n)}
+        cfg, port, _ = made["ep"]
+        out["ep"]["tp_kept"] = port_step(with_remat(with_tp(cfg, 2), False), port, wav,
+                                         ["cpu"] * 2)
         for name, f in futures.items():
             out.setdefault(name, {})["jax"] = f.result()
     ranks = wait()
     out["tp2_fsdp"]["ranks"] = [r["steps"]["tp2_fsdp"] for r in ranks]
+    out["tp2_fsdp"]["kept"] = [r["steps"]["tp2_fsdp_kept"] for r in ranks]
     out["tp2_fsdp"]["before"] = leaves(fport)
     return out
 
@@ -167,6 +179,33 @@ def test_tp_fsdp_two_ranks_match_jax(results):
     assert not set(r0["sharded"]) & set(r0["tp_leaves"])
     assert all(r["before"][leaf].size >= FSDP_MIN_SIZE for leaf in r0["sharded"])
     assert r0["max_full_blocks"] == r1["max_full_blocks"] == 1
+
+
+def test_tp_remat_equals_the_kept_step(results):
+    """The MoE TP 2 step, remat on (fp32 "auto") against remat off."""
+    assert PC.resolve_remat(with_tp(PC.from_dict(dataclasses.asdict(jax_cfg(True))), 2))
+    (on_m, _, on_after, _), (off_m, _, off_after, state) = (results["ep"]["tp"],
+                                                            results["ep"]["tp_kept"])
+    assert state.gen_opt.sync.tp_leaves()
+    assert set(on_m) == set(off_m) and set(on_after) == set(off_after)
+    for key in off_m:
+        close(on_m[key], off_m[key], key)
+    for leaf in off_after:
+        close(on_after[leaf], off_after[leaf], leaf)
+
+
+def test_tp_fsdp_remat_equals_the_kept_step(results):
+    """The TP + FSDP ranks' step, remat on against remat off, one FSDP
+    block full at a time in both."""
+    for on, off in zip(results["tp2_fsdp"]["ranks"], results["tp2_fsdp"]["kept"]):
+        assert on["sharded"] and on["max_full_blocks"] == off["max_full_blocks"] == 1
+        (a,), (b,) = on["steps"], off["steps"]
+        for key in b["metrics"]:
+            close(a["metrics"][key], b["metrics"][key], key)
+        for side in ("gen", "disc"):
+            assert set(a[side]) == set(b[side])
+            for leaf in b[side]:
+                close(a[side][leaf], b[side][leaf], f"{side}.{leaf}")
 
 
 def test_tp_leaves_held_as_cuts(results):
