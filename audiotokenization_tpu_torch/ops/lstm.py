@@ -22,6 +22,8 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from ..utils import trace
+
 
 def _lengths(valid, shape) -> torch.Tensor:
     """(B, T) prefix mask -> its (B,) lengths, int64 on the CPU (one device
@@ -36,13 +38,15 @@ def _lengths(valid, shape) -> torch.Tensor:
     return lengths.cpu()
 
 
-def lstm(x, module: nn.LSTM, *, valid=None):
+def lstm(x, module: nn.LSTM, *, valid=None, lengths=None):
     """x: (B, T, in) -> (B, T, H·directions), zero initial state. valid:
     optional (B, T) prefix mask; masked steps emit zeros and leave the
-    state alone (module docstring)."""
+    state alone (module docstring); ``lengths``: its ``_lengths``, where
+    the caller holds them already."""
     if valid is None:
         return module(x)[0]
-    lengths = _lengths(valid, x.shape[:2])
+    if lengths is None:
+        lengths = _lengths(valid, x.shape[:2])
     packed = pack_padded_sequence(x, lengths.clamp_min(1), batch_first=True,
                                   enforce_sorted=False)
     out = pad_packed_sequence(module(packed)[0], batch_first=True, total_length=x.shape[1])[0]
@@ -51,12 +55,16 @@ def lstm(x, module: nn.LSTM, *, valid=None):
 
 def res_lstm(x, module: nn.LSTM, *, valid=None):
     """ResLSTM: x (B, F, T) -> (B, F, T), with the residual skip; with
-    ``valid``, masked frames come out zero, skip included."""
+    ``valid``, masked frames come out zero, skip included. One ``lstm.res``
+    span (``utils/trace.py``) around the recurrence and the skip, with its
+    device time, opened once the lengths' sync is behind it."""
     xt = x.transpose(1, 2)
-    y = lstm(xt, module, valid=valid) + xt
-    if valid is not None:
-        y = y * valid[:, :, None].to(y.dtype)
-    return y.transpose(1, 2).contiguous()
+    lengths = None if valid is None else _lengths(valid, xt.shape[:2])
+    with trace.span("lstm.res", x.device):
+        y = lstm(xt, module, valid=valid, lengths=lengths) + xt
+        if valid is not None:
+            y = y * valid[:, :, None].to(y.dtype)
+        return y.transpose(1, 2).contiguous()
 
 
 def res_lstm_streaming(x, module: nn.LSTM, state, *, valid=None):

@@ -16,6 +16,11 @@
   with plain residual adds, ``conv_first`` selecting the order;
 - ``conformer_backbone``: the layers with one RoPE table sliced to T.
 
+Spans (``utils/trace.py``): ``conformer.backbone`` around the layers;
+``transformer.attention`` and, for the dense feed-forward,
+``transformer.ffn`` around each sub-layer with its norm and residual add,
+with their device time.
+
 The backbone runs time-major, (B, T, C), where the JAX package's layer
 boundary is (B, C, T): every op but the depthwise conv works on the last
 dim, so the layout changes nothing but where the transposes are. The
@@ -64,6 +69,7 @@ from torch import nn
 from ..parallel.fsdp import run_block
 from ..parallel.tp import (constrain_heads, row_parallel_sum, tp_model_shards, tp_qkv_heads,
                            tp_shard)
+from ..utils import trace
 from .conv import causal_conv1d, conv1d, get_weight, init_conv1d, init_linear, linear, pointwise
 from .moe import MoEFeedForward, moe_ffn
 from .params import checkpointed
@@ -310,17 +316,19 @@ def conformer_layer(x, p: ConformerLayer, cos, sin, *, n_head: int, conv_first: 
                               device=x.device)
 
     def attn(x):
-        return x + self_attention(rms_norm(x, p.attn_norm), p.attn, cos, sin, n_head=n_head,
-                                  bias=bias, causal=causal)
+        with trace.span("transformer.attention", x.device):
+            return x + self_attention(rms_norm(x, p.attn_norm), p.attn, cos, sin,
+                                      n_head=n_head, bias=bias, causal=causal)
 
     def conv(x):
         return x + conformer_conv_module(rms_norm(x, p.conv_norm), p.conv, causal=causal,
                                          valid=valid)
 
     def ffn(x, fp, w):
-        y = rms_norm(x, w)
         if not isinstance(fp, MoEFeedForward):
-            return x + feed_forward(y, fp)
+            with trace.span("transformer.ffn", x.device):
+                return x + feed_forward(rms_norm(x, w), fp)
+        y = rms_norm(x, w)
         mask = None if valid is None else frame_mask(valid, y.shape[1])
         out, layer_aux = moe_ffn(y, fp, top_k=int(moe_args[0]),
                                  capacity_factor=float(moe_args[1]), token_mask=mask,
@@ -371,22 +379,26 @@ def conformer_backbone(x, p: ConformerBackbone, *, valid=None, aux=None, remat: 
     if T > p.max_seq_len:
         raise ValueError(f"{T} frames exceed max_seq_len={p.max_seq_len} (the RoPE table)")
     home, args = x.device, {}
-    for layer in p.layers:
-        dev = layer.attn_norm.device  # pipeline training puts layers on several devices
-        if dev not in args:
-            v = None if valid is None else valid.to(dev)
-            args[dev] = (*(t[:T] for t in p.rope(dev)), v, None if v is None else
-                         attention_bias(T, valid=v, causal=p.causal, dtype=x.dtype, device=dev))
-        cos, sin, v, bias = args[dev]
-        kw = dict(cos=cos, sin=sin, n_head=p.n_head, conv_first=p.conv_first, causal=p.causal,
-                  valid=v, bias=bias, moe_args=p.moe_args, losses=aux is not None)
-        if remat:
-            x, layer_aux = run_block(layer, checkpointed, _layer_with_aux, layer, x.to(dev), **kw)
-        else:
-            x, layer_aux = run_block(layer, _layer_with_aux, x.to(dev), layer, **kw)
-        if aux is not None:
-            aux.extend(layer_aux)
-    return x.to(home)
+    with trace.span("conformer.backbone"):
+        for layer in p.layers:
+            dev = layer.attn_norm.device  # pipeline training puts layers on several devices
+            if dev not in args:
+                v = None if valid is None else valid.to(dev)
+                bias = None if v is None else attention_bias(T, valid=v, causal=p.causal,
+                                                             dtype=x.dtype, device=dev)
+                args[dev] = (*(t[:T] for t in p.rope(dev)), v, bias)
+            cos, sin, v, bias = args[dev]
+            kw = dict(cos=cos, sin=sin, n_head=p.n_head, conv_first=p.conv_first,
+                      causal=p.causal, valid=v, bias=bias, moe_args=p.moe_args,
+                      losses=aux is not None)
+            if remat:
+                x, layer_aux = run_block(layer, checkpointed, _layer_with_aux, layer,
+                                         x.to(dev), **kw)
+            else:
+                x, layer_aux = run_block(layer, _layer_with_aux, x.to(dev), layer, **kw)
+            if aux is not None:
+                aux.extend(layer_aux)
+        return x.to(home)
 
 
 def _layer_with_aux(x, p, *, cos, sin, losses: bool, **kwargs):

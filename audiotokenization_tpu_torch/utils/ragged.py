@@ -44,6 +44,7 @@ from ..models.bigcodec import edge_mask
 from ..models.codec import (ENCODERS, apply_fc_post_a, check_config, check_mode,
                             encode_in_mode, full_fp32, precision_scope, quantize,
                             resolve_device, semantic_vq_in)
+from . import trace
 
 
 def check_exactness(cfg: Config):
@@ -80,7 +81,8 @@ def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda
     ``tokenize`` of its own hop-padded samples, in the same ``mode``
     (``models/codec.py::encode_in_mode``; the quantizer is fp32 with TF32
     off), without gradients. Raises without a card unless
-    ``device="cpu"``."""
+    ``device="cpu"``. Each call is one ``ragged.call`` span
+    (``utils/trace.py``)."""
     device = resolve_device(device)
     check_config(cfg)
     check_exactness(cfg)
@@ -88,14 +90,15 @@ def make_ragged_tokenizer(cfg: Config, *, mode: str = "conformant", device="cuda
     hop = codec_hop(cfg)
 
     def run(codec, wavs, lengths, semantic_target=None):
-        wavs = _maybe_pcm16(torch.as_tensor(wavs, device=device)).float()
-        lengths = torch.as_tensor(lengths, device=device).long()
-        lat = encode_in_mode(codec.encoder, wavs[:, None, :], mode, lengths=lengths)
-        with torch.no_grad(), full_fp32():
-            lat = semantic_vq_in(codec, lat, _target(semantic_target, device),
-                                 frames=lengths // hop)
-            _, codes, _ = quantize(codec, lat)
-        return codes
+        with trace.span("ragged.call"):
+            wavs = _maybe_pcm16(torch.as_tensor(wavs, device=device)).float()
+            lengths = torch.as_tensor(lengths, device=device).long()
+            lat = encode_in_mode(codec.encoder, wavs[:, None, :], mode, lengths=lengths)
+            with torch.no_grad(), full_fp32():
+                lat = semantic_vq_in(codec, lat, _target(semantic_target, device),
+                                     frames=lengths // hop)
+                _, codes, _ = quantize(codec, lat)
+            return codes
 
     return run
 
